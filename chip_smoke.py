@@ -3,25 +3,46 @@
     python3 chip_smoke.py
 
 Run from the repository root. It builds the CUDA kernels from
-``jax_tpus_benchmark_physics_simulation_tpu_torch/ops/kernels/csrc``, then:
+``jax_tpus_benchmark_physics_simulation_tpu_torch/ops/kernels/csrc`` (one
+``nvcc`` per source, all at once), then:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions and the kernel build time;
-2. checks each kernel against its plain PyTorch version at the N=100k
-   shapes (121 x 16 x 121 grid) on a state whose positions are unwrapped
-   near the seams: B1 forces (max abs diff <= 1e-4 over occupied slots),
-   B1 energy variant (e and w sums at rtol 1e-5), B2 (bit-equal); and
-   times each against its plain version with CUDA events;
-3. checks B1 forces on 1024 particles against the dense O(N^2) oracle
-   computed from all 100k particles (atol 1e-4);
-4. checks that a short run at N=4096 on the card agrees with the same run
-   on the CPU (the plain versions), energies at rtol 1e-4;
-5. drives the main path, ``lj_fluid.run`` at N=100k (rho 0.8, cutoff 2.5,
+2. 2D kernels at the N=100k shapes (121 x 16 x 121 grid) on a state whose
+   positions are unwrapped near the seams, each against its plain PyTorch
+   version: B1 forces (max abs diff <= 1e-4 over occupied slots), B1 energy
+   variant (e and w sums at rtol 1e-5), B2 (bit-equal); timed with CUDA
+   events;
+3. B1 forces on 1024 particles against the dense O(N^2) oracle computed
+   from all 100k particles (atol 1e-4);
+4. a 2D run at N=4096 on the card against the same run on the CPU (the
+   plain versions), energies at rtol 1e-4;
+5. the 2D main path, ``lj_fluid.run`` at N=100k (rho 0.8, cutoff 2.5,
    dt 1e-3, lattice init, Kahan on, 2000 + 2000 steps), with every launch
    counter set to 0 just before: overflow False, finite energies, energy
-   drift < 1e-4, and every kernel launched;
-6. prints a JSON line with each kernel's launches, error and times, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   drift < 1e-4, and B1, B1-energy and B2 launched;
+6. the 3D main path, ``lj_fluid.run`` with ``dim=3`` at N=100k (the same
+   configuration; skin 0.1316, 19 cells per side, fixed production
+   cadence from the measured kT), with every counter set to 0 just before:
+   overflow False, finite histories, drift < 1e-4, finite P*, and B4,
+   B4-energy, B5 and B6 launched;
+7. 3D kernels at the N=100k shapes (19 x 32 x 361 grid) on a state 90
+   steps from the main path's final one, some coordinates outside
+   [0, box): B4 and B5 forces against their plain versions and B5 against
+   B4 (<= 1e-4 over occupied slots), B4's energy variant (forces <= 1e-4,
+   e and w sums at rtol 1e-5), B6 and B7 against the plain version and
+   each other (bit-equal); timed with CUDA events;
+8. B4 forces on 1024 interior particles against the dense oracle computed
+   from all 100k particles (atol 1e-4);
+9. a 3D run at N=8192 (100 + 100 steps) on the card against the same run
+   on the CPU, energies at rtol 1e-4 and the same overflow flags;
+10. about 200 steps at N=100k with ``migrate_compact=False`` (B7), with
+    every counter set to 0 just before: B7 launched, and the final state
+    bit-equal to the same run on B6;
+11. prints a JSON line with each kernel's launches on its main path,
+    error, times, and bound (the larger of the operations over the card's
+    float32 peak and the bytes over its memory rate, counted on this run's
+    inputs), and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 Without a CUDA device it stops before doing anything.
@@ -29,11 +50,16 @@ Without a CUDA device it stops before doing anything.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
 import sys
 import time
+
+# H100 SXM data sheet: float32 outside the tensor cores, and HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -53,6 +79,83 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _max_diff(got, want, occ, name: str, tol: float) -> float:
+    """Max abs difference of the first grids of ``got`` and ``want`` over the
+    occupied slots; raises above ``tol``."""
+    err = max(float((a - b)[occ].abs().max()) for a, b in zip(got, want))
+    if not err <= tol:
+        raise AssertionError(f"{name}: max abs diff {err:.3e} > {tol}")
+    return err
+
+
+def _sums_close(got, want, name: str, rtol: float) -> float:
+    """Checks the sums of the grids (e, w) at ``rtol``; returns their max abs
+    element difference."""
+    err = 0.0
+    for label, a, b in zip(("e", "w"), got, want):
+        sa, sb = float(a.double().sum()), float(b.double().sum())
+        if not abs(sa - sb) <= rtol * abs(sb):
+            raise AssertionError(f"{name}: sum of {label} {sa} vs {sb}, beyond rtol {rtol}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def _pair_work(grids, occ, cps: int, bound: int, box: float, cutoff2: float):
+    """``(candidates, in_cutoff)`` that a cell-list force needs on these
+    inputs: each occupied particle against the occupied slots of its 3^d
+    neighbour cells, itself excluded, and the pairs among them inside the
+    cutoff. ``grids`` are the d coordinate grids, viewed as
+    ``(cps, cap, cps[, cps])``; slots ``>= bound`` must be empty."""
+    import torch
+
+    d = len(grids)
+    shape = (cps, occ.shape[1]) + (cps,) * (d - 1)
+    coords = [g.reshape(shape)[:, :bound] for g in grids]
+    occ_v = occ.reshape(shape)[:, :bound] > 0.5
+    n_cell = occ_v.sum(1)
+    cell_axes = (0,) + tuple(range(2, d + 1))
+    idx = torch.arange(cps, device=occ.device)
+    candidates, in_cut = -int(occ_v.sum()), 0
+    for offs in itertools.product((-1, 0, 1), repeat=d):
+        shifts = [-o for o in offs]
+        candidates += int((n_cell * torch.roll(n_cell, shifts, tuple(range(d)))).sum())
+        r2 = 0.0
+        for k, g in enumerate(coords):
+            seam = ((idx + offs[k] >= cps).float() - (idx + offs[k] < 0).float()) * box
+            view = [1] * g.dim()
+            view[cell_axes[k]] = cps
+            p = torch.roll(g, shifts, cell_axes) + seam.view(view)
+            diff = g.unsqueeze(2) - p.unsqueeze(1)
+            r2 = r2 + diff * diff
+        partner = torch.roll(occ_v, shifts, cell_axes)
+        valid = (r2 > 0) & (r2 < cutoff2) & occ_v.unsqueeze(2) & partner.unsqueeze(1)
+        in_cut += int(valid.sum())
+    return candidates, in_cut
+
+
+def _bound(flops: float, nbytes: float):
+    """``(bound_ms, bound_by)``: the larger of the operations over the
+    float32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _force_bounds(work, dim: int, n_slots: int):
+    """Bounds of the force kernel and its energy variant: a distance test
+    costs 3d - 1 operations, an in-cutoff pair 7 + 2d more (one divide,
+    s^6, the force magnitude, d products and d sums), 14 + 2d with the
+    energy and virial; d coordinate grids in, d (or d + 2) out."""
+    candidates, in_cut = work
+    tests = (3 * dim - 1) * candidates
+    return (_bound(tests + (7 + 2 * dim) * in_cut, 4 * n_slots * 2 * dim),
+            _bound(tests + (14 + 2 * dim) * in_cut, 4 * n_slots * (2 * dim + 2)))
+
+
+def _migrate_bound(n_fields: int, n_slots: int):
+    """A permutation: the code grid and F fields read once, F written."""
+    return _bound(0.0, 4 * n_slots * (2 * n_fields + 1))
+
+
 def main() -> int:
     import torch
 
@@ -65,12 +168,21 @@ def main() -> int:
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import (
         _build,
         cell_cuda,
+        cell_cuda3,
         migrate_cuda,
+        migrate_cuda3,
     )
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md3 import GridMD3
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.thermo import temperature
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    def reset_counts():
+        cell_cuda.LAUNCHES = cell_cuda.ENERGY_LAUNCHES = migrate_cuda.LAUNCHES = 0
+        cell_cuda3.LAUNCHES = cell_cuda3.ENERGY_LAUNCHES = cell_cuda3.STATIC_LAUNCHES = 0
+        migrate_cuda3.LAUNCHES = migrate_cuda3.FLAT_LAUNCHES = 0
 
     # -- 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -85,7 +197,9 @@ def main() -> int:
           f"torch {torch.__version__}; CUDA {torch.version.cuda}; kernel build {build_s:.2f} s",
           flush=True)
 
-    # -- 2. kernels vs plain versions at the N=100k shapes --------------------
+    times, errors, bounds, launches = {}, {}, {}, {}
+
+    # -- 2. 2D kernels vs plain versions at the N=100k shapes -----------------
     cfg = override(
         MDConfig(), n=100_000, rho=0.8, kt=1.0, dt=1e-3, cutoff=2.5, init="lattice",
         force_impl="grid", compensated=True, eq_steps=2000, prod_steps=2000, sample_every=100,
@@ -106,23 +220,13 @@ def main() -> int:
 
     fk = cell_cuda.grid_force(gs.xg, gs.yg, p)
     fr = cell_cuda.grid_force_reference(gs.xg, gs.yg, p)
-    err_f = max(float((a - b)[occ].abs().max()) for a, b in zip(fk, fr))
+    errors["cell_force"] = _max_diff(fk, fr, occ, "B1 forces", 1e-4)
     fmax = float(torch.hypot(fr[0], fr[1])[occ].max())
-    if not err_f <= 1e-4:
-        raise AssertionError(f"B1 forces: kernel vs plain max abs diff {err_f:.3e} > 1e-4")
-
     ek = cell_cuda.grid_force(gs.xg, gs.yg, p, with_energy=True)
     er = cell_cuda.grid_force_reference(gs.xg, gs.yg, p, with_energy=True)
-    err_ef = max(float((a - b)[occ].abs().max()) for a, b in zip(ek[:2], er[:2]))
-    err_e = 0.0
-    for name, a, b in (("e", ek[2], er[2]), ("w", ek[3], er[3])):
-        sa, sb = float(a.double().sum()), float(b.double().sum())
-        rel = abs(sa - sb) / abs(sb)
-        err_e = max(err_e, float((a - b).abs().max()))
-        if not rel <= 1e-5:
-            raise AssertionError(f"B1 energy variant: sum of {name} {sa} vs {sb}, rel {rel:.3e} > 1e-5")
-    if not err_ef <= 1e-4:
-        raise AssertionError(f"B1 energy variant forces: max abs diff {err_ef:.3e} > 1e-4")
+    err_ef = _max_diff(ek[:2], er[:2], occ, "B1 energy variant forces", 1e-4)
+    err_e = _sums_close(ek[2:], er[2:], "B1 energy variant", 1e-5)
+    errors["cell_force_energy"] = max(err_ef, err_e)
 
     _, _, scode, _, _ = md._migration_dest(gs)
     fields = torch.stack([torch.remainder(gs.xg, md.box), torch.remainder(gs.yg, md.box),
@@ -130,26 +234,27 @@ def main() -> int:
                           gs.crx, gs.cry, gs.cvx, gs.cvy])
     fills = [md.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0, 0.0, 0.0]
     movers = int(((scode >= 0) & (torch.div(scode, md.cap, rounding_mode="floor") != 4)).sum())
-    mk = migrate_cuda.migrate(scode, fields, fills)
-    mr = migrate_cuda.migrate_reference(scode, fields, fills)
-    if not torch.equal(mk, mr):
+    if not torch.equal(migrate_cuda.migrate(scode, fields, fills), migrate_cuda.migrate_reference(scode, fields, fills)):
         raise AssertionError("B2: kernel output is not bit-equal to the plain version")
+    errors["migrate"] = 0.0
 
-    times = {
-        "cell_force": (_cuda_ms(lambda: cell_cuda.grid_force(gs.xg, gs.yg, p), 50),
-                       _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p), 10)),
-        "cell_force_energy": (
-            _cuda_ms(lambda: cell_cuda.grid_force(gs.xg, gs.yg, p, with_energy=True), 50),
-            _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p, with_energy=True), 10)),
-        "migrate": (_cuda_ms(lambda: migrate_cuda.migrate(scode, fields, fills), 50),
-                    _cuda_ms(lambda: migrate_cuda.migrate_reference(scode, fields, fills), 10)),
-    }
-    errors = {"cell_force": err_f, "cell_force_energy": max(err_ef, err_e), "migrate": 0.0}
-    print(f"phase 2 B1 forces: max abs diff {err_f:.3e} (max |f| {fmax:.1f}); "
+    times["cell_force"] = (_cuda_ms(lambda: cell_cuda.grid_force(gs.xg, gs.yg, p), 50),
+                           _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p), 10))
+    times["cell_force_energy"] = (
+        _cuda_ms(lambda: cell_cuda.grid_force(gs.xg, gs.yg, p, with_energy=True), 50),
+        _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p, with_energy=True), 10))
+    times["migrate"] = (_cuda_ms(lambda: migrate_cuda.migrate(scode, fields, fills), 50),
+                        _cuda_ms(lambda: migrate_cuda.migrate_reference(scode, fields, fills), 10))
+    work2 = _pair_work((gs.xg, gs.yg), gs.occ, md.cps, md.cap, md.box, p.cutoff2)
+    bounds["cell_force"], bounds["cell_force_energy"] = _force_bounds(work2, 2, gs.xg.numel())
+    bounds["migrate"] = _migrate_bound(fields.shape[0], gs.xg.numel())
+    print(f"phase 2 B1 forces: max abs diff {errors['cell_force']:.3e} (max |f| {fmax:.1f}); "
           f"energy variant: forces {err_ef:.3e}, e/w max abs diff {err_e:.3e}, sums within rtol 1e-5; "
-          f"B2: bit-equal, {movers} movers", flush=True)
-    for name, (ms, plain_ms) in times.items():
-        print(f"phase 2 time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call", flush=True)
+          f"B2: bit-equal, {movers} movers; pair work: {work2[0]} distance tests, "
+          f"{work2[1]} in the cutoff", flush=True)
+    for name in ("cell_force", "cell_force_energy", "migrate"):
+        print(f"phase 2 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
 
     # -- 3. B1 against the dense oracle ----------------------------------------
     # particles at least cutoff + skin from the seams: neither they nor their
@@ -168,7 +273,7 @@ def main() -> int:
     print(f"phase 3 B1 vs dense oracle (1024 particles, from all 100k): max abs diff {err_o:.3e}",
           flush=True)
 
-    # -- 4. a small run on the card against the same run on the CPU -----------
+    # -- 4. a small 2D run on the card against the same run on the CPU --------
     small = override(cfg, n=4096, eq_steps=100, prod_steps=100, sample_every=50)
     hist = {}
     for where in ("cuda", "cpu"):
@@ -185,54 +290,206 @@ def main() -> int:
     print("phase 4 N=4096, 200 steps: card and CPU energy histories agree within rtol 1e-4",
           flush=True)
 
-    # -- 5. the main path --------------------------------------------------------
-    cell_cuda.LAUNCHES = 0
-    cell_cuda.ENERGY_LAUNCHES = 0
-    migrate_cuda.LAUNCHES = 0
-    res = lj_fluid.run(cfg, device="cuda")
-    launches = {
-        "cell_force": cell_cuda.LAUNCHES,
-        "cell_force_energy": cell_cuda.ENERGY_LAUNCHES,
-        "migrate": migrate_cuda.LAUNCHES,
-    }
-    n_samples = cfg.prod_steps // cfg.sample_every
-    if res.overflow:
-        raise AssertionError("main path: capacity/skin overflow flagged")
-    if tuple(res.r_history.shape) != (n_samples, cfg.n, 2):
-        raise AssertionError(f"main path: r_history shape {tuple(res.r_history.shape)}")
-    for name, t in (("r_history", res.r_history), ("ke", res.ke_history), ("pe", res.pe_history),
-                    ("g(r)", res.rdf_g)):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"main path: non-finite {name}")
-    drift = res.energy_drift
-    if not drift < 1e-4:
-        raise AssertionError(f"main path: energy drift {drift:.3e} >= 1e-4")
-    if not math.isfinite(res.pressure):
-        raise AssertionError("main path: non-finite pressure")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"main path never launched kernel {name}")
-    steps = cfg.eq_steps + cfg.prod_steps
-    ms_step = 1e3 * (res.time_eq_s + res.time_prod_s) / steps
-    print(f"phase 5 lj_fluid.run N={cfg.n}: {ms_step:.4f} ms/step, "
-          f"{res.particle_steps_per_sec:.4e} particle-steps/s "
-          f"(eq {res.time_eq_s:.3f} s, prod {res.time_prod_s:.3f} s, build+warm-up "
-          f"{res.time_compile_s:.3f} s, g(r) {res.time_rdf_s:.3f} s); energy drift {drift:.3e}; "
-          f"P* {res.pressure:.4f}; kT_eq {res.kt_eq:.4f}; rebuilds (migrate launches) "
-          f"{launches['migrate']}; launches {launches}", flush=True)
+    # -- 5. the 2D main path -----------------------------------------------------
+    def check_run(res, label: str):
+        n_samples = cfg.prod_steps // cfg.sample_every
+        if res.overflow:
+            raise AssertionError(f"{label}: capacity/skin overflow flagged")
+        if tuple(res.r_history.shape[:2]) != (n_samples, cfg.n):
+            raise AssertionError(f"{label}: r_history shape {tuple(res.r_history.shape)}")
+        for name, t in (("r_history", res.r_history), ("ke", res.ke_history), ("pe", res.pe_history),
+                        ("g(r)", res.rdf_g)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{label}: non-finite {name}")
+        if not res.energy_drift < 1e-4:
+            raise AssertionError(f"{label}: energy drift {res.energy_drift:.3e} >= 1e-4")
+        if not math.isfinite(res.pressure):
+            raise AssertionError(f"{label}: non-finite pressure")
 
-    # -- 6. result -------------------------------------------------------------
+    def report_run(res, phase: str, counts: dict, rebuilds: int):
+        steps = cfg.eq_steps + cfg.prod_steps
+        ms_step = 1e3 * (res.time_eq_s + res.time_prod_s) / steps
+        print(f"phase {phase} N={cfg.n}: {ms_step:.4f} ms/step, "
+              f"{res.particle_steps_per_sec:.4e} particle-steps/s "
+              f"(eq {res.time_eq_s:.3f} s, prod {res.time_prod_s:.3f} s, build+warm-up "
+              f"{res.time_compile_s:.3f} s, g(r) {res.time_rdf_s:.3f} s); energy drift "
+              f"{res.energy_drift:.3e}; P* {res.pressure:.4f}; kT_eq {res.kt_eq:.4f}; production "
+              f"cadence {res.cadence}; rebuilds (migrate launches) {rebuilds}; launches {counts}",
+              flush=True)
+
+    reset_counts()
+    res = lj_fluid.run(cfg, device="cuda")
+    path2 = {"cell_force": cell_cuda.LAUNCHES, "cell_force_energy": cell_cuda.ENERGY_LAUNCHES,
+             "migrate": migrate_cuda.LAUNCHES}
+    report_run(res, "5 lj_fluid.run", path2, path2["migrate"])
+    check_run(res, "2D main path")
+    for name, count in path2.items():
+        if count <= 0:
+            raise AssertionError(f"2D main path never launched kernel {name}")
+    launches.update(path2)
+
+    # -- 6. the 3D main path -----------------------------------------------------
+    reset_counts()
+    cfg3 = override(cfg, dim=3)
+    res3 = lj_fluid.run(cfg3, device="cuda")
+    path3 = {"cell_force3": cell_cuda3.LAUNCHES, "cell_force3_energy": cell_cuda3.ENERGY_LAUNCHES,
+             "cell_force3_static": cell_cuda3.STATIC_LAUNCHES, "migrate3": migrate_cuda3.LAUNCHES}
+    report_run(res3, "6 lj_fluid.run dim=3", path3, path3["migrate3"])
+    check_run(res3, "3D main path")
+    for name, count in path3.items():
+        if count <= 0:
+            raise AssertionError(f"3D main path never launched kernel {name}")
+    launches.update(path3)
+
+    # -- 7. 3D kernels vs plain versions at the N=100k shapes -----------------
+    # 90 steps of the fixed driver from the main path's final state: the
+    # last window leaves coordinates unwrapped
+    md3 = lj_fluid._make_grid_md(cfg3, dev)
+    gs3 = md3.init(res3.state.position, res3.state.velocity)
+    gs3 = md3.make_production_run_fixed(90, res3.cadence or 9)(gs3)
+    occ3 = gs3.occ > 0.5
+    coords3 = (gs3.xg, gs3.yg, gs3.zg)
+    unwrapped3 = int((occ3 & torch.stack([(g < 0) | (g >= md3.box) for g in coords3]).any(0)).sum())
+    mo, cov = int(gs3.max_occ), md3.static_cov
+    p3 = cell_cuda3.CellForce3Params.from_grid(md3.grid_fn)
+    print(f"phase 7 3D grid {tuple(gs3.xg.shape)}, skin {md3.skin:.4f}, max occupancy {mo}, B5 bound "
+          f"{cov}, {unwrapped3} particles outside [0, box); overflow so far {bool(gs3.overflow)}",
+          flush=True)
+    if mo > cov:
+        raise AssertionError(f"3D state: max occupancy {mo} > B5 bound {cov}; B5 and B4 differ here")
+
+    args3 = (*coords3, p3)
+    b4 = cell_cuda3.grid_force3(*args3, max_occ=gs3.max_occ)
+    r4 = cell_cuda3.grid_force3_reference(*args3, mo)
+    errors["cell_force3"] = _max_diff(b4, r4, occ3, "B4 forces", 1e-4)
+    b4e = cell_cuda3.grid_force3(*args3, max_occ=gs3.max_occ, with_energy=True)
+    r4e = cell_cuda3.grid_force3_reference(*args3, mo, with_energy=True)
+    err4ef = _max_diff(b4e[:3], r4e[:3], occ3, "B4 energy variant forces", 1e-4)
+    err4e = _sums_close(b4e[3:], r4e[3:], "B4 energy variant", 1e-5)
+    errors["cell_force3_energy"] = max(err4ef, err4e)
+    b5 = cell_cuda3.grid_force3(*args3, static_cov=cov)
+    r5 = cell_cuda3.grid_force3_reference(*args3, cov)
+    errors["cell_force3_static"] = _max_diff(b5, r5, occ3, "B5 forces", 1e-4)
+    err54 = _max_diff(b5, b4, occ3, "B5 vs B4 forces", 1e-4)
+    f3max = float(torch.stack(r4).norm(dim=0)[occ3].max())
+
+    _, _, _, scode3, _, _ = md3._migration_dest3(gs3)
+    fields3 = torch.stack([torch.remainder(g, md3.box) for g in coords3]
+                          + [gs3.vxg, gs3.vyg, gs3.vzg, gs3.fxg, gs3.fyg, gs3.fzg, gs3.pid.float(),
+                             gs3.crx, gs3.cry, gs3.crz, gs3.cvx, gs3.cvy, gs3.cvz])
+    fills3 = [md3.sentinel] + [0.0] * 8 + [-1.0] + [0.0] * 6
+    k_mov = md3.migrate_k_mov
+    movers3 = int(((scode3 >= 0) & (torch.div(scode3, md3.cap, rounding_mode="floor") != migrate_cuda3.STAY)).sum())
+    m6, mov_of = migrate_cuda3.migrate3(scode3, fields3, fills3, k_mov=k_mov)
+    m7, _ = migrate_cuda3.migrate3(scode3, fields3, fills3)
+    mr = migrate_cuda3.migrate3_reference(scode3, fields3, fills3)
+    for name, got in (("B6", m6), ("B7", m7)):
+        if not torch.equal(got, mr):
+            raise AssertionError(f"{name}: kernel output is not bit-equal to the plain version")
+    if not torch.equal(m6, m7):
+        raise AssertionError("B6 and B7 outputs differ")
+    errors["migrate3"] = errors["migrate3_flat"] = 0.0
+
+    mo_t = gs3.max_occ
+    times["cell_force3"] = (_cuda_ms(lambda: cell_cuda3.grid_force3(*args3, max_occ=mo_t), 50),
+                            _cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, mo), 5))
+    times["cell_force3_energy"] = (
+        _cuda_ms(lambda: cell_cuda3.grid_force3(*args3, max_occ=mo_t, with_energy=True), 50),
+        _cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, mo, with_energy=True), 5))
+    times["cell_force3_static"] = (_cuda_ms(lambda: cell_cuda3.grid_force3(*args3, static_cov=cov), 50),
+                                   _cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, cov), 5))
+    times["migrate3"] = (_cuda_ms(lambda: migrate_cuda3.migrate3(scode3, fields3, fills3, k_mov=k_mov), 50),
+                         _cuda_ms(lambda: migrate_cuda3.migrate3_reference(scode3, fields3, fills3), 10))
+    times["migrate3_flat"] = (_cuda_ms(lambda: migrate_cuda3.migrate3(scode3, fields3, fills3), 50),
+                              _cuda_ms(lambda: migrate_cuda3.migrate3_reference(scode3, fields3, fills3), 10))
+    work3 = _pair_work(coords3, gs3.occ, md3.cps, mo, md3.box, p3.cutoff2)
+    bounds["cell_force3"], bounds["cell_force3_energy"] = _force_bounds(work3, 3, gs3.xg.numel())
+    bounds["cell_force3_static"] = bounds["cell_force3"]
+    bounds["migrate3"] = bounds["migrate3_flat"] = _migrate_bound(fields3.shape[0], gs3.xg.numel())
+    print(f"phase 7 B4 forces: max abs diff {errors['cell_force3']:.3e} (max |f| {f3max:.1f}); "
+          f"B4 energy variant: forces {err4ef:.3e}, e/w max abs diff {err4e:.3e}, sums within rtol "
+          f"1e-5; B5: vs plain {errors['cell_force3_static']:.3e}, vs B4 {err54:.3e}; B6, B7: "
+          f"bit-equal to the plain version and to each other, {movers3} movers, mov_of "
+          f"{bool(mov_of)} (k_mov {k_mov}); pair work: {work3[0]} distance tests, {work3[1]} in "
+          f"the cutoff", flush=True)
+    for name in ("cell_force3", "cell_force3_energy", "cell_force3_static", "migrate3", "migrate3_flat"):
+        print(f"phase 7 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+    del b4, r4, b4e, r4e, b5, r5, m6, m7, mr
+
+    # -- 8. B4 against the dense oracle ----------------------------------------
+    f3 = md3.forces(gs3.replace(**dict(zip(("fxg", "fyg", "fzg"), md3.force_kernel(*coords3, gs3.max_occ)))))
+    pos3 = md3.positions(gs3)
+    margin3 = cfg.cutoff + md3.skin
+    interior3 = torch.nonzero(((pos3 >= margin3) & (pos3 < md3.box - margin3)).all(dim=1)).squeeze(1)
+    pick3 = interior3[torch.randperm(interior3.numel(), generator=torch.Generator().manual_seed(0))[:1024].to(dev)]
+    f_dense3 = LennardJones(box=md3.box, cutoff=cfg.cutoff).force(pos3, rows=pick3)
+    err_o3 = float((f3[pick3] - f_dense3).abs().max())
+    if not err_o3 <= 1e-4:
+        raise AssertionError(f"B4 vs dense oracle: max abs diff {err_o3:.3e} > 1e-4")
+    print(f"phase 8 B4 vs dense oracle (1024 interior particles, from all 100k): max abs diff "
+          f"{err_o3:.3e}", flush=True)
+
+    # -- 9. a small 3D run on the card against the same run on the CPU --------
+    small3 = override(cfg3, n=8192, eq_steps=100, prod_steps=100, sample_every=50)
+    hist3, flags, cadence3 = {}, {}, None
+    for where in ("cuda", "cpu"):
+        s0 = lj_fluid.init_state(small3, where)
+        s_eq, ovf_eq = lj_fluid.equilibrate(small3, s0)
+        if cadence3 is None:  # the card's, so both sides rebuild on the same steps
+            cadence3 = lj_fluid.production_cadence(small3, float(temperature(s_eq)))
+        _, (_, ke, pe), ovf = lj_fluid.production(small3, s_eq, cadence3)
+        flags[where] = (bool(ovf_eq), bool(ovf))
+        hist3[where] = (ke.cpu().double(), pe.cpu().double())
+    if flags["cuda"] != flags["cpu"]:
+        raise AssertionError(f"N=8192 3D overflow flags (eq, prod) differ: card {flags['cuda']}, cpu {flags['cpu']}")
+    for a, b, name in zip(hist3["cuda"], hist3["cpu"], ("ke", "pe")):
+        rel = float(((a - b).abs() / b.abs()).max())
+        if not rel <= 1e-4:
+            raise AssertionError(f"N=8192 3D {name} history, card vs CPU: rel diff {rel:.3e} > 1e-4")
+    print(f"phase 9 3D N=8192, 200 steps (production cadence {cadence3}): card and CPU energy "
+          f"histories agree within rtol 1e-4; overflow flags (eq, prod) {flags['cpu']} on both",
+          flush=True)
+
+    # -- 10. the flat migrate (B7) against the compacted one (B6) -------------
+    flat_steps, cadence = 198, res3.cadence or 9
+    finals = {}
+    for compact in (False, True):
+        md_m = GridMD3(md3.grid_fn, sigma=cfg.sigma, epsilon=cfg.epsilon, dt=cfg.dt, compensated=True,
+                       static_cov="auto", migrate_k_mov=k_mov, migrate_compact=compact, device=dev)
+        reset_counts()
+        finals[compact] = md_m.make_production_run_fixed(flat_steps, cadence)(
+            md_m.init(res3.state.position, res3.state.velocity))
+        if not compact:
+            launches["migrate3_flat"] = migrate_cuda3.FLAT_LAUNCHES
+            if migrate_cuda3.FLAT_LAUNCHES <= 0 or migrate_cuda3.LAUNCHES:
+                raise AssertionError("the migrate_compact=False run did not rebuild through B7 alone")
+    for name in ("xg", "yg", "zg", "vxg", "vyg", "vzg", "fxg", "fyg", "fzg", "occ", "pid",
+                 "crx", "cry", "crz", "cvx", "cvy", "cvz", "max_occ", "dmax2"):
+        if not torch.equal(getattr(finals[False], name), getattr(finals[True], name)):
+            raise AssertionError(f"B7 run vs B6 run: {name} differs")
+    print(f"phase 10 {flat_steps} steps at cadence {cadence} from the equilibrated 3D state: "
+          f"{launches['migrate3_flat']} B7 launches, final state bit-equal to the B6 run; overflow "
+          f"B7 {bool(finals[False].overflow)}, B6 {bool(finals[True].overflow)}", flush=True)
+
+    # -- 11. result --------------------------------------------------------------
     root = "jax_tpus_benchmark_physics_simulation_tpu_torch/ops/kernels/csrc/"
     ref = "jax_tpus_benchmark_physics_simulation_tpu/ops/kernels/"
     meta = {
         "cell_force": ("cell_force.cu", "cell_pallas.py:82"),
         "cell_force_energy": ("cell_force.cu", "cell_pallas.py:82"),
         "migrate": ("migrate.cu", "migrate_pallas.py:80"),
+        "cell_force3": ("cell_force3.cu", "cell_pallas3.py:99"),
+        "cell_force3_energy": ("cell_force3.cu", "cell_pallas3.py:99"),
+        "cell_force3_static": ("cell_force3.cu", "cell_pallas3.py:336"),
+        "migrate3": ("migrate3.cu", "migrate_pallas3.py:158"),
+        "migrate3_flat": ("migrate3.cu", "migrate_pallas3.py:94"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": root + src, "replaces": ref + tpu,
          "launches": launches[name], "max_abs_err": errors[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, tpu) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,9 @@ and ``numpy`` only, never ``jax`` or the JAX package.
 
 - ``core``     MDConfig and ParticleState
 - ``ops``      periodic boundaries, dense LJ oracle, cell-grid geometry,
-               the CUDA kernels and the grid-resident MD engine, observables
-- ``models``   ``lj_fluid``: the 2D LJ fluid workload
+               the CUDA kernels and the grid-resident MD engines (2D, 3D),
+               observables
+- ``models``   ``lj_fluid``: the LJ fluid workload, 2D and 3D
 - ``interop``  carries state exported from the JAX package into the port
 - ``cli``      ``md`` subcommand
 """

@@ -1,7 +1,9 @@
 """Command line of the PyTorch port: the ``md`` subcommand.
 
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
-        --N 100000 --cutoff 2.5 --init lattice
+        --N 100000 --cutoff 2.5 --init lattice            # 2D
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
+        --N 100000 --dim 3 --cutoff 2.5 --init lattice    # 3D
 
 Flag names follow the JAX package's ``jtps md`` (its ``cli.py``), plus
 ``--device``. Output is plain text lines; there is no plot, manifest or
@@ -17,10 +19,11 @@ import sys
 
 
 def _add_md(sub):
-    p = sub.add_parser("md", help="Lennard-Jones fluid MD (2D grid engine)")
+    p = sub.add_parser("md", help="Lennard-Jones fluid MD (2D and 3D grid engines)")
     p.add_argument("--N", type=int, default=400)
     p.add_argument("--dim", type=int, default=2, choices=[2, 3],
-                   help="2 (3D is not ported yet)")
+                   help="2 (kernels B1, B2) or 3 (B5 windows with the B4 fallback, B6 "
+                        "rebuilds, fixed-cadence production)")
     p.add_argument("--rho", type=float, default=0.8)
     p.add_argument("--kT", type=float, default=1.0)
     p.add_argument("--dt", type=float, default=1e-3)
@@ -39,9 +42,10 @@ def _add_md(sub):
                    help="Langevin friction coefficient (1/time)")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="after the run, trace two production sample blocks with "
-                        "torch.profiler and time the per-window host sync: prints "
-                        "the card's busy and idle share, writes DIR/trace.json "
-                        "(needs --device cuda)")
+                        "torch.profiler and time the host reads of the drivers (the "
+                        "per-window dmax2 read; in 3D also the per-rebuild max_occ "
+                        "read): prints the card's busy and idle share, writes "
+                        "DIR/trace.json (needs --device cuda)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their plain versions)")
 
@@ -75,9 +79,18 @@ def cmd_md(args) -> int:
         return 2
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"Molecular Dynamics (PyTorch port) on {name}")
-    print(f"N={cfg.n}  rho={cfg.rho}  kT={cfg.kt}  box={cfg.box_size:.2f}  "
+    md = lj_fluid._make_grid_md(cfg, device)
+    k, gate = lj_fluid._grid_inner_steps(cfg, md)
+    if res.cadence is None:
+        driver = f"gated, {k}-step windows at gate {gate}"
+    else:
+        driver = f"fixed rebuild cadence {res.cadence}"
+    print(f"N={cfg.n}  dim={cfg.dim}  rho={cfg.rho}  kT={cfg.kt}  box={cfg.box_size:.2f}  "
           f"steps: {cfg.eq_steps:,} eq / {cfg.prod_steps:,} prod  dt={cfg.dt}  "
           f"force: {impl}  cutoff={cfg.cutoff}  ensemble: NVE")
+    kernels = "B1, B2" if cfg.dim == 2 else f"B5 (cov {md.static_cov}) / B4 fallback, B6"
+    print(f"grid: {md.cps} cells per side, capacity {md.cap}, skin {md.skin:.4f}; kernels {kernels}; "
+          f"equilibration gated, {k}-step windows at gate {gate}; production {driver}")
     n_snap = int(res.r_history.shape[0])
     print(f"phase times: build+warm-up {res.time_compile_s:.3f} s; "
           f"equilibration {res.time_eq_s:.3f} s; production {res.time_prod_s:.3f} s; "
@@ -104,6 +117,7 @@ def cmd_md(args) -> int:
     if args.profile:
         from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import (
             profile_device,
+            rebuild_read_cost,
             window_sync_cost,
         )
 
@@ -112,7 +126,7 @@ def cmd_md(args) -> int:
         # two sample blocks keep the trace small; per step, they do the
         # production phase's work
         traced = override(cfg, prod_steps=min(cfg.prod_steps, 2 * cfg.sample_every))
-        dev_s, table = profile_device(lambda: lj_fluid.production(traced, res.state), trace)
+        dev_s, table = profile_device(lambda: lj_fluid.production(traced, res.state, res.cadence), trace)
         dev_ms = 1e3 * dev_s / max(traced.prod_steps, 1)
         wall_ms = 1e3 * res.time_prod_s / max(cfg.prod_steps, 1)
         print(table)
@@ -120,12 +134,16 @@ def cmd_md(args) -> int:
               f"{dev_ms:.4f} ms/step of {wall_ms:.4f} ms/step untraced wall; "
               f"busy share {dev_ms / wall_ms:.3f}, idle share {1 - dev_ms / wall_ms:.3f}; "
               f"trace: {trace}")
-        md = lj_fluid._make_grid_md(cfg, device)
-        k, _ = lj_fluid._grid_inner_steps(cfg, md)
-        synced, unsynced = window_sync_cost(md, md.init(res.state.position, res.state.velocity), k)
+        gs = md.init(res.state.position, res.state.velocity)
+        synced, unsynced = window_sync_cost(md, gs, k)
         print(f"per-window host sync ({k}-step windows): {synced:.4f} ms/step with a dmax2 "
               f"read after each window, {unsynced:.4f} ms/step without; the sync costs "
               f"{(synced - unsynced) / synced:.3f} of the step")
+        if res.cadence is not None:
+            read, unread = rebuild_read_cost(md, gs, res.cadence)
+            print(f"per-rebuild max_occ read (fixed cadence {res.cadence}): {read:.4f} ms/step "
+                  f"with the read that picks B5 or B4 after each rebuild, {unread:.4f} ms/step "
+                  f"without; the read costs {(read - unread) / read:.3f} of the step")
     return 0
 
 

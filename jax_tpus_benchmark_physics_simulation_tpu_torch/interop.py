@@ -14,11 +14,36 @@ import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.core.state import ParticleState
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD, GridMDState
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md3 import GridMD3, GridMD3State
 
 _GRID_FIELDS = (
     "xg", "yg", "vxg", "vyg", "fxg", "fyg", "occ", "dispx", "dispy",
     "crx", "cry", "cvx", "cvy",
 )
+_GRID3_FIELDS = (
+    "xg", "yg", "zg", "vxg", "vyg", "vzg", "fxg", "fyg", "fzg", "occ",
+    "dispx", "dispy", "dispz", "crx", "cry", "crz", "cvx", "cvy", "cvz",
+)
+
+
+def _grids(arrays: Mapping[str, np.ndarray], names, shape, live: int, device) -> dict:
+    """The named float grids (and pid as int32) of a JAX grid state, with
+    the TPU's padding lanes (last axis ``>= live``) dropped; absent or None
+    leaves are skipped."""
+
+    def grid(name, dtype):
+        a = np.asarray(arrays[name])
+        if a.shape[:2] != shape or a.shape[2] < live:
+            raise ValueError(f"{name}: shape {a.shape} is not a {shape + (f'>={live}',)} grid")
+        return torch.from_numpy(np.ascontiguousarray(a[:, :, :live], dtype=dtype)).to(device)
+
+    out = {name: grid(name, np.float32) for name in names if arrays.get(name) is not None}
+    out["pid"] = grid("pid", np.int32)
+    return out
+
+
+def _scalar(arrays: Mapping[str, np.ndarray], name: str, dtype, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(arrays[name]).item(), dtype=dtype, device=device)
 
 
 def grid_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD) -> GridMDState:
@@ -26,35 +51,31 @@ def grid_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD) -> GridMDS
     (unpacked layout, ``rows_per_block=1``) given as numpy arrays by field
     name. The TPU's padding lanes (``>= cps``) are dropped and ``pid`` is
     cast to int32; the PRNG key of a Langevin state is ignored."""
-    cps = md.cps
-    expected = (md.cps, md.cap)
-
-    def grid(name, dtype):
-        a = np.asarray(arrays[name])
-        if a.shape[:2] != expected or a.shape[2] < cps:
-            raise ValueError(
-                f"{name}: shape {a.shape} is not a (cps={cps}, cap={md.cap}, >=cps) grid"
-            )
-        return torch.from_numpy(np.ascontiguousarray(a[:, :, :cps], dtype=dtype)).to(md.device)
-
-    def scalar(name, dtype):
-        return torch.tensor(np.asarray(arrays[name]).item(), dtype=dtype, device=md.device)
-
-    out = {
-        name: grid(name, np.float32)
-        for name in _GRID_FIELDS
-        if arrays.get(name) is not None
-    }
+    dev = md.device
     return GridMDState(
-        pid=grid("pid", np.int32),
-        dmax2=scalar("dmax2", torch.float32),
-        overflow=scalar("overflow", torch.bool),
-        time=scalar("time", torch.float32),
-        **out,
+        dmax2=_scalar(arrays, "dmax2", torch.float32, dev),
+        overflow=_scalar(arrays, "overflow", torch.bool, dev),
+        time=_scalar(arrays, "time", torch.float32, dev),
+        **_grids(arrays, _GRID_FIELDS, (md.cps, md.cap), md.cps, dev),
     )
 
 
-def particle_state_from_numpy(position: np.ndarray, velocity: np.ndarray, device="cpu") -> ParticleState:
+def grid3_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD3) -> GridMD3State:
+    """A :class:`GridMD3State` from the leaves of a JAX ``GridMD3State``
+    given as numpy arrays by field name. The TPU's padding lanes
+    (``>= cps * cps``) are dropped, ``pid`` is cast to int32 and ``max_occ``
+    is carried as a 0-d int32 tensor."""
+    dev = md.device
+    return GridMD3State(
+        dmax2=_scalar(arrays, "dmax2", torch.float32, dev),
+        overflow=_scalar(arrays, "overflow", torch.bool, dev),
+        time=_scalar(arrays, "time", torch.float32, dev),
+        max_occ=_scalar(arrays, "max_occ", torch.int32, dev),
+        **_grids(arrays, _GRID3_FIELDS, (md.cps, md.cap), md.plane, dev),
+    )
+
+
+def particle_state_from_numpy(position: np.ndarray, velocity: np.ndarray, device="cuda") -> ParticleState:
     """A float32 :class:`ParticleState` on ``device`` (unit masses, zero
     charges) from (N, D) numpy positions and velocities."""
 

@@ -1,9 +1,10 @@
 """Workload: Lennard-Jones fluid MD (NVE, velocity-Verlet, PBC).
 
-Port of the JAX package's ``models/lj_fluid.py`` for its main path: 2D, the
-grid-resident engine (``force_impl="grid"``, which ``"auto"`` picks for
-N >= 4096 with a cutoff). The other force paths, 3D and the Langevin
-thermostat raise ``NotImplementedError`` naming their ROADMAP.md item.
+Port of the JAX package's ``models/lj_fluid.py`` for its grid engines
+(``force_impl="grid"``, which ``"auto"`` picks for N >= 4096 with a cutoff):
+2D ``GridMD`` and 3D ``GridMD3`` (hybrid B5/B4 forces, fixed-cadence NVE
+production). The other force paths and the Langevin thermostat raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 Phases: :func:`equilibrate` (NVE) -> :func:`production` (sampled NVE) ->
 :func:`rdf`; :func:`run` times them. Random draws come from a
@@ -24,22 +25,24 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import MDConfig
 from jax_tpus_benchmark_physics_simulation_tpu_torch.core.state import ParticleState
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import make_cell_grid_fn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md3 import GridMD3
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.rdf import (
     _DEFAULT_MAX_PARTICLES as _RDF_MAX_PARTICLES,
     radial_distribution,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.thermo import temperature
 
-SKIN_DEFAULT = 0.4  # the 2D grid engine's skin
+SKIN_DEFAULT = 0.4  # the skin everywhere but the 3D grid engine
 
 
 def init_state(
-    cfg: MDConfig, device="cpu", generator: Optional[torch.Generator] = None
+    cfg: MDConfig, device="cuda", generator: Optional[torch.Generator] = None
 ) -> ParticleState:
     """``uniform``: R ~ U(0, box), V ~ N(0,1) sqrt(kT), as the reference
     (overlaps allowed). ``lattice``: square lattice placement (no
-    overlaps). Draws are made on the CPU, then moved to ``device``, so a
-    seed gives the same state on every device."""
+    overlaps). Draws are made on the CPU, then moved to ``device`` (the
+    card unless the caller asks for the CPU), so a seed gives the same state
+    on every device."""
     dtype = getattr(torch, cfg.dtype)
     gen = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
     if cfg.init == "uniform":
@@ -58,17 +61,39 @@ def init_state(
     return ParticleState.create(r.to(device), v.to(device))
 
 
+def _auto_picks_grid(cfg: MDConfig) -> bool:
+    """Whether ``force_impl="auto"`` resolves to the grid engine."""
+    skin0 = SKIN_DEFAULT if cfg.skin is None else cfg.skin
+    cps = 0 if cfg.cutoff is None else int(cfg.box_size / (cfg.cutoff + skin0))
+    return cfg.cutoff is not None and cfg.n >= 4096 and cps >= 3
+
+
 def resolve_skin(cfg: MDConfig) -> float:
-    return SKIN_DEFAULT if cfg.skin is None else cfg.skin
+    """Concrete Verlet skin for ``cfg`` (``cfg.skin`` unless it is None), by
+    the JAX package's policy on one device: 0.4, except on the 3D grid
+    engine, where the densest cell geometry wins. There it takes the
+    largest cells-per-side with skin >= max(0.1, 80*sqrt(kT)*dt), never
+    coarser than the 0.4-skin geometry. (The JAX package also rounds the
+    cells per side to a multiple of the device count, for its sharded
+    engine, which the port does not have yet.)"""
+    if cfg.skin is not None:
+        return cfg.skin
+    grid = cfg.force_impl == "grid" or (cfg.force_impl == "auto" and _auto_picks_grid(cfg))
+    if not grid or cfg.dim != 3 or cfg.cutoff is None:
+        return SKIN_DEFAULT
+    box = cfg.box_size
+    floor = max(0.1, 80.0 * cfg.kt**0.5 * cfg.dt)
+    cps = max(int(box / (cfg.cutoff + floor)), int(box / (cfg.cutoff + SKIN_DEFAULT)))
+    if cps < 3:
+        return SKIN_DEFAULT
+    return box / cps - cfg.cutoff
 
 
 def resolve_impl(cfg: MDConfig) -> str:
     """The force implementation for ``cfg``; the port has only ``"grid"``."""
     impl = cfg.force_impl
     if impl == "auto":
-        skin0 = resolve_skin(cfg)
-        cps = 0 if cfg.cutoff is None else int(cfg.box_size / (cfg.cutoff + skin0))
-        if cfg.cutoff is not None and cfg.n >= 4096 and cps >= 3:
+        if _auto_picks_grid(cfg):
             impl = "grid"
         else:
             raise NotImplementedError(
@@ -84,22 +109,17 @@ def resolve_impl(cfg: MDConfig) -> str:
         )
     if cfg.cutoff is None:
         raise ValueError("force_impl='grid' requires a cutoff")
-    if cfg.dim == 3:
-        raise NotImplementedError(
-            "the 3D grid engine is not ported yet (ROADMAP.md section 1, still to "
-            "port: '3D: GridMD3')"
-        )
-    if cfg.dim != 2:
-        raise ValueError("force_impl='grid' supports dim 2")
+    if cfg.dim not in (2, 3):
+        raise ValueError("force_impl='grid' supports dim 2 and 3")
     return impl
 
 
-def _make_grid_md(cfg: MDConfig, device) -> GridMD:
+def _make_grid_md(cfg: MDConfig, device):
     resolve_impl(cfg)
     if cfg.thermostat == "langevin":
         raise NotImplementedError(
             "the Langevin window is not ported yet (ROADMAP.md section 1, still to "
-            "port: 'The rest of 2D GridMD'); "
+            "port: 'The rest of 2D GridMD' and 'The rest of 3D GridMD3'); "
             "the port runs NVE (thermostat='none')"
         )
     if cfg.thermostat not in ("none", None):
@@ -107,13 +127,16 @@ def _make_grid_md(cfg: MDConfig, device) -> GridMD:
     gf = make_cell_grid_fn(
         cfg.box_size, cfg.cutoff, cfg.n, dim=cfg.dim, skin=resolve_skin(cfg), rho=cfg.rho
     )
-    return GridMD(
-        gf, sigma=cfg.sigma, epsilon=cfg.epsilon, dt=cfg.dt,
-        compensated=cfg.compensated, device=device,
-    )
+    kw = dict(sigma=cfg.sigma, epsilon=cfg.epsilon, dt=cfg.dt, compensated=cfg.compensated, device=device)
+    if cfg.dim == 3:
+        # the JAX package's 3D default: B5 windows at the estimated
+        # occupancy bound with the exact B4 fallback, and k_mov=8 with its
+        # loud mover flag
+        return GridMD3(gf, static_cov="auto", migrate_k_mov=8, **kw)
+    return GridMD(gf, **kw)
 
 
-def _grid_inner_steps(cfg: MDConfig, md: GridMD) -> Tuple[int, float]:
+def _grid_inner_steps(cfg: MDConfig, md) -> Tuple[int, float]:
     """Rebuild cadence ``(n_inner, gate_frac)`` from the engine's coupled
     sizing, with the window clipped to the largest divisor of sample_every
     (so production sampling aligns with windows; a shorter window at the
@@ -143,9 +166,11 @@ def equilibrate(cfg: MDConfig, state: ParticleState):
     return final, gs.overflow
 
 
-def production(cfg: MDConfig, state: ParticleState):
+def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = None):
     """Sampled NVE production: every ``sample_every`` steps, the positions,
-    kinetic and potential energy. Returns
+    kinetic and potential energy. ``cadence``: the fixed rebuild cadence of
+    the 3D engine's fixed driver (see :func:`production_cadence`); None
+    keeps the displacement-gated driver. Returns
     ``(final_state, (r_history, ke_history, pe_history), overflow)``."""
     if cfg.prod_steps and cfg.sample_every > cfg.prod_steps:
         raise ValueError(
@@ -156,7 +181,11 @@ def production(cfg: MDConfig, state: ParticleState):
     md = _make_grid_md(cfg, state.position.device)
     k, gate = _grid_inner_steps(cfg, md)
     gs = md.init(state.position, state.velocity)
-    prod_block = md.make_production_run(cfg.sample_every, k, gate_frac=gate)
+    use_fixed = cadence is not None and hasattr(md, "make_production_run_fixed")
+    if use_fixed:
+        prod_block = md.make_production_run_fixed(cfg.sample_every, cadence)
+    else:
+        prod_block = md.make_production_run(cfg.sample_every, k, gate_frac=gate)
     r_hist, ke_hist, pe_hist = [], [], []
     n_samples = cfg.prod_steps // cfg.sample_every
     for _ in range(n_samples):
@@ -165,7 +194,9 @@ def production(cfg: MDConfig, state: ParticleState):
         ke_hist.append(md.kinetic_energy(gs))
         pe_hist.append(md.potential_energy(gs))
     rem = cfg.prod_steps - n_samples * cfg.sample_every
-    if rem:
+    if rem and use_fixed:
+        gs = md.make_production_run_fixed(rem, cadence)(gs)
+    elif rem:
         # the tail runs in k-step windows: a longer window would erode the
         # skin margin
         n2, r2 = divmod(rem, k)
@@ -186,6 +217,18 @@ def production(cfg: MDConfig, state: ParticleState):
             torch.zeros(0, dtype=dtype, device=dev),
         )
     return final, hist, gs.overflow
+
+
+def production_cadence(cfg: MDConfig, kt_eq: float) -> Optional[int]:
+    """Fixed rebuild cadence for the 3D NVE production, from the MEASURED
+    equilibrated temperature, as the JAX package's ``run`` computes it:
+    ``max(1, min(auto_cadence(kt_eq, prod_steps), sample_every))``. None
+    (the gated driver) in 2D, and where ``kt_eq`` is not finite and
+    positive: a diverged or frozen state has no drift horizon."""
+    if cfg.dim != 3 or not (math.isfinite(kt_eq) and kt_eq > 0):
+        return None
+    md = _make_grid_md(cfg, "cpu")  # only its geometry is read
+    return max(1, min(md.auto_cadence(kt_eq, cfg.prod_steps), cfg.sample_every))
 
 
 def rdf(cfg: MDConfig, r_history: torch.Tensor):
@@ -216,6 +259,7 @@ class MDResult:
     rdf_subset: int = 0  # >0: g(r) was estimated from this many particles
     pressure: float = float("nan")  # virial pressure of the final state
     kt_eq: float = float("nan")  # temperature of the equilibrated state
+    cadence: Optional[int] = None  # fixed production rebuild cadence (None: gated)
     box: float = 0.0
     dt_sample: float = 0.0
 
@@ -243,7 +287,12 @@ def run(
 
     Before the timers start, a short run of the same phase functions
     (``sample_every`` steps of each) builds the kernels and warms the
-    allocator; that cost is reported as ``time_compile_s``."""
+    allocator; that cost is reported as ``time_compile_s``.
+
+    In 3D the production phase runs the fixed-cadence driver at
+    :func:`production_cadence` of the measured equilibrated kT. If that kT
+    is NaN or not positive, the overflow flag is raised and production runs
+    the gated driver."""
     cfg = cfg or MDConfig()
     device = torch.device(device)
     state = init_state(cfg, device, generator)
@@ -255,7 +304,7 @@ def run(
         prod_steps=min(cfg.prod_steps, cfg.sample_every),
     )
     warm_eq, _ = equilibrate(warm, state)
-    production(warm, warm_eq)
+    production(warm, warm_eq, production_cadence(warm, float(temperature(warm_eq))))
     _sync(device)
     time_compile = time.perf_counter() - t0
 
@@ -270,9 +319,10 @@ def run(
     kt_eq = float(temperature(state_eq))
     if not (math.isfinite(kt_eq) and kt_eq > 0):
         overflow_eq = True
+    cadence = production_cadence(cfg, kt_eq)
 
     t0 = time.perf_counter()
-    final, (r_hist, ke_hist, pe_hist), overflow_prod = production(cfg, state_eq)
+    final, (r_hist, ke_hist, pe_hist), overflow_prod = production(cfg, state_eq, cadence)
     overflow_prod = bool(overflow_prod)
     _sync(device)
     time_prod = time.perf_counter() - t0
@@ -313,6 +363,7 @@ def run(
         rdf_subset=_RDF_MAX_PARTICLES if cfg.n > _RDF_MAX_PARTICLES else 0,
         pressure=pressure,
         kt_eq=kt_eq,
+        cadence=cadence,
         box=cfg.box_size,
         dt_sample=cfg.dt * cfg.sample_every,
     )

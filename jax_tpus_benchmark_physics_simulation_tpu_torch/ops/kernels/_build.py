@@ -1,11 +1,12 @@
 """Builds ``csrc/*.cu`` with ``nvcc`` at first use and loads the result with
 ``ctypes``.
 
-The sources have a plain C interface and include no PyTorch header, so one
-``nvcc`` call builds them in seconds. The library is named by a hash of the
-sources and flags and lands in ``build/`` beside this file (git-ignored),
-so an edited source is rebuilt and an unchanged one is loaded again. A
-failed build raises; nothing falls back and nothing is downloaded.
+The sources have a plain C interface and include no PyTorch header. One
+``nvcc`` process per source compiles them all at once, then one more links
+the objects into a shared library, in seconds. The library is named by a
+hash of the sources and flags and lands in ``build/`` beside this file
+(git-ignored), so an edited source is rebuilt and an unchanged one is loaded
+again. A failed build raises; nothing falls back and nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).parent / "build"
 # registers and spills into the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -52,18 +53,28 @@ def library() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"libjtps_kernels_{digest.hexdigest()[:16]}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a private name, then rename: concurrent processes
-        # never load a half-written library
+        # build under private names, then rename: concurrent processes never
+        # load a half-written library
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        lib_path.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+        failed = [o for p, o in zip(procs, outs) if p.returncode != 0]
+        if not failed:
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stdout + proc.stderr)
+        lib_path.with_suffix(".log").write_text("\n".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.jtps_error_string.argtypes = [ctypes.c_int]

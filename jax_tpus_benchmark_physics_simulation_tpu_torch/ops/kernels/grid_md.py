@@ -81,7 +81,8 @@ class GridMDState:
 
 
 class GridMD:
-    """Factory for the grid-resident MD step functions."""
+    """Factory for the grid-resident MD step functions. State lives on
+    ``device``: the card unless the caller asks for the CPU."""
 
     def __init__(
         self,
@@ -91,7 +92,7 @@ class GridMD:
         dt: float = 1e-3,
         compensated: bool = False,
         rows_per_block: int = 1,
-        device="cpu",
+        device="cuda",
     ):
         if grid_fn.dim != 2:
             raise ValueError("grid-resident MD is 2D")
@@ -324,6 +325,11 @@ class GridMD:
             )
 
         return window
+
+    def _window_for(self, s: GridMDState, n_inner: int):
+        """The ``n_inner``-step window (one force kernel in 2D; the 3D
+        engine picks between two by the state's occupancy)."""
+        return self._make_window(self.force_kernel, n_inner)
 
     def make_chunk_step(self, n_inner: int, gate_frac: float = 0.25):
         """``chunk(s) -> s``: a rebuild if the gate trips (one host read of

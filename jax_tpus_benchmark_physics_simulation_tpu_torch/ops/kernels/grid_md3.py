@@ -1,0 +1,532 @@
+"""Grid-resident LJ molecular dynamics (3D).
+
+Port of the JAX package's ``ops/kernels/grid_md3.py`` (``GridMD3State``,
+``GridMD3``), single device, NVE. It is the 2D engine (``grid_md.py``; read
+its docstring first) with a third coordinate:
+
+- All particle state lives permanently in the cell-grid layout
+  ``(ncx, cap, ncy * ncz)`` of the force kernels B4/B5 (``cell_cuda3``):
+  the (y, z) cell plane is flattened into the last axis, without the TPU's
+  128-lane padding, so viewed as ``(ncx, cap, ncy, ncz)`` a (y, z) cell
+  shift is ``torch.roll`` on two axes. Empty slots hold the x sentinel.
+- Leapfrog windows, coordinates unwrapped between rebuilds, the skin/2
+  violation flag (NaN-safe), Kahan compensation of positions and velocities.
+- The rebuild is sort-free over the 27 directions: an allocation in plain
+  PyTorch (``_migration_dest3``) gives each slot a source-frame code and the
+  scatter B6 (``migrate_cuda3``; B7 with ``migrate_compact=False``) moves the
+  fields, raising the loud ``mov_of`` flag when a cell has more than
+  ``migrate_k_mov`` movers, as the JAX package's compacted kernel does.
+- ``max_occ``, the largest cell occupancy of the last (re)binning, is a 0-d
+  int32 tensor on the device. B4 reads it there through a pointer.
+
+Host control flow: the JAX package's ``lax.cond``/``while_loop`` drivers
+are Python loops here. The gated driver reads ``dmax2`` once per window. In
+the hybrid mode (``static_cov="auto"``), the choice between B5 (while
+``max_occ <= cov``) and B4 reads ``max_occ`` once per rebuild period.
+
+Deferred (ROADMAP.md): the Langevin window, the sort-based ``_rebuild`` and
+``_rebuild_migrate_rows`` of the sharded engine.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple, Union
+
+import torch
+
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda3 import (
+    make_grid_force_kernel3,
+)
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import (
+    SENTINEL_FACTOR,
+    GridMD,
+)
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda3 import migrate3
+
+# the 27 migration directions, in the class order of the allocation
+# (index == dcode = ((dx+1)*3 + (dy+1))*3 + (dz+1))
+_DIRS = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
+
+_NO_LANGEVIN = (
+    "the 3D Langevin window is not ported yet (ROADMAP.md section 1, still to "
+    "port: 'The rest of 3D GridMD3'); the port runs NVE (thermostat=None)"
+)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass
+class GridMD3State:
+    """All (ncx, cap, ncy*ncz) leaves live on ``GridMD3.device``.
+    ``dmax2``, ``overflow``, ``time`` and ``max_occ`` are 0-d tensors."""
+
+    xg: torch.Tensor
+    yg: torch.Tensor
+    zg: torch.Tensor
+    vxg: torch.Tensor
+    vyg: torch.Tensor
+    vzg: torch.Tensor
+    fxg: torch.Tensor
+    fyg: torch.Tensor
+    fzg: torch.Tensor
+    occ: torch.Tensor  # float 1.0/0.0
+    pid: torch.Tensor  # int32 particle id, sentinel -1
+    dispx: torch.Tensor  # displacement since the last rebuild
+    dispy: torch.Tensor
+    dispz: torch.Tensor
+    dmax2: torch.Tensor  # running max of |disp|^2 since the rebuild
+    overflow: torch.Tensor  # bool
+    time: torch.Tensor
+    max_occ: torch.Tensor  # int32 max cell occupancy of the last (re)binning
+    # Kahan compensation residuals (compensated=True)
+    crx: Optional[torch.Tensor] = None
+    cry: Optional[torch.Tensor] = None
+    crz: Optional[torch.Tensor] = None
+    cvx: Optional[torch.Tensor] = None
+    cvy: Optional[torch.Tensor] = None
+    cvz: Optional[torch.Tensor] = None
+
+    def replace(self, **changes) -> "GridMD3State":
+        return dataclasses.replace(self, **changes)
+
+
+class GridMD3:
+    """Factory for the 3D grid-resident MD step functions.
+
+    ``static_cov``: the compile-time occupancy bound of kernel B5.
+      - None: every window runs B4 (bound ``max_occ``, read on the device).
+      - an int: pure static mode. B5 runs every force and energy call, and a
+        (re)binning whose ``max_occ`` exceeds it raises ``overflow``.
+      - ``"auto"``: hybrid mode (the ``lj_fluid`` 3D default). ``cov`` is
+        ``m + 2 sqrt(m)`` rounded up to a multiple of 8 (m the mean cell
+        occupancy); windows run B5 while ``max_occ <= cov`` and B4
+        otherwise, exactly, with no flag. Energy and virial run B4.
+    The TPU's lane and VMEM gates of this choice are not ported: they have
+    no counterpart on the card.
+    """
+
+    def __init__(
+        self,
+        grid_fn: CellGridFn,
+        sigma: float = 1.0,
+        epsilon: float = 1.0,
+        dt: float = 1e-3,
+        compensated: bool = False,
+        migrate_compact: bool = True,
+        migrate_k_mov: int = 16,
+        static_cov: Optional[Union[int, str]] = None,
+        device="cuda",
+    ):
+        if grid_fn.dim != 3:
+            raise ValueError("GridMD3 is 3D (grid_md.GridMD covers 2D)")
+        if grid_fn.n >= (1 << 24):
+            raise ValueError("particle ids ride the rebuild as float32: n must be < 2^24")
+        self.compensated = compensated
+        self.migrate_compact = migrate_compact
+        self.migrate_k_mov = migrate_k_mov
+        self.grid_fn = grid_fn
+        self.cps = grid_fn.cells_per_side
+        self.cap = grid_fn.capacity
+        self.plane = self.cps * self.cps
+        self.box = grid_fn.box
+        self.skin = grid_fn.skin
+        self.n = grid_fn.n
+        self.dt = dt
+        self.device = torch.device(device)
+        self.sentinel = SENTINEL_FACTOR * float(grid_fn.box)
+        self.grid_shape = (self.cps, self.cap, self.plane)
+        self.size = self.cps * self.cap * self.plane
+        self._hybrid = static_cov == "auto"
+        if self._hybrid:
+            m = self.n / float(self.cps**3)
+            est = int(math.ceil(m + 2.0 * math.sqrt(max(m, 1.0))))
+            static_cov = min(self.cap, _round_up(max(est, 8), 8))
+        if static_cov is not None and not 0 < static_cov <= self.cap:
+            raise ValueError(f"static_cov {static_cov} must lie in [1, capacity {self.cap}]")
+        self.static_cov = static_cov
+        kw = dict(sigma=sigma, epsilon=epsilon)
+        if self._hybrid:
+            self.force_kernel = make_grid_force_kernel3(grid_fn, **kw)
+            self.energy_kernel = make_grid_force_kernel3(grid_fn, with_energy=True, **kw)
+            self.force_kernel_static = make_grid_force_kernel3(grid_fn, static_cov=static_cov, **kw)
+        else:
+            self.force_kernel = make_grid_force_kernel3(grid_fn, static_cov=static_cov, **kw)
+            self.energy_kernel = make_grid_force_kernel3(
+                grid_fn, with_energy=True, static_cov=static_cov, **kw
+            )
+            self.force_kernel_static = None
+        self._roll_index = {}
+
+    @property
+    def _pure_static(self) -> bool:
+        return self.static_cov is not None and not self._hybrid
+
+    # -- layout helpers ------------------------------------------------------
+    def _slot3(self, position: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Flat grid slot for each particle + overflow flag. Particles of a
+        cell take slots in particle order (stable sort), as in the JAX
+        package."""
+        cps, cap = self.cps, self.cap
+        coords = torch.div(position, self.box / cps, rounding_mode="floor")
+        coords = coords.to(torch.int32).clamp(0, cps - 1)
+        ids = (coords[:, 0] * cps + coords[:, 1]) * cps + coords[:, 2]
+        order = torch.argsort(ids, stable=True)
+        sorted_ids = ids[order]
+        seg = torch.searchsorted(sorted_ids, sorted_ids)
+        rank = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device) - seg.to(torch.int32)
+        overflow = torch.any(rank >= cap)
+        rank = rank.clamp(max=cap - 1)
+        slot = torch.empty_like(ids)
+        slot[order] = sorted_ids * cap + rank  # (cell, a) flat
+        cell_id = torch.div(slot, cap, rounding_mode="floor")
+        aa = slot % cap
+        cx = torch.div(cell_id, self.plane, rounding_mode="floor")
+        lane = cell_id % self.plane  # cy * ncz + cz
+        return ((cx * cap + aa) * self.plane + lane).long(), overflow
+
+    def prepare(self, state: GridMD3State) -> GridMD3State:
+        """Placement hook (parity with the JAX package's ``prepare``)."""
+        return state
+
+    @staticmethod
+    def _max_occ(occ: torch.Tensor) -> torch.Tensor:
+        """Global max cell occupancy (the slot axis is 1), 0-d int32."""
+        return occ.sum(1).max().to(torch.int32)
+
+    def init(self, position: torch.Tensor, velocity: torch.Tensor) -> GridMD3State:
+        position = position.to(self.device)
+        velocity = velocity.to(self.device)
+        slot, overflow = self._slot3(position)
+        dtype = position.dtype
+
+        def put(v, fill=0.0):
+            z = torch.full((self.size,), fill, dtype=dtype, device=self.device)
+            z[slot] = v
+            return z.view(self.grid_shape)
+
+        xg = put(position[:, 0], fill=self.sentinel)
+        yg, zg = put(position[:, 1]), put(position[:, 2])
+        vxg, vyg, vzg = (put(velocity[:, k]) for k in range(3))
+        occ = put(torch.ones(self.n, dtype=dtype, device=self.device))
+        pid = torch.full((self.size,), -1, dtype=torch.int32, device=self.device)
+        pid[slot] = torch.arange(self.n, dtype=torch.int32, device=self.device)
+        max_occ = self._max_occ(occ)
+        if self._pure_static:
+            overflow = overflow | (max_occ > self.static_cov)
+        fxg, fyg, fzg = self.force_kernel(xg, yg, zg, max_occ)
+        comp = {}
+        if self.compensated:
+            comp = {k: torch.zeros(self.grid_shape, dtype=dtype, device=self.device)
+                    for k in ("crx", "cry", "crz", "cvx", "cvy", "cvz")}
+        zero = torch.zeros((), dtype=dtype, device=self.device)
+        return GridMD3State(
+            xg=xg, yg=yg, zg=zg, vxg=vxg, vyg=vyg, vzg=vzg, fxg=fxg, fyg=fyg, fzg=fzg,
+            occ=occ, pid=pid.view(self.grid_shape),
+            dispx=torch.zeros_like(xg), dispy=torch.zeros_like(xg), dispz=torch.zeros_like(xg),
+            dmax2=zero, overflow=overflow, time=zero.clone(), max_occ=max_occ, **comp,
+        )
+
+    # -- migration rebuild (sort-free) ----------------------------------------
+    def _roll_cells_index(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Flat gather indices over a (27, ncx, ncy, ncz) per-cell array: the
+        first rolls class j's cells forward by its direction
+        (``out[j, X] = v[j, X - d_j]``), the second back
+        (``out[j, X] = v[j, X + d_j]``). One gather replaces the JAX
+        package's 27 rolls (``roll_cells``) and gives the same integers."""
+        key = str(device)
+        if key not in self._roll_index:
+            c = self.cps
+            ar = torch.arange(c, device=device)
+            d = torch.tensor(_DIRS, device=device).view(27, 3, 1, 1, 1)
+            xyz = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"))[None]  # (1, 3, c, c, c)
+            j = torch.arange(27, device=device).view(27, 1, 1, 1) * c**3
+
+            def flat(p):
+                return j + (p[:, 0] * c + p[:, 1]) * c + p[:, 2]
+
+            self._roll_index[key] = (flat((xyz - d) % c).reshape(-1), flat((xyz + d) % c).reshape(-1))
+        return self._roll_index[key]
+
+    def _migration_dest3(self, s: GridMD3State):
+        """Allocation phase of the rebuild. Returns the wrapped coordinates,
+        the source-frame code grid ``dcode * cap + target_a`` (-1 where
+        empty or invalid) that the migrate kernel consumes, the post-rebuild
+        occupancy grid and the overflow flag. The same allocation as the JAX
+        package's, class by class in the same order, so the codes are
+        bit-identical (see ``GridMD._migration_dest`` for the argument)."""
+        cps, cap, box, plane = self.cps, self.cap, self.box, self.plane
+        dev = s.xg.device
+        i32 = torch.int32
+        occ_b = s.occ > 0.5
+
+        # unwrapped drift is < skin/2 since the last rebuild; sentinel slots
+        # give garbage here, gated by occ_b everywhere below
+        xw = torch.remainder(s.xg, box)
+        yw = torch.remainder(s.yg, box)
+        zw = torch.remainder(s.zg, box)
+
+        cx = torch.arange(cps, dtype=i32, device=dev).view(cps, 1, 1)
+        col = torch.arange(plane, dtype=i32, device=dev).view(1, 1, plane)
+        cy = torch.div(col, cps, rounding_mode="floor")
+        cz = col % cps
+        cell = box / cps
+        txc = torch.div(xw, cell, rounding_mode="floor").to(i32).clamp(0, cps - 1)
+        tyc = torch.div(yw, cell, rounding_mode="floor").to(i32).clamp(0, cps - 1)
+        tzc = torch.div(zw, cell, rounding_mode="floor").to(i32).clamp(0, cps - 1)
+        # migration direction in {-1, 0, 1} with periodic wrap
+        dxc = (txc - cx + 1 + cps) % cps - 1
+        dyc = (tyc - cy + 1 + cps) % cps - 1
+        dzc = (tzc - cz + 1 + cps) % cps - 1
+        moved_far = occ_b & ((dxc.abs() > 1) | (dyc.abs() > 1) | (dzc.abs() > 1))
+        overflow = s.overflow | torch.any(moved_far)
+        # a far-mover (flagged above) stays in its source cell
+        dxc = torch.where(moved_far, 0, dxc)
+        dyc = torch.where(moved_far, 0, dyc)
+        dzc = torch.where(moved_far, 0, dzc)
+
+        dcode = ((dxc + 1) * 3 + (dyc + 1)) * 3 + (dzc + 1)  # class in 0..26
+        dm = (torch.arange(27, dtype=i32, device=dev).view(27, 1, 1, 1) == dcode[None]) & occ_b[None]
+        dmi = dm.to(i32)
+        inc = torch.cumsum(dmi, dim=2, dtype=i32)  # along the slot axis
+        ranks = inc - dmi  # exclusive in-cell rank within the class
+        counts = inc[:, :, cap - 1, :]  # (27, ncx, plane)
+        fwd, back = self._roll_cells_index(dev)
+        # per-class counts at the TARGET cell, exclusive-prefixed in class
+        # order: the first free slot before each class arrives
+        rc = counts.reshape(-1)[fwd].view(27, cps, 1, plane)
+        bases_t = torch.cumsum(rc, dim=0, dtype=i32) - rc
+        base_src = bases_t.reshape(-1)[back].view(27, cps, 1, plane)
+        picked = torch.where(dm, base_src + ranks, 0).sum(0, dtype=i32)
+        target_a = torch.where(occ_b, picked, -1)
+
+        overflow = overflow | torch.any((target_a >= cap) & occ_b)
+        valid = occ_b & (target_a >= 0) & (target_a < cap)
+        # classes occupy disjoint code ranges [j*cap, (j+1)*cap)
+        scode = torch.where(valid, dcode * cap + target_a, -1).to(i32)
+
+        # post-rebuild occupancy: slots fill compactly from 0
+        tot = torch.clamp(rc.sum(0, dtype=i32), max=cap)  # (ncx, 1, plane)
+        slot_i = torch.arange(cap, dtype=i32, device=dev).view(1, cap, 1)
+        occ_new = (slot_i < tot).to(s.occ.dtype)
+        return xw, yw, zw, scode, occ_new, overflow
+
+    def _rebuild_migrate(self, s: GridMD3State) -> GridMD3State:
+        """Sort-free re-binning: allocation in plain PyTorch, then one
+        migrate launch (B6, or B7 with ``migrate_compact=False``) that moves
+        every field. A particle that moved further than one cell raises
+        ``overflow`` and is kept in place; so do B6's ``mov_of`` and, in pure
+        static mode, a new ``max_occ`` above ``static_cov``. Coordinates are
+        wrapped back into [0, box) here, the only place they ever are, and
+        empty slots are re-filled with the sentinel."""
+        xw, yw, zw, scode, occ_new, overflow = self._migration_dest3(s)
+        dtype = s.xg.dtype
+        fields = [xw, yw, zw, s.vxg, s.vyg, s.vzg, s.fxg, s.fyg, s.fzg, s.pid.to(dtype)]
+        fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
+        if s.crx is not None:
+            fields += [s.crx, s.cry, s.crz, s.cvx, s.cvy, s.cvz]
+            fills += [0.0] * 6
+        new_mo = self._max_occ(occ_new)
+        if self._pure_static:
+            overflow = overflow | (new_mo > self.static_cov)
+        k_mov = self.migrate_k_mov if self.migrate_compact else None
+        out, mov_of = migrate3(scode, torch.stack(fields), fills, k_mov=k_mov)
+        comp = {}
+        if s.crx is not None:
+            comp = dict(crx=out[10], cry=out[11], crz=out[12], cvx=out[13], cvy=out[14], cvz=out[15])
+        zeros = torch.zeros_like(s.xg)
+        return s.replace(
+            xg=out[0], yg=out[1], zg=out[2], vxg=out[3], vyg=out[4], vzg=out[5],
+            fxg=out[6], fyg=out[7], fzg=out[8],
+            occ=occ_new, pid=out[9].to(torch.int32),
+            dispx=zeros, dispy=zeros, dispz=zeros,
+            dmax2=torch.zeros_like(s.dmax2),
+            overflow=overflow | mov_of, max_occ=new_mo, **comp,
+        )
+
+    def _needs_rebuild(self, s: GridMD3State, frac: float = 0.5) -> torch.Tensor:
+        """Gate on the scalar displacement max kept by the windows. NaN-safe:
+        a NaN ``dmax2`` asks for a rebuild."""
+        return ~(s.dmax2 <= (frac * self.skin) ** 2)
+
+    # -- MD step ---------------------------------------------------------------
+    _kadd = staticmethod(GridMD._kadd)
+
+    def _make_window(self, force_fn, n_inner: int):
+        """Leapfrog window: ``window(s) -> s`` advancing ``n_inner``
+        velocity-Verlet steps (NVE) with one force call and one elementwise
+        pass per step. If any particle's displacement since the rebuild
+        exceeded skin/2 mid-window, the state's ``overflow`` flag is raised
+        (NaN-safe: ``~(NaN <= t)`` is True)."""
+        dt = self.dt
+        comp = bool(self.compensated)
+        kadd = self._kadd
+
+        def window(s: GridMD3State) -> GridMD3State:
+            mo = s.max_occ  # constant between rebuilds (the binning is fixed)
+            vhx = s.vxg + 0.5 * dt * s.fxg
+            vhy = s.vyg + 0.5 * dt * s.fyg
+            vhz = s.vzg + 0.5 * dt * s.fzg
+            x, y, z = s.xg, s.yg, s.zg
+            crx, cry, crz, cvx, cvy, cvz = s.crx, s.cry, s.crz, s.cvx, s.cvy, s.cvz
+            dpx, dpy, dpz = s.dispx, s.dispy, s.dispz
+            dm = dpx * dpx + dpy * dpy + dpz * dpz
+            fx, fy, fz = s.fxg, s.fyg, s.fzg
+            for _ in range(n_inner):
+                incx, incy, incz = dt * vhx, dt * vhy, dt * vhz
+                if comp:
+                    x, crx = kadd(x, crx, incx)
+                    y, cry = kadd(y, cry, incy)
+                    z, crz = kadd(z, crz, incz)
+                else:
+                    x, y, z = x + incx, y + incy, z + incz
+                dpx, dpy, dpz = dpx + incx, dpy + incy, dpz + incz
+                dm = torch.maximum(dm, dpx * dpx + dpy * dpy + dpz * dpz)
+                fx, fy, fz = force_fn(x, y, z, mo)
+                if comp:
+                    vhx, cvx = kadd(vhx, cvx, dt * fx)
+                    vhy, cvy = kadd(vhy, cvy, dt * fy)
+                    vhz, cvz = kadd(vhz, cvz, dt * fz)
+                else:
+                    vhx, vhy, vhz = vhx + dt * fx, vhy + dt * fy, vhz + dt * fz
+            dmax2 = torch.max(dm)
+            violation = ~(dmax2 <= (0.5 * self.skin) ** 2)
+            return s.replace(
+                xg=x, yg=y, zg=z,
+                vxg=vhx - 0.5 * dt * fx, vyg=vhy - 0.5 * dt * fy, vzg=vhz - 0.5 * dt * fz,
+                fxg=fx, fyg=fy, fzg=fz,
+                crx=crx, cry=cry, crz=crz, cvx=cvx, cvy=cvy, cvz=cvz,
+                dispx=dpx, dispy=dpy, dispz=dpz,
+                dmax2=dmax2,
+                overflow=s.overflow | violation,
+                time=s.time + n_inner * dt,
+            )
+
+        return window
+
+    def _window_for(self, s: GridMD3State, n_inner: int):
+        """The ``n_inner``-step window for the state's binning. In hybrid
+        mode: B5's while ``max_occ <= cov``, else B4's, which costs one
+        host read of ``max_occ``; ``max_occ`` only changes at a rebuild, so
+        the drivers call this once per rebuild period."""
+        if self._hybrid and int(s.max_occ) <= self.static_cov:
+            return self._make_window(self.force_kernel_static, n_inner)
+        return self._make_window(self.force_kernel, n_inner)
+
+    def make_chunk_step(self, n_inner: int, gate_frac: float = 0.25, thermostat=None):
+        """``chunk(s) -> s``: a rebuild if the gate trips (one host read of
+        ``dmax2``), then an ``n_inner``-step window. Size ``n_inner`` with
+        :meth:`auto_chunk_params` for the same ``gate_frac``."""
+        if thermostat is not None:
+            raise NotImplementedError(_NO_LANGEVIN)
+
+        def chunk(s: GridMD3State) -> GridMD3State:
+            if bool(self._needs_rebuild(s, frac=gate_frac)):
+                s = self._rebuild_migrate(s)
+            return self._window_for(s, n_inner)(s)
+
+        return chunk
+
+    def make_production_run(self, n_steps: int, n_inner: int, gate_frac: float = 0.25, thermostat=None):
+        """``run(s) -> s`` advancing exactly ``n_steps`` (``n_inner`` must
+        divide it): windows run until the rebuild gate trips, checked
+        between windows with one host read of ``dmax2``; then a rebuild, and
+        again. The window kernel (B5 or B4) is chosen once per rebuild
+        period. The same windows, gate cadence and rebuilds as the JAX
+        package's nested ``while_loop``, including one trailing rebuild."""
+        if thermostat is not None:
+            raise NotImplementedError(_NO_LANGEVIN)
+        if n_steps % n_inner:
+            raise ValueError(f"n_inner {n_inner} must divide n_steps {n_steps}")
+
+        def run(s: GridMD3State) -> GridMD3State:
+            done = 0
+            while done < n_steps:
+                window = self._window_for(s, n_inner)
+                while done < n_steps and not bool(self._needs_rebuild(s, frac=gate_frac)):
+                    s = window(s)
+                    done += n_inner
+                s = self._rebuild_migrate(s)
+            return s
+
+        return run
+
+    def make_production_run_fixed(self, n_steps: int, cadence: int, thermostat=None):
+        """Fixed-cadence driver: ``rebuild -> cadence-step window`` blocks,
+        with no gate read; ``n_steps % cadence`` trailing steps run as one
+        remainder block. Safety rests on the window's skin/2 violation flag:
+        a cadence too long for the actual temperature raises ``overflow``,
+        never loses pairs silently. Size it with :meth:`auto_cadence`, on
+        equilibrated states only."""
+        if cadence < 1:
+            raise ValueError(f"cadence must be >= 1, got {cadence}")
+        if thermostat is not None:
+            raise ValueError("the fixed-cadence driver is NVE-only: Langevin runs use the gated drivers")
+        nb, rem = divmod(n_steps, cadence)
+
+        def run(s: GridMD3State) -> GridMD3State:
+            for _ in range(nb):
+                s = self._rebuild_migrate(s)
+                s = self._window_for(s, cadence)(s)
+            if rem:
+                s = self._rebuild_migrate(s)
+                s = self._window_for(s, rem)(s)
+            return s
+
+        return run
+
+    def auto_cadence(self, kt: float = 1.0, n_steps: int = 100_000) -> int:
+        """Rebuild cadence for :meth:`make_production_run_fixed`: the fastest
+        one-axis speed among ``N * n_steps`` Gaussian samples,
+        ``sqrt(2 ln(N n_steps) kT)``, may drift at most ``0.5 * skin`` (with
+        a 7% buffer) between rebuilds. The JAX package's rule."""
+        samples = max(float(self.n) * max(n_steps, 1), math.e)
+        vmax = math.sqrt(2.0 * math.log(samples)) * kt**0.5
+        return max(1, int(0.93 * 0.5 * self.skin / (vmax * self.dt)))
+
+    auto_chunk_params = GridMD.auto_chunk_params
+    auto_inner_steps = GridMD.auto_inner_steps
+
+    # -- observables / export ---------------------------------------------------
+    def kinetic_energy(self, s: GridMD3State) -> torch.Tensor:
+        return 0.5 * torch.sum((s.vxg**2 + s.vyg**2 + s.vzg**2) * s.occ)
+
+    def potential_energy(self, s: GridMD3State) -> torch.Tensor:
+        """One energy-kernel pass. Each pair's shifted LJ energy is counted
+        on both partners, hence the 0.5."""
+        _, _, _, e, _ = self.energy_kernel(s.xg, s.yg, s.zg, s.max_occ)
+        return 0.5 * torch.sum(e)
+
+    def virial(self, s: GridMD3State) -> torch.Tensor:
+        """Pair virial ``W = sum_pairs 24*eps*(2(s/r)^12 - (s/r)^6)`` from
+        the energy-kernel pass (each pair on both partners, hence 0.5)."""
+        _, _, _, _, w = self.energy_kernel(s.xg, s.yg, s.zg, s.max_occ)
+        return 0.5 * torch.sum(w)
+
+    def pressure(self, s: GridMD3State) -> torch.Tensor:
+        """Instantaneous virial pressure ``P = (2*KE + W) / (3 * V)``."""
+        return (2.0 * self.kinetic_energy(s) + self.virial(s)) / (3.0 * self.box**3)
+
+    def particle_order(self, s: GridMD3State, *grids: torch.Tensor) -> torch.Tensor:
+        """(N, len(grids)) values of the grids in particle order."""
+        pid = s.pid.reshape(-1)
+        tgt = torch.where(pid >= 0, pid, self.n).long()
+        out = torch.zeros((self.n + 1, len(grids)), dtype=grids[0].dtype, device=grids[0].device)
+        out[tgt] = torch.stack([g.reshape(-1) for g in grids], dim=1)
+        return out[: self.n]
+
+    def positions(self, s: GridMD3State) -> torch.Tensor:
+        """(N, 3) positions in particle order, wrapped into [0, box)."""
+        return torch.remainder(self.particle_order(s, s.xg, s.yg, s.zg), self.box)
+
+    def velocities(self, s: GridMD3State) -> torch.Tensor:
+        return self.particle_order(s, s.vxg, s.vyg, s.vzg)
+
+    def forces(self, s: GridMD3State) -> torch.Tensor:
+        """(N, 3) total forces in particle order."""
+        return self.particle_order(s, s.fxg, s.fyg, s.fzg)

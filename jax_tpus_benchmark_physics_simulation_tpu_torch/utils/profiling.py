@@ -5,7 +5,9 @@ the card spent in kernels, memcpys and memsets. Divided by the same work's
 wall time measured *without* the profiler (whose host overhead would
 inflate the wall time), it gives the card's busy share; one minus it is the
 idle share. :func:`window_sync_cost` times the host sync that the gated
-production driver makes once per window.
+drivers make once per window, :func:`rebuild_read_cost` the host read of
+``max_occ`` that the 3D engine's hybrid kernel choice makes once per
+rebuild period.
 """
 
 from __future__ import annotations
@@ -37,13 +39,24 @@ def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, st
     return device_us * 1e-6, table
 
 
+def _paired_medians(timed: Callable[[bool], float], repeats: int) -> Tuple[float, float]:
+    """Medians of ``timed(True)`` and ``timed(False)`` over ``repeats``
+    alternating runs, after one warm run of each."""
+    timed(True)
+    timed(False)
+    on, off = [], []
+    for _ in range(repeats):
+        on.append(timed(True))
+        off.append(timed(False))
+    return statistics.median(on), statistics.median(off)
+
+
 def window_sync_cost(md, gs, n_inner: int, n_windows: int = 25, repeats: int = 5) -> Tuple[float, float]:
     """Wall ms per step of ``n_windows`` leapfrog windows of ``md`` from
     state ``gs``: with the host read of ``dmax2`` after every window that
-    the gated driver makes, and with one synchronize at the end. Their
-    difference is what the per-window sync costs. Medians over ``repeats``
-    alternating runs, after one warm run of each."""
-    window = md._make_window(md.force_kernel, n_inner)
+    the gated drivers make, and with one synchronize at the end. Their
+    difference is what the per-window sync costs."""
+    window = md._window_for(gs, n_inner)
 
     def timed(sync_each: bool) -> float:
         s = gs
@@ -56,10 +69,26 @@ def window_sync_cost(md, gs, n_inner: int, n_windows: int = 25, repeats: int = 5
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / (n_windows * n_inner)
 
-    timed(True)
-    timed(False)
-    synced, unsynced = [], []
-    for _ in range(repeats):
-        synced.append(timed(True))
-        unsynced.append(timed(False))
-    return statistics.median(synced), statistics.median(unsynced)
+    return _paired_medians(timed, repeats)
+
+
+def rebuild_read_cost(md, gs, cadence: int, n_blocks: int = 25, repeats: int = 5) -> Tuple[float, float]:
+    """Wall ms per step of ``n_blocks`` blocks of the 3D fixed-cadence
+    driver (a rebuild, then a ``cadence``-step window) from state ``gs``:
+    with the host read of ``max_occ`` after every rebuild that picks the
+    window's kernel (B5 or B4), and with the kernel picked once before the
+    run. Their difference is what the read costs; the second run is exact
+    only while no rebuild changes the pick."""
+    window = md._window_for(gs, cadence)
+
+    def timed(read_each: bool) -> float:
+        s = gs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_blocks):
+            s = md._rebuild_migrate(s)
+            s = (md._window_for(s, cadence) if read_each else window)(s)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (n_blocks * cadence)
+
+    return _paired_medians(timed, repeats)

@@ -14,7 +14,12 @@ import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import MDConfig, override
 from jax_tpus_benchmark_physics_simulation_tpu_torch.models import lj_fluid
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import cell_cuda, migrate_cuda
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import (
+    cell_cuda,
+    cell_cuda3,
+    migrate_cuda,
+    migrate_cuda3,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -38,6 +43,17 @@ def _advanced_state(device):
     s0 = lj_fluid.init_state(CFG, device)
     gs = md.make_production_run(200, 5, gate_frac=0.35)(md.init(s0.position, s0.velocity))
     return md, md._make_window(md.force_kernel, 20)(gs)
+
+
+CFG3 = override(CFG, n=8192, dim=3)  # cps 8, cap 32, B5 bound 24
+
+
+def _advanced_state3(device):
+    """A 3D grid state 5 steps after a rebuild: coordinates unwrapped."""
+    md = lj_fluid._make_grid_md(CFG3, device)
+    s0 = lj_fluid.init_state(CFG3, device)
+    gs = md.make_production_run_fixed(100, 10)(md.init(s0.position, s0.velocity))
+    return md, md._window_for(gs, 5)(gs)
 
 
 def test_cell_force_kernel_matches_plain(cuda_device):
@@ -68,6 +84,53 @@ def test_migrate_kernel_bit_equal(cuda_device):
     assert migrate_cuda.LAUNCHES == before + 1
 
 
+def test_cell_force3_kernels_match_plain(cuda_device):
+    """B4 (both variants) and B5 against their plain versions at the same
+    bound: forces at atol 1e-4 on occupied slots (summation order), exact
+    zeros elsewhere, e and w sums at rtol 1e-5. (This state is still
+    melting from the lattice, so its max occupancy may exceed B5's bound:
+    B5 then differs from B4, as it should.)"""
+    md, gs = _advanced_state3(cuda_device)
+    p = cell_cuda3.CellForce3Params.from_grid(md.grid_fn)
+    occ = gs.occ > 0.5
+    mo = int(gs.max_occ)
+    before = (cell_cuda3.LAUNCHES, cell_cuda3.ENERGY_LAUNCHES, cell_cuda3.STATIC_LAUNCHES)
+    args = (gs.xg, gs.yg, gs.zg, p)
+    for with_energy in (False, True):
+        got = cell_cuda3.grid_force3(*args, max_occ=gs.max_occ, with_energy=with_energy)
+        want = cell_cuda3.grid_force3_reference(*args, mo, with_energy)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:3], want[:3]):
+            assert float((a - b)[occ].abs().max()) <= 1e-4
+            assert bool((a[~occ] == 0).all())
+        for a, b in zip(got[3:], want[3:]):
+            np.testing.assert_allclose(float(a.double().sum()), float(b.double().sum()), rtol=1e-5)
+    got = cell_cuda3.grid_force3(*args, static_cov=md.static_cov)
+    want = cell_cuda3.grid_force3_reference(*args, md.static_cov)
+    for a, b in zip(got, want):
+        assert float((a - b)[occ].abs().max()) <= 1e-4
+        assert bool((a[:, md.static_cov:] == 0).all())
+    assert (cell_cuda3.LAUNCHES, cell_cuda3.ENERGY_LAUNCHES, cell_cuda3.STATIC_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+
+
+def test_migrate3_kernels_bit_equal(cuda_device):
+    """B6 and B7 (one scatter) bit-equal to the plain version, with the
+    same mover flag as on the CPU."""
+    md, gs = _advanced_state3(cuda_device)
+    _, _, _, scode, _, _ = md._migration_dest3(gs)
+    fields = torch.stack([gs.xg, gs.yg, gs.zg, gs.vxg, gs.pid.float()])
+    fills = [md.sentinel, 0.0, 0.0, 0.0, -1.0]
+    before = (migrate_cuda3.LAUNCHES, migrate_cuda3.FLAT_LAUNCHES)
+    want = migrate_cuda3.migrate3_reference(scode, fields, fills)
+    for k_mov in (8, None):
+        got, mov_of = migrate_cuda3.migrate3(scode, fields, fills, k_mov=k_mov)
+        assert torch.equal(got, want)
+        _, mov_of_cpu = migrate_cuda3.migrate3(scode.cpu(), fields.cpu(), fills, k_mov=k_mov)
+        assert bool(mov_of) == bool(mov_of_cpu)
+    assert (migrate_cuda3.LAUNCHES, migrate_cuda3.FLAT_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
 def test_wrappers_reject_bad_cuda_inputs(cuda_device):
     md, gs = _advanced_state(cuda_device)
     p = cell_cuda.CellForceParams.from_grid(md.grid_fn)
@@ -79,6 +142,12 @@ def test_wrappers_reject_bad_cuda_inputs(cuda_device):
     scode = torch.full(tuple(gs.xg.shape), -1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="at most"):
         migrate_cuda.migrate(scode, fields, [0.0] * 17)
+    md3, gs3 = _advanced_state3(cuda_device)
+    p3 = cell_cuda3.CellForce3Params.from_grid(md3.grid_fn)
+    with pytest.raises(ValueError, match="built for"):
+        cell_cuda3.grid_force3(gs3.xg, gs3.yg, gs3.zg, p3, static_cov=12)
+    with pytest.raises(ValueError):
+        cell_cuda3.grid_force3(gs3.xg, gs3.yg, gs3.zg, p3, max_occ=gs3.max_occ.cpu())
 
 
 def test_engine_on_card_matches_cpu(cuda_device):

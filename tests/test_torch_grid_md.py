@@ -36,7 +36,7 @@ def _engines(compensated=True):
     box = float(np.sqrt(N / RHO))
     md_j = JaxGridMD(jax_make_cell_grid_fn(box, 2.5, N, dim=2), dt=DT,
                      compensated=compensated, rows_per_block=1)
-    md_t = GridMD(make_cell_grid_fn(box, 2.5, N, dim=2), dt=DT, compensated=compensated)
+    md_t = GridMD(make_cell_grid_fn(box, 2.5, N, dim=2), dt=DT, compensated=compensated, device="cpu")
     pos = np.mod(lattice_positions(N, box, seed=8), box)
     return md_j, md_t, pos, velocities(N, kt=1.0, seed=9)
 
@@ -122,7 +122,7 @@ def test_chunk_driver_matches_production_driver(runs):
 def test_violation_flag_on_oversized_window():
     """A window far longer than the skin allows raises the overflow flag."""
     box = float(np.sqrt(400 / 0.5))
-    md = GridMD(make_cell_grid_fn(box, 2.5, 400, dim=2), dt=5e-3)
+    md = GridMD(make_cell_grid_fn(box, 2.5, 400, dim=2), dt=5e-3, device="cpu")
     pos = np.mod(lattice_positions(400, box, seed=10), box)
     gs = md.init(torch.from_numpy(pos), torch.from_numpy(velocities(400, kt=2.0, seed=11)))
     assert not bool(gs.overflow)

@@ -55,10 +55,10 @@ def test_config_fields_match_jax():
 
 def test_lattice_init_matches_jax():
     cfg = override(MDConfig(), **SLICE)
-    pos_t = lj_fluid.init_state(cfg).position.numpy()
+    pos_t = lj_fluid.init_state(cfg, "cpu").position.numpy()
     pos_j = np.asarray(jax_lj_fluid.init_state(jax_override(JaxMDConfig(), **SLICE)).position)
     np.testing.assert_allclose(pos_t, pos_j, rtol=1e-6)
-    v = lj_fluid.init_state(override(cfg, n=20_000)).velocity
+    v = lj_fluid.init_state(override(cfg, n=20_000), "cpu").velocity
     assert abs(float(v.var()) - cfg.kt) < 0.05  # drawn from a torch.Generator, not jax.random
 
 
@@ -73,7 +73,7 @@ def test_equilibrate_production_match_jax():
     with exact_pallas_reciprocal():
         eq_j, ovf_eq_j = jax_lj_fluid.equilibrate(cfg_j, s0)
         fin_j, (r_j, ke_j, pe_j), ovf_j = jax_lj_fluid.production(cfg_j, eq_j)
-    st = particle_state_from_numpy(np.asarray(s0.position), np.asarray(s0.velocity))
+    st = particle_state_from_numpy(np.asarray(s0.position), np.asarray(s0.velocity), device="cpu")
     eq_t, ovf_eq_t = lj_fluid.equilibrate(cfg_t, st)
     fin_t, (r_t, ke_t, pe_t), ovf_t = lj_fluid.production(cfg_t, eq_t)
     assert bool(ovf_eq_t) == bool(ovf_eq_j) is False
@@ -106,7 +106,7 @@ def test_rdf_matches_jax():
 
 def test_thermo_matches_jax():
     pos, vel = lattice_positions(64, 9.0), velocities(64, kt=1.5)
-    st = particle_state_from_numpy(pos, vel)
+    st = particle_state_from_numpy(pos, vel, device="cpu")
     sj = JaxParticleState.create(jnp.asarray(pos), jnp.asarray(vel))
     np.testing.assert_allclose(float(kinetic_energy(st)), float(jax_kinetic_energy(sj)), rtol=1e-6)
     np.testing.assert_allclose(float(temperature(st)), float(jax_temperature(sj)), rtol=1e-6)
@@ -128,16 +128,15 @@ def test_unported_paths_raise():
     base = override(MDConfig(), n=5000, cutoff=2.5)
     assert lj_fluid.resolve_impl(base) == "grid"
     for cfg in (
-        override(base, dim=3),
         override(base, force_impl="dense_xla"),
         override(base, n=400),  # auto -> a dense path
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             lj_fluid.resolve_impl(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lj_fluid.equilibrate(override(base, thermostat="langevin"), lj_fluid.init_state(base))
+        lj_fluid.equilibrate(override(base, thermostat="langevin"), lj_fluid.init_state(base, "cpu"))
     with pytest.raises(ValueError, match="sample_every"):
-        lj_fluid.production(override(base, prod_steps=50), lj_fluid.init_state(base))
+        lj_fluid.production(override(base, prod_steps=50), lj_fluid.init_state(base, "cpu"))
 
 
 def test_cli_md_cpu(capsys):

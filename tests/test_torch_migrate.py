@@ -45,7 +45,7 @@ def advanced():
     vel = velocities(N, kt=1.0, seed=7)
     gf_j = jax_make_cell_grid_fn(box, 2.5, N, dim=2)
     md_j = JaxGridMD(gf_j, dt=2e-3, compensated=True, rows_per_block=1)
-    md_t = GridMD(make_cell_grid_fn(box, 2.5, N, dim=2), dt=2e-3, compensated=True)
+    md_t = GridMD(make_cell_grid_fn(box, 2.5, N, dim=2), dt=2e-3, compensated=True, device="cpu")
     rebuild = jax.jit(md_j._rebuild_migrate)
     with exact_pallas_reciprocal():
         window = jax.jit(md_j._make_window(md_j.force_kernel, 20))

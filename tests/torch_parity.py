@@ -17,29 +17,36 @@ GRID_STATE_FIELDS = (
     "xg", "yg", "vxg", "vyg", "fxg", "fyg", "occ", "pid", "dispx", "dispy",
     "dmax2", "overflow", "time", "crx", "cry", "cvx", "cvy",
 )
+# the fields of a JAX GridMD3State that interop.grid3_state_from_jax reads
+GRID3_STATE_FIELDS = (
+    "xg", "yg", "zg", "vxg", "vyg", "vzg", "fxg", "fyg", "fzg", "occ", "pid",
+    "dispx", "dispy", "dispz", "dmax2", "overflow", "time", "max_occ",
+    "crx", "cry", "crz", "cvx", "cvy", "cvz",
+)
 
 
-def lattice_positions(n: int, box: float, jitter: float = 0.05, seed: int = 0) -> np.ndarray:
-    """(n, 2) float32 square-lattice positions with Gaussian jitter, NOT
-    wrapped: jitter near the edges leaves some coordinates slightly outside
-    [0, box), as unwrapped grid coordinates are between rebuilds."""
-    per_side = int(np.ceil(np.sqrt(n)))
+def lattice_positions(n: int, box: float, jitter: float = 0.05, seed: int = 0, dim: int = 2) -> np.ndarray:
+    """(n, dim) float32 square/cubic-lattice positions with Gaussian jitter,
+    NOT wrapped: jitter near the edges leaves some coordinates slightly
+    outside [0, box), as unwrapped grid coordinates are between rebuilds."""
+    per_side = int(np.ceil(n ** (1.0 / dim) - 1e-9))
     spacing = box / per_side
     g = np.arange(per_side) * spacing + 0.5 * spacing
-    r = np.stack(np.meshgrid(g, g, indexing="ij"), axis=-1).reshape(-1, 2)[:n]
+    r = np.stack(np.meshgrid(*([g] * dim), indexing="ij"), axis=-1).reshape(-1, dim)[:n]
     r = r + jitter * np.random.default_rng(seed).standard_normal(r.shape)
     return r.astype(np.float32)
 
 
-def velocities(n: int, kt: float = 1.0, seed: int = 1) -> np.ndarray:
-    v = np.sqrt(kt) * np.random.default_rng(seed).standard_normal((n, 2))
+def velocities(n: int, kt: float = 1.0, seed: int = 1, dim: int = 2) -> np.ndarray:
+    v = np.sqrt(kt) * np.random.default_rng(seed).standard_normal((n, dim))
     return v.astype(np.float32)
 
 
-def jax_grid_arrays(gs) -> dict:
-    """The leaves of a JAX GridMDState as numpy arrays by field name."""
+def jax_grid_arrays(gs, fields=GRID_STATE_FIELDS) -> dict:
+    """The leaves of a JAX GridMDState (or, with ``GRID3_STATE_FIELDS``,
+    GridMD3State) as numpy arrays by field name."""
     out = {}
-    for name in GRID_STATE_FIELDS:
+    for name in fields:
         leaf = getattr(gs, name)
         if leaf is not None:
             out[name] = np.asarray(leaf)
