@@ -39,7 +39,25 @@ Run from the repository root. It builds the CUDA kernels from
 10. about 200 steps at N=100k with ``migrate_compact=False`` (B7), with
     every counter set to 0 just before: B7 launched, and the final state
     bit-equal to the same run on B6;
-11. prints a JSON line with each kernel's launches on its main path,
+11. B8 (the all-pairs kernel) at N=16,384 in 2D (PBC, no cutoff) on a
+    state 100 steps into the melt from the lattice, against its plain
+    version: forces within 1e-4 * max |f|, the energy variant's forces
+    likewise and its energy sum at rtol 1e-5, two launches bit-equal; at
+    N=4096 also the cutoff-2.5 variant in 2D and the 3D variant without a
+    box; timed with CUDA events;
+12. the dense main path, ``lj_fluid.run`` at N=16,384 with no cutoff
+    (rho 0.8, dt 1e-3, lattice init, 2000 + 2000 steps, ``force_impl``
+    auto, which resolves to ``dense_pallas``), with every counter set to 0
+    just before: overflow False, finite histories and g(r), drift < 1e-4,
+    pressure NaN (as in the JAX package), B8 and its energy variant
+    launched; then the card's busy share over 200 traced production steps
+    (``torch.profiler``, trace in ``chiprun_out/``);
+13. a dense run at N=2048 with no cutoff (100 + 100 steps), auto on both
+    sides (B8 on the card, ``dense_xla`` on the CPU): energies at rtol 1e-4;
+14. the list paths, ``neighbor`` and ``cell`` at N=4096 with cutoff 2.5
+    (100 + 100 steps), card against CPU: energies at rtol 1e-4, overflow
+    False on both;
+15. prints a JSON line with each kernel's launches on its main path,
     error, times, and bound (the larger of the operations over the card's
     float32 peak and the bytes over its memory rate, counted on this run's
     inputs), and as the last line ``{"ok": true, "device": {...}}``.
@@ -53,6 +71,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -151,6 +170,17 @@ def _force_bounds(work, dim: int, n_slots: int):
             _bound(tests + (14 + 2 * dim) * in_cut, 4 * n_slots * (2 * dim + 2)))
 
 
+def _pairwise_bounds(n: int, dim: int):
+    """Bounds of B8 and its energy variant: N^2 (4d + 12) operations, the
+    JAX package's own cost estimate for the all-pairs kernel
+    (pairwise_pallas.py:139-143) with N for its padded n_pad, and 4 more a
+    pair with the energy (s12 - s6, the 4 eps product, the shift, the sum);
+    the positions in, the forces (and energies) out."""
+    pairs = float(n) * n
+    return (_bound(pairs * (4 * dim + 12), 4 * n * 2 * dim),
+            _bound(pairs * (4 * dim + 16), 4 * n * (2 * dim + 1)))
+
+
 def _migrate_bound(n_fields: int, n_slots: int):
     """A permutation: the code grid and F fields read once, F written."""
     return _bound(0.0, 4 * n_slots * (2 * n_fields + 1))
@@ -171,6 +201,7 @@ def main() -> int:
         cell_cuda3,
         migrate_cuda,
         migrate_cuda3,
+        pairwise_cuda,
     )
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md3 import GridMD3
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.thermo import temperature
@@ -183,6 +214,7 @@ def main() -> int:
         cell_cuda.LAUNCHES = cell_cuda.ENERGY_LAUNCHES = migrate_cuda.LAUNCHES = 0
         cell_cuda3.LAUNCHES = cell_cuda3.ENERGY_LAUNCHES = cell_cuda3.STATIC_LAUNCHES = 0
         migrate_cuda3.LAUNCHES = migrate_cuda3.FLAT_LAUNCHES = 0
+        pairwise_cuda.LAUNCHES = pairwise_cuda.ENERGY_LAUNCHES = 0
 
     # -- 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -472,7 +504,133 @@ def main() -> int:
           f"{launches['migrate3_flat']} B7 launches, final state bit-equal to the B6 run; overflow "
           f"B7 {bool(finals[False].overflow)}, B6 {bool(finals[True].overflow)}", flush=True)
 
-    # -- 11. result --------------------------------------------------------------
+    # -- 11. B8 against its plain version ---------------------------------------
+    def check_pairwise(pos, p, label: str, with_energy: bool) -> float:
+        """B8 (or its energy variant) against the plain version on ``pos``:
+        forces within 1e-4 * max |f|, the energy sum at rtol 1e-5, and two
+        launches bit-equal. Returns the max abs difference."""
+        got = pairwise_cuda.lj_force_pairwise(pos, p, with_energy)
+        again = pairwise_cuda.lj_force_pairwise(pos, p, with_energy)
+        want = pairwise_cuda.lj_force_pairwise_reference(pos, p, with_energy)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: two launches on one input are not bit-equal")
+        fmax = float(want[0].abs().max())
+        err = float((got[0] - want[0]).abs().max())
+        if not err <= 1e-4 * fmax:
+            raise AssertionError(f"{label}: forces max abs diff {err:.3e} > 1e-4 * {fmax:.3e}")
+        if with_energy:
+            se, sr = float(got[1].double().sum()), float(want[1].double().sum())
+            if not abs(se - sr) <= 1e-5 * abs(sr):
+                raise AssertionError(f"{label}: energy sum {se} vs {sr}, beyond rtol 1e-5")
+            err = max(err, float((got[1] - want[1]).abs().max()))
+        print(f"phase 11 {label}{' energy variant' if with_energy else ''}: max abs diff {err:.3e} "
+              f"(max |f| {fmax:.1f}), bit-equal across two launches", flush=True)
+        return err
+
+    def melted(c):
+        """Positions 100 steps into the melt from ``c``'s lattice start."""
+        return lj_fluid.equilibrate(override(c, eq_steps=100), lj_fluid.init_state(c, dev))[0].position
+
+    dense = override(MDConfig(), n=16_384, rho=0.8, kt=1.0, dt=1e-3, cutoff=None, init="lattice",
+                     eq_steps=2000, prod_steps=2000, sample_every=100)
+    pos_d = melted(dense)
+    pp = pairwise_cuda.PairwiseParams(box=dense.box_size)
+    errors["pairwise_lj"] = check_pairwise(pos_d, pp, f"B8 N={dense.n} 2D PBC", False)
+    errors["pairwise_lj_energy"] = check_pairwise(pos_d, pp, f"B8 N={dense.n} 2D PBC", True)
+    dense4 = override(dense, n=4096)
+    pos4 = melted(dense4)
+    pos4_3d = melted(override(dense4, dim=3))
+    for with_energy in (False, True):
+        check_pairwise(pos4, pairwise_cuda.PairwiseParams(box=dense4.box_size, cutoff=2.5),
+                       f"B8 N={dense4.n} 2D PBC cutoff 2.5", with_energy)
+        check_pairwise(pos4_3d, pairwise_cuda.PairwiseParams(), f"B8 N={dense4.n} 3D no box", with_energy)
+    times["pairwise_lj"] = (_cuda_ms(lambda: pairwise_cuda.lj_force_pairwise(pos_d, pp), 50),
+                            _cuda_ms(lambda: pairwise_cuda.lj_force_pairwise_reference(pos_d, pp), 5))
+    times["pairwise_lj_energy"] = (
+        _cuda_ms(lambda: pairwise_cuda.lj_force_pairwise(pos_d, pp, True), 50),
+        _cuda_ms(lambda: pairwise_cuda.lj_force_pairwise_reference(pos_d, pp, True), 5))
+    bounds["pairwise_lj"], bounds["pairwise_lj_energy"] = _pairwise_bounds(dense.n, 2)
+    slices, slice_len = pairwise_cuda._slices(dense.n)
+    print(f"phase 11 B8 launch at N={dense.n}: {slices} j slices of {slice_len}, "
+          f"{pairwise_cuda.THREADS}-thread blocks", flush=True)
+    for name in ("pairwise_lj", "pairwise_lj_energy"):
+        print(f"phase 11 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+
+    # -- 12. the dense main path -------------------------------------------------
+    impl_d = lj_fluid.resolve_impl(dense, dev)
+    if impl_d != "dense_pallas":
+        raise AssertionError(f"N={dense.n} without a cutoff resolves to {impl_d}, not dense_pallas")
+    reset_counts()
+    resd = lj_fluid.run(dense, device="cuda")
+    path_d = {"pairwise_lj": pairwise_cuda.LAUNCHES, "pairwise_lj_energy": pairwise_cuda.ENERGY_LAUNCHES}
+    _, d_coef, d_resid = resd.transport()
+    steps_d = dense.eq_steps + dense.prod_steps
+    print(f"phase 12 lj_fluid.run N={dense.n} ({impl_d}, no cutoff): "
+          f"{1e3 * (resd.time_eq_s + resd.time_prod_s) / steps_d:.4f} ms/step, "
+          f"{resd.particle_steps_per_sec:.4e} particle-steps/s (eq {resd.time_eq_s:.3f} s, prod "
+          f"{resd.time_prod_s:.3f} s, build+warm-up {resd.time_compile_s:.3f} s, g(r) "
+          f"{resd.time_rdf_s:.3f} s); energy drift {resd.energy_drift:.3e}; kT_eq {resd.kt_eq:.4f}; "
+          f"D* {d_coef:.4e} (fit rms {d_resid:.1e}); P* {resd.pressure}; launches {path_d}", flush=True)
+    if resd.overflow:
+        raise AssertionError("dense main path: overflow flagged")
+    if tuple(resd.r_history.shape) != (dense.prod_steps // dense.sample_every, dense.n, 2):
+        raise AssertionError(f"dense main path: r_history shape {tuple(resd.r_history.shape)}")
+    for name, t in (("r_history", resd.r_history), ("ke", resd.ke_history), ("pe", resd.pe_history),
+                    ("g(r)", resd.rdf_g)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"dense main path: non-finite {name}")
+    if not resd.energy_drift < 1e-4:
+        raise AssertionError(f"dense main path: energy drift {resd.energy_drift:.3e} >= 1e-4")
+    if not math.isnan(resd.pressure):
+        raise AssertionError("dense main path: pressure is measured on the grid engine only")
+    for name, count in path_d.items():
+        if count <= 0:
+            raise AssertionError(f"dense main path never launched kernel {name}")
+    launches.update(path_d)
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import profile_device
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    traced = override(dense, prod_steps=2 * dense.sample_every)
+    dev_s, table = profile_device(lambda: lj_fluid.production(traced, resd.state),
+                                  os.path.join("chiprun_out", "chip_smoke_dense_trace.json"))
+    busy_ms = 1e3 * dev_s / traced.prod_steps
+    wall_ms = 1e3 * resd.time_prod_s / dense.prod_steps
+    print(table)
+    print(f"phase 12 profile (production, {traced.prod_steps} traced steps): device busy {busy_ms:.4f} "
+          f"ms/step of {wall_ms:.4f} ms/step untraced wall; busy share {busy_ms / wall_ms:.3f}, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+
+    # -- 13, 14. dense and list paths on the card against the CPU ---------------
+    def card_vs_cpu(small, phase: str) -> None:
+        """The same equilibrate + production on the card and on the CPU:
+        energies at rtol 1e-4, no overflow on either."""
+        hist, impls = {}, {}
+        for where in ("cuda", "cpu"):
+            impls[where] = lj_fluid.resolve_impl(small, where)
+            s_eq, ovf_eq = lj_fluid.equilibrate(small, lj_fluid.init_state(small, where))
+            _, (_, ke, pe), ovf = lj_fluid.production(small, s_eq)
+            if bool(ovf_eq) or bool(ovf):
+                raise AssertionError(f"phase {phase} on {where}: overflow")
+            hist[where] = (ke.cpu().double(), pe.cpu().double())
+        worst = 0.0
+        for a, b, name in zip(hist["cuda"], hist["cpu"], ("ke", "pe")):
+            rel = float(((a - b).abs() / b.abs()).max())
+            if not rel <= 1e-4:
+                raise AssertionError(f"phase {phase} {name} history, card vs CPU: rel diff {rel:.3e} > 1e-4")
+            worst = max(worst, rel)
+        print(f"phase {phase} N={small.n}, {small.eq_steps + small.prod_steps} steps: card "
+              f"({impls['cuda']}) and CPU ({impls['cpu']}) energy histories agree within rtol 1e-4 "
+              f"(max rel diff {worst:.2e}); overflow False on both", flush=True)
+
+    card_vs_cpu(override(dense, n=2048, eq_steps=100, prod_steps=100, sample_every=20), "13 dense")
+    for impl in ("neighbor", "cell"):
+        card_vs_cpu(override(dense, n=4096, cutoff=2.5, force_impl=impl, eq_steps=100, prod_steps=100,
+                             sample_every=20), f"14 {impl}")
+
+    # -- 15. result --------------------------------------------------------------
     root = "jax_tpus_benchmark_physics_simulation_tpu_torch/ops/kernels/csrc/"
     ref = "jax_tpus_benchmark_physics_simulation_tpu/ops/kernels/"
     meta = {
@@ -484,6 +642,8 @@ def main() -> int:
         "cell_force3_static": ("cell_force3.cu", "cell_pallas3.py:336"),
         "migrate3": ("migrate3.cu", "migrate_pallas3.py:158"),
         "migrate3_flat": ("migrate3.cu", "migrate_pallas3.py:94"),
+        "pairwise_lj": ("pairwise_lj.cu", "pairwise_pallas.py:48"),
+        "pairwise_lj_energy": ("pairwise_lj.cu", "pairwise_pallas.py:48"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": root + src, "replaces": ref + tpu,

@@ -5,11 +5,11 @@ one is the reference; this package ports it slice by slice to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a). It imports ``torch``
 and ``numpy`` only, never ``jax`` or the JAX package.
 
-- ``core``     MDConfig and ParticleState
-- ``ops``      periodic boundaries, dense LJ oracle, cell-grid geometry,
-               the CUDA kernels and the grid-resident MD engines (2D, 3D),
-               observables
-- ``models``   ``lj_fluid``: the LJ fluid workload, 2D and 3D
+- ``core``     MDConfig, ParticleState and the step-loop runners
+- ``ops``      periodic boundaries, the dense LJ formula, velocity Verlet,
+               the CUDA kernels, the neighbor-list and cell-dense force
+               paths, the grid-resident MD engines (2D, 3D), observables
+- ``models``   ``lj_fluid``: the LJ fluid workload on every force path
 - ``interop``  carries state exported from the JAX package into the port
 - ``cli``      ``md`` subcommand
 """

@@ -1,9 +1,11 @@
 """Command line of the PyTorch port: the ``md`` subcommand.
 
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
-        --N 100000 --cutoff 2.5 --init lattice            # 2D
+        --N 16384 --init lattice                          # all pairs, B8
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
-        --N 100000 --dim 3 --cutoff 2.5 --init lattice    # 3D
+        --N 100000 --cutoff 2.5 --init lattice            # 2D grid engine
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
+        --N 100000 --dim 3 --cutoff 2.5 --init lattice    # 3D grid engine
 
 Flag names follow the JAX package's ``jtps md`` (its ``cli.py``), plus
 ``--device``. Output is plain text lines; there is no plot, manifest or
@@ -17,13 +19,21 @@ import math
 import os
 import sys
 
+# what each force path launches, for the kernels line
+_PATH_KERNELS = {
+    "dense_pallas": "B8 (csrc/pairwise_lj.cu): forces every step, its energy variant every sample",
+    "dense_xla": "none: the dense LennardJones formula in plain PyTorch",
+    "neighbor": "none: the Verlet neighbor list in plain PyTorch (one rebuild-check read a step)",
+    "cell": "none: the cell-dense force in plain PyTorch (one rebuild-check read a step)",
+}
+
 
 def _add_md(sub):
-    p = sub.add_parser("md", help="Lennard-Jones fluid MD (2D and 3D grid engines)")
+    p = sub.add_parser("md", help="Lennard-Jones fluid MD (dense, list and grid force paths)")
     p.add_argument("--N", type=int, default=400)
     p.add_argument("--dim", type=int, default=2, choices=[2, 3],
-                   help="2 (kernels B1, B2) or 3 (B5 windows with the B4 fallback, B6 "
-                        "rebuilds, fixed-cadence production)")
+                   help="2 (reference) or 3; on the grid engine 2 runs B1, B2 and 3 runs "
+                        "B5 windows with the B4 fallback, B6 rebuilds, fixed-cadence production")
     p.add_argument("--rho", type=float, default=0.8)
     p.add_argument("--kT", type=float, default=1.0)
     p.add_argument("--dt", type=float, default=1e-3)
@@ -34,7 +44,9 @@ def _add_md(sub):
     p.add_argument("--cutoff", type=float, default=None)
     p.add_argument("--force-impl", type=str, default="auto",
                    choices=["auto", "dense_xla", "dense_pallas", "neighbor", "cell", "grid"],
-                   help="the port runs 'grid' ('auto' picks it for N >= 4096 with a cutoff)")
+                   help="'auto' picks grid for N >= 4096 with a cutoff, neighbor for N >= 4096 "
+                        "with a box too small for grid, dense_pallas (kernel B8) for N >= 1024 "
+                        "on the card, else dense_xla")
     p.add_argument("--init", type=str, default="uniform", choices=["uniform", "lattice"])
     p.add_argument("--thermostat", type=str, default="none", choices=["none", "langevin"],
                    help="none = NVE ('langevin' is not ported yet)")
@@ -42,10 +54,10 @@ def _add_md(sub):
                    help="Langevin friction coefficient (1/time)")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="after the run, trace two production sample blocks with "
-                        "torch.profiler and time the host reads of the drivers (the "
-                        "per-window dmax2 read; in 3D also the per-rebuild max_occ "
-                        "read): prints the card's busy and idle share, writes "
-                        "DIR/trace.json (needs --device cuda)")
+                        "torch.profiler: prints the card's busy and idle share, writes "
+                        "DIR/trace.json; on the grid engine also times the host reads of "
+                        "the drivers (the per-window dmax2 read; in 3D also the "
+                        "per-rebuild max_occ read) (needs --device cuda)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their plain versions)")
 
@@ -72,25 +84,28 @@ def cmd_md(args) -> int:
         print("error: --profile measures the card: use --device cuda", file=sys.stderr)
         return 2
     try:
-        impl = lj_fluid.resolve_impl(cfg)
+        impl = lj_fluid.resolve_impl(cfg, device)
         res = lj_fluid.run(cfg, device=device)
-    except NotImplementedError as exc:
+    except (NotImplementedError, ValueError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"Molecular Dynamics (PyTorch port) on {name}")
-    md = lj_fluid._make_grid_md(cfg, device)
-    k, gate = lj_fluid._grid_inner_steps(cfg, md)
-    if res.cadence is None:
-        driver = f"gated, {k}-step windows at gate {gate}"
-    else:
-        driver = f"fixed rebuild cadence {res.cadence}"
     print(f"N={cfg.n}  dim={cfg.dim}  rho={cfg.rho}  kT={cfg.kt}  box={cfg.box_size:.2f}  "
           f"steps: {cfg.eq_steps:,} eq / {cfg.prod_steps:,} prod  dt={cfg.dt}  "
           f"force: {impl}  cutoff={cfg.cutoff}  ensemble: NVE")
-    kernels = "B1, B2" if cfg.dim == 2 else f"B5 (cov {md.static_cov}) / B4 fallback, B6"
-    print(f"grid: {md.cps} cells per side, capacity {md.cap}, skin {md.skin:.4f}; kernels {kernels}; "
-          f"equilibration gated, {k}-step windows at gate {gate}; production {driver}")
+    if impl == "grid":
+        md = lj_fluid._make_grid_md(cfg, device)
+        k, gate = lj_fluid._grid_inner_steps(cfg, md)
+        if res.cadence is None:
+            driver = f"gated, {k}-step windows at gate {gate}"
+        else:
+            driver = f"fixed rebuild cadence {res.cadence}"
+        kernels = "B1, B2" if cfg.dim == 2 else f"B5 (cov {md.static_cov}) / B4 fallback, B6"
+        print(f"grid: {md.cps} cells per side, capacity {md.cap}, skin {md.skin:.4f}; kernels {kernels}; "
+              f"equilibration gated, {k}-step windows at gate {gate}; production {driver}")
+    else:
+        print(f"kernels: {_PATH_KERNELS[impl]}")
     n_snap = int(res.r_history.shape[0])
     print(f"phase times: build+warm-up {res.time_compile_s:.3f} s; "
           f"equilibration {res.time_eq_s:.3f} s; production {res.time_prod_s:.3f} s; "
@@ -106,7 +121,9 @@ def cmd_md(args) -> int:
     else:
         drift_s = "n/a (singular start: uniform init allows particle overlaps; use --init lattice)"
     p_s = f"; P* = {res.pressure:.4f}" if math.isfinite(res.pressure) else ""
-    print(f"energy drift: {drift_s}{p_s}; kT after equilibration = {res.kt_eq:.4f}")
+    _, d_coef, d_resid = res.transport()
+    d_s = f"; D* = {d_coef:.4e} (fit rms {d_resid:.1e})" if math.isfinite(d_coef) else ""
+    print(f"energy drift: {drift_s}{p_s}{d_s}; kT after equilibration = {res.kt_eq:.4f}")
     if res.overflow:
         print("[WARNING] spatial-structure capacity/skin OVERFLOW was flagged: "
               "pair interactions may have been missed; results are suspect "
@@ -134,16 +151,17 @@ def cmd_md(args) -> int:
               f"{dev_ms:.4f} ms/step of {wall_ms:.4f} ms/step untraced wall; "
               f"busy share {dev_ms / wall_ms:.3f}, idle share {1 - dev_ms / wall_ms:.3f}; "
               f"trace: {trace}")
-        gs = md.init(res.state.position, res.state.velocity)
-        synced, unsynced = window_sync_cost(md, gs, k)
-        print(f"per-window host sync ({k}-step windows): {synced:.4f} ms/step with a dmax2 "
-              f"read after each window, {unsynced:.4f} ms/step without; the sync costs "
-              f"{(synced - unsynced) / synced:.3f} of the step")
-        if res.cadence is not None:
-            read, unread = rebuild_read_cost(md, gs, res.cadence)
-            print(f"per-rebuild max_occ read (fixed cadence {res.cadence}): {read:.4f} ms/step "
-                  f"with the read that picks B5 or B4 after each rebuild, {unread:.4f} ms/step "
-                  f"without; the read costs {(read - unread) / read:.3f} of the step")
+        if impl == "grid":
+            gs = md.init(res.state.position, res.state.velocity)
+            synced, unsynced = window_sync_cost(md, gs, k)
+            print(f"per-window host sync ({k}-step windows): {synced:.4f} ms/step with a dmax2 "
+                  f"read after each window, {unsynced:.4f} ms/step without; the sync costs "
+                  f"{(synced - unsynced) / synced:.3f} of the step")
+            if res.cadence is not None:
+                read, unread = rebuild_read_cost(md, gs, res.cadence)
+                print(f"per-rebuild max_occ read (fixed cadence {res.cadence}): {read:.4f} ms/step "
+                      f"with the read that picks B5 or B4 after each rebuild, {unread:.4f} ms/step "
+                      f"without; the read costs {(read - unread) / read:.3f} of the step")
     return 0
 
 

@@ -29,14 +29,14 @@ class MDConfig:
     sigma: float = 1.0
     epsilon: float = 1.0
     cutoff: Optional[float] = None  # None = full O(N^2) like the reference
-    force_impl: str = "auto"  # the port runs "grid" (and "auto" -> grid)
+    force_impl: str = "auto"  # auto | dense_xla | dense_pallas | neighbor | cell | grid
     dtype: str = "float32"
     rdf_dr: float = 0.05  # molecular_dynamics...:157
     init: str = "uniform"  # uniform (reference) | lattice
     remove_com_drift: bool = False  # reference never removes COM drift
     # Verlet skin. None = auto: 0.4 for the 2D grid engine.
     skin: Optional[float] = None
-    pallas_block: int = 256  # tile size of the dense TPU kernel (not ported)
+    pallas_block: int = 256  # B8's tile on the TPU; the port's B8 has its own (256)
     # Kahan-compensated integration (grid path): kills the f32 secular
     # energy drift. Default on: correctness first.
     compensated: bool = True

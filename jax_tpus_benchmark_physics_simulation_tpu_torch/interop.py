@@ -13,8 +13,10 @@ import numpy as np
 import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.core.state import ParticleState
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellAssignment
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD, GridMDState
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md3 import GridMD3, GridMD3State
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.neighbor_list import NeighborList
 
 _GRID_FIELDS = (
     "xg", "yg", "vxg", "vyg", "fxg", "fyg", "occ", "dispx", "dispy",
@@ -72,6 +74,29 @@ def grid3_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD3) -> GridM
         time=_scalar(arrays, "time", torch.float32, dev),
         max_occ=_scalar(arrays, "max_occ", torch.int32, dev),
         **_grids(arrays, _GRID3_FIELDS, (md.cps, md.cap), md.plane, dev),
+    )
+
+
+def neighbor_list_from_jax(arrays: Mapping[str, np.ndarray], device="cuda") -> NeighborList:
+    """A :class:`NeighborList` from the leaves of a JAX ``NeighborList``
+    (``idx``, ``ref_position``, ``overflow``) given as numpy arrays; ``idx``
+    becomes int64, PyTorch's index type."""
+    return NeighborList(
+        idx=torch.from_numpy(np.array(arrays["idx"], dtype=np.int64)).to(device),
+        ref_position=torch.from_numpy(np.array(arrays["ref_position"], dtype=np.float32)).to(device),
+        overflow=_scalar(arrays, "overflow", torch.bool, device),
+    )
+
+
+def cell_assignment_from_jax(arrays: Mapping[str, np.ndarray], device="cuda") -> CellAssignment:
+    """A :class:`CellAssignment` from the leaves of a JAX ``CellAssignment``
+    (``slot``, ``occupancy``, ``ref_position``, ``overflow``) given as numpy
+    arrays; ``slot`` becomes int64."""
+    return CellAssignment(
+        slot=torch.from_numpy(np.array(arrays["slot"], dtype=np.int64)).to(device),
+        occupancy=torch.from_numpy(np.array(arrays["occupancy"], dtype=bool)).to(device),
+        ref_position=torch.from_numpy(np.array(arrays["ref_position"], dtype=np.float32)).to(device),
+        overflow=_scalar(arrays, "overflow", torch.bool, device),
     )
 
 

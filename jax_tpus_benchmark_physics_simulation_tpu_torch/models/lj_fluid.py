@@ -1,10 +1,19 @@
 """Workload: Lennard-Jones fluid MD (NVE, velocity-Verlet, PBC).
 
-Port of the JAX package's ``models/lj_fluid.py`` for its grid engines
-(``force_impl="grid"``, which ``"auto"`` picks for N >= 4096 with a cutoff):
-2D ``GridMD`` and 3D ``GridMD3`` (hybrid B5/B4 forces, fixed-cadence NVE
-production). The other force paths and the Langevin thermostat raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Port of the JAX package's ``models/lj_fluid.py``. One interface dispatches
+the force to five implementations, as in the JAX package:
+
+- ``dense_xla``    the dense O(N^2) ``LennardJones`` formula (the oracle);
+- ``dense_pallas`` kernel B8, the tiled all-pairs kernel
+                   (``ops/kernels/pairwise_cuda.py``), never (N, N);
+- ``neighbor``     the O(N*K) Verlet list (``ops/kernels/neighbor_list.py``);
+- ``cell``         the roll-based cell-dense force (``ops/kernels/cell_dense.py``);
+- ``grid``         the grid-resident engines: 2D ``GridMD`` (B1, B2) and 3D
+                   ``GridMD3`` (hybrid B5/B4 forces, B6 rebuilds,
+                   fixed-cadence NVE production).
+
+The Langevin thermostat is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 Phases: :func:`equilibrate` (NVE) -> :func:`production` (sampled NVE) ->
 :func:`rdf`; :func:`run` times them. Random draws come from a
@@ -22,17 +31,37 @@ from typing import Optional, Tuple
 import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import MDConfig, override
+from jax_tpus_benchmark_physics_simulation_tpu_torch.core.runner import run_steps, run_trajectory
 from jax_tpus_benchmark_physics_simulation_tpu_torch.core.state import ParticleState
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import make_cell_grid_fn
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.forces.lennard_jones import LennardJones
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.forces.pbc import wrap
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.integrators import velocity_verlet
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import (
+    make_cell_grid_fn,
+    make_lj_force_cell_dense,
+)
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md3 import GridMD3
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.neighbor_list import (
+    make_lj_force_neighbor,
+    make_neighbor_fn,
+)
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.pairwise_cuda import make_lj_force_pairwise
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.msd import (
+    diffusion_coefficient,
+    mean_squared_displacement,
+)
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.rdf import (
     _DEFAULT_MAX_PARTICLES as _RDF_MAX_PARTICLES,
     radial_distribution,
 )
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.thermo import temperature
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.thermo import (
+    kinetic_energy,
+    temperature,
+)
 
 SKIN_DEFAULT = 0.4  # the skin everywhere but the 3D grid engine
+IMPLS = ("dense_xla", "dense_pallas", "neighbor", "cell", "grid")
 
 
 def init_state(
@@ -59,6 +88,10 @@ def init_state(
     if cfg.remove_com_drift:
         v = v - torch.mean(v, dim=0, keepdim=True)
     return ParticleState.create(r.to(device), v.to(device))
+
+
+def make_potential(cfg: MDConfig) -> LennardJones:
+    return LennardJones(sigma=cfg.sigma, epsilon=cfg.epsilon, box=cfg.box_size, cutoff=cfg.cutoff)
 
 
 def _auto_picks_grid(cfg: MDConfig) -> bool:
@@ -89,33 +122,34 @@ def resolve_skin(cfg: MDConfig) -> float:
     return box / cps - cfg.cutoff
 
 
-def resolve_impl(cfg: MDConfig) -> str:
-    """The force implementation for ``cfg``; the port has only ``"grid"``."""
+def resolve_impl(cfg: MDConfig, device="cuda") -> str:
+    """The force implementation for ``cfg`` on ``device``, by the JAX
+    package's rule: ``auto`` takes the grid engine for N >= 4096 with a
+    cutoff that gives >= 3 cells per side, the neighbor list for N >= 4096
+    with a smaller box, B8 (``dense_pallas``) for N >= 1024 on the card
+    (where the JAX package asks for a TPU), else ``dense_xla``."""
     impl = cfg.force_impl
     if impl == "auto":
         if _auto_picks_grid(cfg):
-            impl = "grid"
+            impl = "grid" if cfg.dim in (2, 3) else "cell"
+        elif cfg.cutoff is not None and cfg.n >= 4096:
+            impl = "neighbor"
+        elif cfg.n >= 1024 and torch.device(device).type == "cuda":
+            impl = "dense_pallas"
         else:
-            raise NotImplementedError(
-                f"force_impl='auto' picks a dense or neighbor-list path for n={cfg.n}, "
-                f"cutoff={cfg.cutoff}; the port has only the grid engine so far "
-                "(ROADMAP.md section 1, still to port: 'The other force paths'). Pass "
-                "force_impl='grid' with a cutoff."
-            )
-    if impl != "grid":
-        raise NotImplementedError(
-            f"force_impl={impl!r} is not ported yet (ROADMAP.md section 1, still to "
-            "port: 'The other force paths'); the port runs force_impl='grid'"
-        )
-    if cfg.cutoff is None:
-        raise ValueError("force_impl='grid' requires a cutoff")
-    if cfg.dim not in (2, 3):
+            impl = "dense_xla"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown force_impl: {impl!r} (auto | {' | '.join(IMPLS)})")
+    if impl in ("neighbor", "cell", "grid") and cfg.cutoff is None:
+        raise ValueError(f"force_impl={impl!r} requires a cutoff")
+    if impl == "grid" and cfg.dim not in (2, 3):
         raise ValueError("force_impl='grid' supports dim 2 and 3")
     return impl
 
 
 def _make_grid_md(cfg: MDConfig, device):
-    resolve_impl(cfg)
+    if resolve_impl(cfg, device) != "grid":
+        raise ValueError(f"force_impl={cfg.force_impl!r} does not resolve to the grid engine")
     if cfg.thermostat == "langevin":
         raise NotImplementedError(
             "the Langevin window is not ported yet (ROADMAP.md section 1, still to "
@@ -148,11 +182,105 @@ def _grid_inner_steps(cfg: MDConfig, md) -> Tuple[int, float]:
     return max(1, k), gate
 
 
+def _pairwise(cfg: MDConfig, with_energy: bool = False):
+    """B8's force function (``(F, E)`` with ``with_energy``) for ``cfg``."""
+    return make_lj_force_pairwise(
+        n=cfg.n, sigma=cfg.sigma, epsilon=cfg.epsilon, box=cfg.box_size, cutoff=cfg.cutoff,
+        with_energy=with_energy,
+    )
+
+
+def make_force_fn(cfg: MDConfig, device="cuda"):
+    """Dense force dispatch (``R -> F``). The list paths carry a structure
+    and are built in :func:`build_step`."""
+    impl = resolve_impl(cfg, device)
+    if impl == "dense_xla":
+        return make_potential(cfg).force
+    if impl == "dense_pallas":
+        return _pairwise(cfg)
+    raise ValueError(f"make_force_fn builds the dense paths, not force_impl={impl!r}")
+
+
+def _make_list_force(cfg: MDConfig, impl: str):
+    """The (spatial-structure fn, force fn) pair of a list path."""
+    if impl == "neighbor":
+        nf = make_neighbor_fn(
+            cfg.box_size, cfg.cutoff, cfg.n, dim=cfg.dim, skin=resolve_skin(cfg), rho=cfg.rho
+        )
+        return nf, make_lj_force_neighbor(nf, sigma=cfg.sigma, epsilon=cfg.epsilon)
+    gf = make_cell_grid_fn(
+        cfg.box_size, cfg.cutoff, cfg.n, dim=cfg.dim, skin=resolve_skin(cfg), rho=cfg.rho
+    )
+    return gf, make_lj_force_cell_dense(gf, sigma=cfg.sigma, epsilon=cfg.epsilon)
+
+
+def build_step(cfg: MDConfig, device="cuda"):
+    """Returns ``(init_fn, step_fn, get_state)`` over an opaque carry.
+
+    Dense paths: the carry is the ParticleState. List paths: ``(state,
+    structure)``, with the skin-gated rebuild in the step (one
+    kick-drift-kick, one ``maybe_rebuild`` and its host read a step)."""
+    box = cfg.box_size
+    impl = resolve_impl(cfg, device)
+
+    if impl not in ("neighbor", "cell"):
+        init_fn, step_fn = velocity_verlet(make_force_fn(cfg, device), cfg.dt, wrap_fn=lambda r: wrap(r, box))
+        return init_fn, step_fn, lambda carry: carry
+
+    structure_fn, force_fn = _make_list_force(cfg, impl)
+    dt = cfg.dt
+
+    def init_fn(state: ParticleState):
+        aux = structure_fn.build(state.position)
+        return state.replace(force=force_fn(state.position, aux)), aux
+
+    def step_fn(carry):
+        state, aux = carry
+        inv_m = 1.0 / state.mass[:, None]
+        v_half = state.velocity + 0.5 * dt * state.force * inv_m
+        r_new = wrap(state.position + dt * v_half, box)
+        aux = structure_fn.maybe_rebuild(r_new, aux)
+        f_new = force_fn(r_new, aux)
+        v_new = v_half + 0.5 * dt * f_new * inv_m
+        return state.replace(position=r_new, velocity=v_new, force=f_new, time=state.time + dt), aux
+
+    return init_fn, step_fn, lambda carry: carry[0]
+
+
+def make_energy_fn(cfg: MDConfig, device="cuda"):
+    """Potential-energy observable of a build_step carry, matched to the
+    force path. ``dense_pallas`` takes it from B8's energy variant (the same
+    function as ``LennardJones.energy``, which would hold several (N, N)
+    temporaries a sample at N=16,384); ``dense_xla`` from
+    ``LennardJones.energy``; the list paths reuse their carried structure."""
+    impl = resolve_impl(cfg, device)
+    if impl == "dense_pallas":
+        fe = _pairwise(cfg, with_energy=True)
+        return lambda carry: fe(carry.position)[1]
+    if impl not in ("neighbor", "cell"):
+        lj = make_potential(cfg)
+        return lambda carry: lj.energy(carry.position)
+    _, list_force = _make_list_force(cfg, impl)
+    return lambda carry: list_force.energy(carry[0].position, carry[1])
+
+
+def _carry_overflow(carry) -> torch.Tensor:
+    """Spatial-structure overflow flag of a build_step carry (False for the
+    dense paths, which have no capacity/skin structure to overflow)."""
+    if isinstance(carry, tuple):
+        return carry[1].overflow
+    return torch.zeros((), dtype=torch.bool, device=carry.position.device)
+
+
 def equilibrate(cfg: MDConfig, state: ParticleState):
-    """NVE equilibration on the grid engine. Returns ``(state, overflow)``:
-    the capacity/skin overflow flag (0-d bool tensor) is carried out, never
-    dropped."""
-    md = _make_grid_md(cfg, state.position.device)
+    """NVE equilibration. Returns ``(state, overflow)``: the capacity/skin
+    overflow flag (0-d bool tensor) is carried out, never dropped."""
+    device = state.position.device
+    if resolve_impl(cfg, device) != "grid":
+        init_fn, step_fn, get_state = build_step(cfg, device)
+        carry = run_steps(step_fn, init_fn(state), cfg.eq_steps)
+        return get_state(carry), _carry_overflow(carry)
+    md = _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
     gs = md.init(state.position, state.velocity)
     n_chunks, rem = divmod(cfg.eq_steps, k)
@@ -169,16 +297,30 @@ def equilibrate(cfg: MDConfig, state: ParticleState):
 def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = None):
     """Sampled NVE production: every ``sample_every`` steps, the positions,
     kinetic and potential energy. ``cadence``: the fixed rebuild cadence of
-    the 3D engine's fixed driver (see :func:`production_cadence`); None
-    keeps the displacement-gated driver. Returns
-    ``(final_state, (r_history, ke_history, pe_history), overflow)``."""
+    the 3D grid engine's fixed driver (see :func:`production_cadence`); None
+    keeps the displacement-gated driver, and the other paths ignore it.
+    Returns ``(final_state, (r_history, ke_history, pe_history), overflow)``."""
     if cfg.prod_steps and cfg.sample_every > cfg.prod_steps:
         raise ValueError(
             f"sample_every ({cfg.sample_every}) > prod_steps ({cfg.prod_steps}): "
             "production would emit zero samples (empty histories, NaN drift). "
             "Lower sample_every or raise prod_steps."
         )
-    md = _make_grid_md(cfg, state.position.device)
+    device = state.position.device
+    if resolve_impl(cfg, device) != "grid":
+        init_fn, step_fn, get_state = build_step(cfg, device)
+        energy_fn = make_energy_fn(cfg, device)
+
+        def observe(carry):
+            s = get_state(carry)
+            return s.position, kinetic_energy(s), energy_fn(carry)
+
+        final, hist = run_trajectory(
+            step_fn, init_fn(state), cfg.prod_steps, cfg.sample_every, observe_fn=observe
+        )
+        return get_state(final), hist, _carry_overflow(final)
+
+    md = _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
     gs = md.init(state.position, state.velocity)
     use_fixed = cadence is not None and hasattr(md, "make_production_run_fixed")
@@ -207,25 +349,28 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
     final = state.replace(
         position=md.positions(gs), velocity=md.velocities(gs), time=state.time + gs.time
     )
-    dev, dtype = state.position.device, state.position.dtype
+    dtype = state.position.dtype
     if n_samples:
         hist = (torch.stack(r_hist), torch.stack(ke_hist), torch.stack(pe_hist))
     else:
         hist = (
-            torch.zeros((0, cfg.n, cfg.dim), dtype=dtype, device=dev),
-            torch.zeros(0, dtype=dtype, device=dev),
-            torch.zeros(0, dtype=dtype, device=dev),
+            torch.zeros((0, cfg.n, cfg.dim), dtype=dtype, device=device),
+            torch.zeros(0, dtype=dtype, device=device),
+            torch.zeros(0, dtype=dtype, device=device),
         )
     return final, hist, gs.overflow
 
 
 def production_cadence(cfg: MDConfig, kt_eq: float) -> Optional[int]:
-    """Fixed rebuild cadence for the 3D NVE production, from the MEASURED
-    equilibrated temperature, as the JAX package's ``run`` computes it:
-    ``max(1, min(auto_cadence(kt_eq, prod_steps), sample_every))``. None
-    (the gated driver) in 2D, and where ``kt_eq`` is not finite and
-    positive: a diverged or frozen state has no drift horizon."""
+    """Fixed rebuild cadence for the 3D grid engine's NVE production, from
+    the MEASURED equilibrated temperature, as the JAX package's ``run``
+    computes it: ``max(1, min(auto_cadence(kt_eq, prod_steps),
+    sample_every))``. None (the gated driver, or no engine) in 2D, off the
+    grid engine, and where ``kt_eq`` is not finite and positive: a diverged
+    or frozen state has no drift horizon."""
     if cfg.dim != 3 or not (math.isfinite(kt_eq) and kt_eq > 0):
+        return None
+    if resolve_impl(cfg, "cpu") != "grid":  # the grid rule reads no device
         return None
     md = _make_grid_md(cfg, "cpu")  # only its geometry is read
     return max(1, min(md.auto_cadence(kt_eq, cfg.prod_steps), cfg.sample_every))
@@ -257,7 +402,8 @@ class MDResult:
     # violated mid-run and the physics after that point is suspect.
     overflow: bool = False
     rdf_subset: int = 0  # >0: g(r) was estimated from this many particles
-    pressure: float = float("nan")  # virial pressure of the final state
+    # virial pressure of the final state (grid engine only; NaN elsewhere)
+    pressure: float = float("nan")
     kt_eq: float = float("nan")  # temperature of the equilibrated state
     cadence: Optional[int] = None  # fixed production rebuild cadence (None: gated)
     box: float = 0.0
@@ -270,6 +416,16 @@ class MDResult:
         if e.shape[0] == 0:
             return float("nan")
         return float(torch.max(torch.abs(e - e[0]) / torch.abs(e[0])))
+
+    def transport(self):
+        """``(msd_curve, D, fit_residual_rms)`` from the production samples:
+        the sliding-origin MSD and the Einstein-relation self-diffusion
+        coefficient (``ops/observables/msd.py``). Needs >= 4 samples."""
+        if self.r_history.shape[0] < 4 or not self.box:
+            return None, float("nan"), float("nan")
+        msd = mean_squared_displacement(self.r_history, self.box)
+        d_coef, resid = diffusion_coefficient(msd, self.dt_sample, self.r_history.shape[-1])
+        return msd, float(d_coef), float(resid)
 
 
 def _sync(device: torch.device) -> None:
@@ -289,12 +445,21 @@ def run(
     (``sample_every`` steps of each) builds the kernels and warms the
     allocator; that cost is reported as ``time_compile_s``.
 
-    In 3D the production phase runs the fixed-cadence driver at
-    :func:`production_cadence` of the measured equilibrated kT. If that kT
-    is NaN or not positive, the overflow flag is raised and production runs
-    the gated driver."""
+    A thermostat needs the grid engine (ValueError elsewhere, as in the JAX
+    package). On the 3D grid engine the production phase runs the
+    fixed-cadence driver at :func:`production_cadence` of the measured
+    equilibrated kT. If that kT is NaN or not positive, the overflow flag
+    is raised (and in 3D production runs the gated driver). The pressure
+    is measured on the grid engine only."""
     cfg = cfg or MDConfig()
     device = torch.device(device)
+    impl = resolve_impl(cfg, device)
+    if cfg.thermostat not in ("none", None) and impl != "grid":
+        raise ValueError(
+            f"thermostat={cfg.thermostat!r} is implemented for the grid engine only "
+            f"(resolved force_impl: {impl!r}); use --force-impl grid / a cutoff so "
+            "the grid path dispatches"
+        )
     state = init_state(cfg, device, generator)
 
     t0 = time.perf_counter()
@@ -342,8 +507,10 @@ def run(
     _sync(device)
     time_rdf = time.perf_counter() - t0
 
-    md = _make_grid_md(cfg, device)
-    pressure = float(md.pressure(md.init(final.position, final.velocity)))
+    pressure = float("nan")
+    if impl == "grid":
+        md = _make_grid_md(cfg, device)
+        pressure = float(md.pressure(md.init(final.position, final.velocity)))
 
     return MDResult(
         state=final,

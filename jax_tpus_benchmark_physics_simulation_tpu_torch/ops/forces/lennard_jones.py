@@ -1,7 +1,8 @@
 """Lennard-Jones 6-12 potential with optional PBC and cutoff, dense O(N^2).
 
 Port of the JAX package's ``ops/forces/lennard_jones.py``. It is the oracle
-that the grid engine's forces and energies are held against.
+that the grid engine's forces and energies are held against, and the force
+and energy of the ``dense_xla`` path.
 """
 
 from __future__ import annotations
@@ -57,3 +58,18 @@ class LennardJones:
         fmag_over_r = 24.0 * self.epsilon * (2.0 * s12 - s6) / r2_safe
         fmag_over_r = torch.where(mask, fmag_over_r, torch.zeros_like(fmag_over_r))
         return torch.sum(fmag_over_r[..., None] * dr, dim=1)
+
+    def energy_per_particle(self, position: torch.Tensor) -> torch.Tensor:
+        """Per-particle energy ``e_i`` (sum e_i / 2 = total)."""
+        _, _, mask, s6, s12 = self._pair_terms(position)
+        pair = 4.0 * self.epsilon * (s12 - s6) - self._shift()
+        return torch.sum(torch.where(mask, pair, torch.zeros_like(pair)), dim=1)
+
+    def force_and_energy(self, position: torch.Tensor):
+        """``(forces, total energy)`` from one pair-term pass."""
+        dr, r2_safe, mask, s6, s12 = self._pair_terms(position)
+        zero = torch.zeros_like(r2_safe)
+        fmag_over_r = torch.where(mask, 24.0 * self.epsilon * (2.0 * s12 - s6) / r2_safe, zero)
+        f = torch.sum(fmag_over_r[..., None] * dr, dim=1)
+        pair = 4.0 * self.epsilon * (s12 - s6) - self._shift()
+        return f, 0.5 * torch.sum(torch.where(mask, pair, zero))

@@ -1,3 +1,5 @@
-"""Cell-grid geometry, the CUDA kernels with their plain PyTorch versions
-(2D: B1 cell forces, B2 rebuild permutation; 3D: B4/B5 cell forces, B6/B7
-rebuild permutation) and the grid MD engines ``GridMD`` and ``GridMD3``."""
+"""The CUDA kernels with their plain PyTorch versions (B1 2D cell forces,
+B2 2D rebuild permutation, B4/B5 3D cell forces, B6/B7 3D rebuild
+permutation, B8 all-pairs forces), the grid MD engines ``GridMD`` and
+``GridMD3``, and the plain-PyTorch list paths (``neighbor_list``,
+``cell_dense``)."""

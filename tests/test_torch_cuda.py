@@ -19,6 +19,7 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import (
     cell_cuda3,
     migrate_cuda,
     migrate_cuda3,
+    pairwise_cuda,
 )
 
 pytestmark = pytest.mark.cuda
@@ -157,6 +158,70 @@ def test_engine_on_card_matches_cpu(cuda_device):
     for device in (cuda_device, torch.device("cpu")):
         s_eq, ovf_eq = lj_fluid.equilibrate(CFG, lj_fluid.init_state(CFG, device))
         _, (_, ke, pe), ovf = lj_fluid.production(CFG, s_eq)
+        assert not bool(ovf_eq) and not bool(ovf)
+        out[device.type] = (ke.cpu().double().numpy(), pe.cpu().double().numpy())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4)
+
+
+def _melted_positions(device, n: int, dim: int):
+    """Positions 100 dense steps from a lattice start (B8 on the card)."""
+    cfg = override(MDConfig(), n=n, dim=dim, rho=0.8, init="lattice", eq_steps=100)
+    return lj_fluid.equilibrate(cfg, lj_fluid.init_state(cfg, device))[0].position, cfg.box_size
+
+
+@pytest.mark.parametrize("n,dim,periodic,cutoff", [(16384, 2, True, None), (4096, 2, True, 2.5),
+                                                   (4096, 3, False, None), (3000, 3, True, 2.5)])
+def test_pairwise_kernel_matches_plain(cuda_device, n, dim, periodic, cutoff):
+    """B8 and its energy variant against the plain version: forces within
+    1e-4 * max |f| (summation order), the energy sum at rtol 1e-5; two
+    launches on one input bit-equal (no atomics)."""
+    pos, box = _melted_positions(cuda_device, n, dim)
+    p = pairwise_cuda.PairwiseParams(box=box if periodic else None, cutoff=cutoff)
+    before = (pairwise_cuda.LAUNCHES, pairwise_cuda.ENERGY_LAUNCHES)
+    for with_energy in (False, True):
+        got = pairwise_cuda.lj_force_pairwise(pos, p, with_energy)
+        again = pairwise_cuda.lj_force_pairwise(pos, p, with_energy)
+        want = pairwise_cuda.lj_force_pairwise_reference(pos, p, with_energy)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        fmax = float(want[0].abs().max())
+        assert float((got[0] - want[0]).abs().max()) <= 1e-4 * fmax
+        if with_energy:
+            np.testing.assert_allclose(float(got[1].double().sum()), float(want[1].double().sum()), rtol=1e-5)
+    assert (pairwise_cuda.LAUNCHES, pairwise_cuda.ENERGY_LAUNCHES) == (before[0] + 2, before[1] + 2)
+
+
+def test_pairwise_energy_gradient_on_card(cuda_device):
+    """The autograd energy launches the energy variant once; its gradient is
+    -force from that launch, equal to the force kernel's output."""
+    pos, box = _melted_positions(cuda_device, 4096, 2)
+    energy = pairwise_cuda.make_lj_energy_pairwise(4096, box=box)
+    x = pos.clone().requires_grad_(True)
+    before = pairwise_cuda.ENERGY_LAUNCHES
+    (grad,) = torch.autograd.grad(energy(x), x)
+    assert pairwise_cuda.ENERGY_LAUNCHES == before + 1
+    force = pairwise_cuda.make_lj_force_pairwise(4096, box=box)(pos)
+    assert torch.equal(grad, -force)
+
+
+def test_pairwise_wrapper_rejects_bad_cuda_inputs(cuda_device):
+    p = pairwise_cuda.PairwiseParams()
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise_cuda.lj_force_pairwise(torch.zeros((2, 64), device=cuda_device).t(), p)
+    with pytest.raises(TypeError):
+        pairwise_cuda.lj_force_pairwise(torch.zeros((64, 2), dtype=torch.float64, device=cuda_device), p)
+
+
+@pytest.mark.parametrize("impl,cutoff", [("dense_pallas", None), ("neighbor", 2.5), ("cell", 2.5)])
+def test_force_paths_on_card_match_cpu(cuda_device, impl, cutoff):
+    """A dense or list path on the card against the same path on the CPU:
+    energies at rtol 1e-4 (summation order), no overflow."""
+    cfg = override(CFG, n=2048, cutoff=cutoff, force_impl=impl)
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        s_eq, ovf_eq = lj_fluid.equilibrate(cfg, lj_fluid.init_state(cfg, device))
+        _, (_, ke, pe), ovf = lj_fluid.production(cfg, s_eq)
         assert not bool(ovf_eq) and not bool(ovf)
         out[device.type] = (ke.cpu().double().numpy(), pe.cpu().double().numpy())
     for a, b in zip(out["cuda"], out["cpu"]):

@@ -125,14 +125,14 @@ def test_run_end_to_end_cpu():
 
 
 def test_unported_paths_raise():
+    """Every force path resolves now (tests/test_torch_lj_fluid_paths.py
+    runs them); the Langevin window is still unported and raises."""
     base = override(MDConfig(), n=5000, cutoff=2.5)
     assert lj_fluid.resolve_impl(base) == "grid"
-    for cfg in (
-        override(base, force_impl="dense_xla"),
-        override(base, n=400),  # auto -> a dense path
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            lj_fluid.resolve_impl(cfg)
+    assert lj_fluid.resolve_impl(override(base, force_impl="dense_xla")) == "dense_xla"
+    assert lj_fluid.resolve_impl(override(base, n=400), "cpu") == "dense_xla"
+    with pytest.raises(ValueError, match="requires a cutoff"):
+        lj_fluid.resolve_impl(override(base, cutoff=None, force_impl="grid"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         lj_fluid.equilibrate(override(base, thermostat="langevin"), lj_fluid.init_state(base, "cpu"))
     with pytest.raises(ValueError, match="sample_every"):
@@ -147,6 +147,6 @@ def test_cli_md_cpu(capsys):
     assert rc == 0
     assert "throughput:" in out and "energy drift:" in out and "P* =" in out
     assert "OVERFLOW" not in out
-    assert cli.main(["md", "--N", "400", "--dim", "3", "--cutoff", "2.5", "--device", "cpu"]) == 2
+    assert cli.main(["md", "--N", "400", "--force-impl", "neighbor", "--device", "cpu"]) == 2  # no cutoff
     assert cli.main(["md", "--N", "5000", "--cutoff", "2.5", "--thermostat", "langevin",
                      "--device", "cpu"]) == 2
