@@ -57,7 +57,30 @@ Run from the repository root. It builds the CUDA kernels from
 14. the list paths, ``neighbor`` and ``cell`` at N=4096 with cutoff 2.5
     (100 + 100 steps), card against CPU: energies at rtol 1e-4, overflow
     False on both;
-15. prints a JSON line with each kernel's launches on its main path,
+15. 2D kernels at the packed shapes, on states 20 steps after a rebuild
+    (coordinates unwrapped near the seams, block-crossing rows included):
+    B3 at N=16,384 (cutoff 2.5: 49 cells per side, R=49, grid 1 x 16 x
+    2401) and at N=1M (385 cells per side, R=7, grid 55 x 16 x 2695)
+    against its plain version (forces <= 1e-4 over occupied slots, the
+    energy variant's e and w sums at rtol 1e-5, two launches bit-equal),
+    and B2 on the packed N=1M grid bit-equal to its plain version; timed
+    with CUDA events;
+16. B3 forces on 1024 interior particles of the N=16,384 packed state
+    against the dense oracle computed from all 16,384 (atol 1e-4);
+17. the packed main paths, ``lj_fluid.run`` at N=16,384 and at N=1M with
+    cutoff 2.5 (rho 0.8, dt 1e-3, lattice init, Kahan on, 2000 + 2000
+    steps), every counter set to 0 just before each: overflow False,
+    finite histories, drift < 1e-4, B3, B3-energy and packed B2 launched
+    and B1 and unpacked B2 not; at N=1M also the card's busy share over 200
+    traced production steps;
+18. the grid engine at N=4096 (cutoff 2.5; phase 4 runs it at its default
+    R=24) with ``rows_per_block`` 1 and 4 (G=6): 100 + 100 steps on the card
+    against the same on the CPU, energies at rtol 1e-4;
+19. ``lj_fluid.run`` with the Langevin thermostat (gamma 1.0) at N=100k in
+    2D and 3D (2000 + 2000 steps): overflow False, the mean kinetic
+    temperature of the production samples within 5% of kT, and after 100
+    more Langevin steps every empty slot's velocity exactly 0;
+20. prints a JSON line with each kernel's launches on its main path,
     error, times, and bound (the larger of the operations over the card's
     float32 peak and the bytes over its memory rate, counted on this run's
     inputs), and as the last line ``{"ok": true, "device": {...}}``.
@@ -199,10 +222,12 @@ def main() -> int:
         _build,
         cell_cuda,
         cell_cuda3,
+        cell_cuda_packed,
         migrate_cuda,
         migrate_cuda3,
         pairwise_cuda,
     )
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md3 import GridMD3
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.thermo import temperature
 
@@ -212,6 +237,7 @@ def main() -> int:
 
     def reset_counts():
         cell_cuda.LAUNCHES = cell_cuda.ENERGY_LAUNCHES = migrate_cuda.LAUNCHES = 0
+        cell_cuda_packed.LAUNCHES = cell_cuda_packed.ENERGY_LAUNCHES = migrate_cuda.PACKED_LAUNCHES = 0
         cell_cuda3.LAUNCHES = cell_cuda3.ENERGY_LAUNCHES = cell_cuda3.STATIC_LAUNCHES = 0
         migrate_cuda3.LAUNCHES = migrate_cuda3.FLAT_LAUNCHES = 0
         pairwise_cuda.LAUNCHES = pairwise_cuda.ENERGY_LAUNCHES = 0
@@ -319,29 +345,31 @@ def main() -> int:
         rel = float(((a - b).abs() / b.abs()).max())
         if not rel <= 1e-4:
             raise AssertionError(f"N=4096 {name} history, card vs CPU: rel diff {rel:.3e} > 1e-4")
-    print("phase 4 N=4096, 200 steps: card and CPU energy histories agree within rtol 1e-4",
-          flush=True)
+    print(f"phase 4 N=4096 (R={lj_fluid._make_grid_md(small, dev).rows_per_block}), 200 steps: card and "
+          "CPU energy histories agree within rtol 1e-4", flush=True)
 
     # -- 5. the 2D main path -----------------------------------------------------
-    def check_run(res, label: str):
-        n_samples = cfg.prod_steps // cfg.sample_every
+    def check_run(res, label: str, c=cfg, drift: bool = True):
+        """Overflow False, histories of the right shape and finite, finite
+        pressure, and (NVE runs) energy drift < 1e-4."""
+        n_samples = c.prod_steps // c.sample_every
         if res.overflow:
             raise AssertionError(f"{label}: capacity/skin overflow flagged")
-        if tuple(res.r_history.shape[:2]) != (n_samples, cfg.n):
+        if tuple(res.r_history.shape[:2]) != (n_samples, c.n):
             raise AssertionError(f"{label}: r_history shape {tuple(res.r_history.shape)}")
         for name, t in (("r_history", res.r_history), ("ke", res.ke_history), ("pe", res.pe_history),
                         ("g(r)", res.rdf_g)):
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"{label}: non-finite {name}")
-        if not res.energy_drift < 1e-4:
+        if drift and not res.energy_drift < 1e-4:
             raise AssertionError(f"{label}: energy drift {res.energy_drift:.3e} >= 1e-4")
         if not math.isfinite(res.pressure):
             raise AssertionError(f"{label}: non-finite pressure")
 
-    def report_run(res, phase: str, counts: dict, rebuilds: int):
-        steps = cfg.eq_steps + cfg.prod_steps
+    def report_run(res, phase: str, counts: dict, rebuilds: int, c=cfg):
+        steps = c.eq_steps + c.prod_steps
         ms_step = 1e3 * (res.time_eq_s + res.time_prod_s) / steps
-        print(f"phase {phase} N={cfg.n}: {ms_step:.4f} ms/step, "
+        print(f"phase {phase} N={c.n}: {ms_step:.4f} ms/step, "
               f"{res.particle_steps_per_sec:.4e} particle-steps/s "
               f"(eq {res.time_eq_s:.3f} s, prod {res.time_prod_s:.3f} s, build+warm-up "
               f"{res.time_compile_s:.3f} s, g(r) {res.time_rdf_s:.3f} s); energy drift "
@@ -366,8 +394,8 @@ def main() -> int:
     res3 = lj_fluid.run(cfg3, device="cuda")
     path3 = {"cell_force3": cell_cuda3.LAUNCHES, "cell_force3_energy": cell_cuda3.ENERGY_LAUNCHES,
              "cell_force3_static": cell_cuda3.STATIC_LAUNCHES, "migrate3": migrate_cuda3.LAUNCHES}
-    report_run(res3, "6 lj_fluid.run dim=3", path3, path3["migrate3"])
-    check_run(res3, "3D main path")
+    report_run(res3, "6 lj_fluid.run dim=3", path3, path3["migrate3"], cfg3)
+    check_run(res3, "3D main path", cfg3)
     for name, count in path3.items():
         if count <= 0:
             raise AssertionError(f"3D main path never launched kernel {name}")
@@ -630,13 +658,188 @@ def main() -> int:
         card_vs_cpu(override(dense, n=4096, cutoff=2.5, force_impl=impl, eq_steps=100, prod_steps=100,
                              sample_every=20), f"14 {impl}")
 
-    # -- 15. result --------------------------------------------------------------
+    # -- 15. 2D kernels at the packed shapes -----------------------------------
+    def advanced(c):
+        """The grid engine of ``c`` and a state 20 steps after a (trailing)
+        rebuild, 150 windows from the lattice: some coordinates outside
+        [0, box), unwrapped."""
+        m = lj_fluid._make_grid_md(c, dev)
+        kk, gg = lj_fluid._grid_inner_steps(c, m)
+        st = lj_fluid.init_state(c, dev)
+        g = m.make_production_run(150 * kk, kk, gate_frac=gg)(m.init(st.position, st.velocity))
+        return m, m._make_window(m.force_kernel, 20)(g)
+
+    cfg16 = override(cfg, n=16_384)
+    cfg1m = override(cfg, n=1_000_000)
+    packed = {}
+    for label, c in (("N=16,384", cfg16), ("N=1M", cfg1m)):
+        m, g = advanced(c)
+        r = m.rows_per_block
+        occ_p = g.occ > 0.5
+        pk = cell_cuda.CellForceParams.from_grid(m.grid_fn)
+        outside = int((occ_p & ((g.xg < 0) | (g.xg >= m.box) | (g.yg < 0) | (g.yg >= m.box))).sum())
+        f1 = cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r)
+        f2 = cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r)
+        fr = cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r)
+        e1 = cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r, with_energy=True)
+        e2 = cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r, with_energy=True)
+        er = cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r, with_energy=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(f1 + e1, f2 + e2)):
+            raise AssertionError(f"B3 {label}: two launches on one input are not bit-equal")
+        err_f = _max_diff(f1, fr, occ_p, f"B3 {label} forces", 1e-4)
+        err_ef3 = _max_diff(e1[:2], er[:2], occ_p, f"B3 {label} energy variant forces", 1e-4)
+        err_e3 = _sums_close(e1[2:], er[2:], f"B3 {label} energy variant", 1e-5)
+        t_f = (_cuda_ms(lambda: cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r), 50),
+               _cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r), 5))
+        t_e = (_cuda_ms(lambda: cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r, with_energy=True), 50),
+               _cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r, with_energy=True), 5))
+        work_p = _pair_work((cell_cuda_packed.unpack(g.xg, r), cell_cuda_packed.unpack(g.yg, r)),
+                            cell_cuda_packed.unpack(g.occ, r), m.cps, m.cap, m.box, pk.cutoff2)
+        b_f, b_e = _force_bounds(work_p, 2, g.xg.numel())
+        packed[label] = dict(md=m, gs=g, errors=(err_f, max(err_ef3, err_e3)), times=(t_f, t_e), bounds=(b_f, b_e))
+        print(f"phase 15 {label}: grid {tuple(g.xg.shape)} (R={r}, G={m.n_blocks}), {outside} particles "
+              f"outside [0, box); B3 forces max abs diff {err_f:.3e} (max |f| "
+              f"{float(torch.hypot(fr[0], fr[1])[occ_p].max()):.1f}); energy variant: forces {err_ef3:.3e}, "
+              f"e/w max abs diff {err_e3:.3e}, sums within rtol 1e-5; two launches bit-equal; pair work: "
+              f"{work_p[0]} distance tests, {work_p[1]} in the cutoff", flush=True)
+        for name, t, b in (("cell_force_packed", t_f, b_f), ("cell_force_packed_energy", t_e, b_e)):
+            print(f"phase 15 {label} time {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+                  f"bound {b[0]:.5f} ms ({b[1]}) per call", flush=True)
+        del f1, f2, fr, e1, e2, er
+
+    m1, g1 = packed["N=1M"]["md"], packed["N=1M"]["gs"]
+    _, _, scode_p, _, _ = m1._migration_dest(g1)
+    fields_p = torch.stack([torch.remainder(g1.xg, m1.box), torch.remainder(g1.yg, m1.box),
+                            g1.vxg, g1.vyg, g1.fxg, g1.fyg, g1.pid.float(), g1.crx, g1.cry, g1.cvx, g1.cvy])
+    r1 = m1.rows_per_block
+    sub = torch.div(torch.arange(m1.lanes, device=dev), m1.cps, rounding_mode="floor")
+    dxp = torch.div(torch.div(scode_p, m1.cap, rounding_mode="floor"), 3, rounding_mode="floor") - 1
+    crossing = int(((scode_p >= 0) & (((dxp == -1) & (sub == 0)) | ((dxp == 1) & (sub == r1 - 1)))).sum())
+    if not torch.equal(migrate_cuda.migrate(scode_p, fields_p, fills, r1),
+                       migrate_cuda.migrate_reference(scode_p, fields_p, fills, r1)):
+        raise AssertionError("B2 packed: kernel output is not bit-equal to the plain version")
+    errors["migrate_packed"] = 0.0
+    times["migrate_packed"] = (_cuda_ms(lambda: migrate_cuda.migrate(scode_p, fields_p, fills, r1), 50),
+                               _cuda_ms(lambda: migrate_cuda.migrate_reference(scode_p, fields_p, fills, r1), 10))
+    bounds["migrate_packed"] = _migrate_bound(fields_p.shape[0], g1.xg.numel())
+    for i, name in enumerate(("cell_force_packed", "cell_force_packed_energy")):
+        errors[name] = packed["N=1M"]["errors"][i]
+        times[name] = packed["N=1M"]["times"][i]
+        bounds[name] = packed["N=1M"]["bounds"][i]
+    print(f"phase 15 B2 packed N=1M (R={r1}): bit-equal, {crossing} movers across a block seam; time "
+          f"kernel {times['migrate_packed'][0]:.4f} ms, plain {times['migrate_packed'][1]:.4f} ms, bound "
+          f"{bounds['migrate_packed'][0]:.5f} ms ({bounds['migrate_packed'][1]}) per call", flush=True)
+    del fields_p, scode_p
+
+    # -- 16. B3 against the dense oracle ----------------------------------------
+    m16, g16 = packed["N=16,384"]["md"], packed["N=16,384"]["gs"]
+    fx16, fy16 = m16.force_kernel(g16.xg, g16.yg)
+    f16 = m16.particle_order(g16, fx16, fy16)
+    pos16 = m16.positions(g16)
+    margin16 = cfg.cutoff + m16.skin
+    inner16 = torch.nonzero(((pos16 >= margin16) & (pos16 < m16.box - margin16)).all(dim=1)).squeeze(1)
+    pick16 = inner16[torch.randperm(inner16.numel(), generator=torch.Generator().manual_seed(0))[:1024].to(dev)]
+    err_o16 = float((f16[pick16] - LennardJones(box=m16.box, cutoff=cfg.cutoff).force(pos16, rows=pick16)).abs().max())
+    if not err_o16 <= 1e-4:
+        raise AssertionError(f"B3 vs dense oracle: max abs diff {err_o16:.3e} > 1e-4")
+    print(f"phase 16 B3 vs dense oracle (1024 interior particles, from all 16,384): max abs diff "
+          f"{err_o16:.3e}", flush=True)
+    del packed, m1, g1, g16
+
+    # -- 17. the packed main paths -----------------------------------------------
+    for c in (cfg16, cfg1m):
+        mp = lj_fluid._make_grid_md(c, dev)
+        kp, gp = lj_fluid._grid_inner_steps(c, mp)
+        reset_counts()
+        resp = lj_fluid.run(c, device="cuda")
+        path_p = {"cell_force_packed": cell_cuda_packed.LAUNCHES,
+                  "cell_force_packed_energy": cell_cuda_packed.ENERGY_LAUNCHES,
+                  "migrate_packed": migrate_cuda.PACKED_LAUNCHES}
+        unpacked = (cell_cuda.LAUNCHES, cell_cuda.ENERGY_LAUNCHES, migrate_cuda.LAUNCHES)
+        print(f"phase 17 N={c.n}: R={mp.rows_per_block}, G={mp.n_blocks}, grid {mp.grid_shape}, "
+              f"{kp}-step windows at gate {gp}", flush=True)
+        report_run(resp, "17 lj_fluid.run packed", path_p, path_p["migrate_packed"], c)
+        check_run(resp, f"packed main path N={c.n}", c)
+        for name, count in path_p.items():
+            if count <= 0:
+                raise AssertionError(f"packed main path N={c.n} never launched kernel {name}")
+        if any(unpacked):
+            raise AssertionError(f"packed main path N={c.n} launched B1 / unpacked B2: {unpacked}")
+        if c is cfg1m:
+            launches.update(path_p)
+
+    traced1m = override(cfg1m, prod_steps=2 * cfg1m.sample_every)
+    dev_s1m, table1m = profile_device(lambda: lj_fluid.production(traced1m, resp.state),
+                                      os.path.join("chiprun_out", "chip_smoke_1m_trace.json"))
+    busy1m = 1e3 * dev_s1m / traced1m.prod_steps
+    wall1m = 1e3 * resp.time_prod_s / cfg1m.prod_steps
+    print(table1m)
+    print(f"phase 17 N=1M profile (production, {traced1m.prod_steps} traced steps): device busy {busy1m:.4f} "
+          f"ms/step of {wall1m:.4f} ms/step untraced wall; busy share {busy1m / wall1m:.3f}, idle share "
+          f"{1 - busy1m / wall1m:.3f}", flush=True)
+    del resp
+
+    # -- 18. the packed engine at N=4096 on the card against the CPU -----------
+    small18 = override(cfg, n=4096)
+    st18 = lj_fluid.init_state(small18, "cpu")
+    gf18 = lj_fluid._make_grid_md(small18, "cpu").grid_fn
+    k18, gate18 = lj_fluid._grid_inner_steps(small18, GridMD(gf18, device="cpu"))
+    for r18 in (1, 4):
+        ens = {}
+        for where in ("cuda", "cpu"):
+            m18 = GridMD(gf18, dt=small18.dt, compensated=True, rows_per_block=r18, device=where)
+            g18 = m18.init(st18.position, st18.velocity)
+            g18 = m18.make_production_run(100, k18, gate_frac=gate18)(g18)
+            ke18, pe18 = [], []
+            for _ in range(2):
+                g18 = m18.make_production_run(50, k18, gate_frac=gate18)(g18)
+                ke18.append(float(m18.kinetic_energy(g18)))
+                pe18.append(float(m18.potential_energy(g18)))
+            if bool(g18.overflow):
+                raise AssertionError(f"phase 18 R={r18} on {where}: overflow")
+            ens[where] = torch.tensor(ke18 + pe18, dtype=torch.float64)
+        rel18 = float(((ens["cuda"] - ens["cpu"]).abs() / ens["cpu"].abs()).max())
+        if not rel18 <= 1e-4:
+            raise AssertionError(f"phase 18 R={r18}: card vs CPU energies rel diff {rel18:.3e} > 1e-4")
+        print(f"phase 18 N=4096 engine with rows_per_block={r18} (grid {m18.grid_shape}), 200 steps: card and "
+              f"CPU energies agree within rtol 1e-4 (max rel diff {rel18:.2e})", flush=True)
+
+    # -- 19. Langevin ------------------------------------------------------------
+    for dim in (2, 3):
+        cl = override(cfg, dim=dim, thermostat="langevin", gamma=1.0)
+        resl = lj_fluid.run(cl, device="cuda")
+        check_run(resl, f"Langevin dim={dim}", cl, drift=False)
+        kt_prod = 2.0 * resl.ke_history.double() / (cl.n * dim)
+        kt_mean = float(kt_prod.mean())
+        if not abs(kt_mean - cl.kt) <= 0.05 * cl.kt:
+            raise AssertionError(f"Langevin dim={dim}: mean production kT {kt_mean:.4f} not within 5% of {cl.kt}")
+        ml = lj_fluid._make_grid_md(cl, dev)
+        kl, gl = lj_fluid._grid_inner_steps(cl, ml)
+        gsl = ml.init(resl.state.position, resl.state.velocity, seed=lj_fluid._grid_seed(cl))
+        gsl = ml.make_production_run(100, kl, gate_frac=gl, thermostat=lj_fluid._grid_thermostat(cl))(gsl)
+        empty = gsl.occ < 0.5
+        v_empty = max(float(getattr(gsl, f"v{a}g")[empty].abs().max()) for a in ml.AXES)
+        if v_empty != 0.0 or int(gsl.occ.sum()) != cl.n or bool(gsl.overflow):
+            raise AssertionError(f"Langevin dim={dim}: empty-slot |v| {v_empty}, {int(gsl.occ.sum())} "
+                                 f"particles, overflow {bool(gsl.overflow)}")
+        ms_l = 1e3 * (resl.time_eq_s + resl.time_prod_s) / (cl.eq_steps + cl.prod_steps)
+        print(f"phase 19 Langevin dim={dim} N={cl.n} (gamma {cl.gamma}): {ms_l:.4f} ms/step, "
+              f"{resl.particle_steps_per_sec:.4e} particle-steps/s (eq {resl.time_eq_s:.3f} s, prod "
+              f"{resl.time_prod_s:.3f} s); production kT mean {kt_mean:.4f} (min {float(kt_prod.min()):.4f}, "
+              f"max {float(kt_prod.max()):.4f}), kT_eq {resl.kt_eq:.4f}, P* {resl.pressure:.4f}; "
+              f"after 100 more steps: empty-slot |v| max {v_empty}, {int(gsl.occ.sum())} particles", flush=True)
+
+    # -- 20. result --------------------------------------------------------------
     root = "jax_tpus_benchmark_physics_simulation_tpu_torch/ops/kernels/csrc/"
     ref = "jax_tpus_benchmark_physics_simulation_tpu/ops/kernels/"
     meta = {
         "cell_force": ("cell_force.cu", "cell_pallas.py:82"),
         "cell_force_energy": ("cell_force.cu", "cell_pallas.py:82"),
         "migrate": ("migrate.cu", "migrate_pallas.py:80"),
+        "cell_force_packed": ("cell_force.cu", "cell_pallas_packed.py:111"),
+        "cell_force_packed_energy": ("cell_force.cu", "cell_pallas_packed.py:111"),
+        "migrate_packed": ("migrate.cu", "migrate_pallas.py:80"),
         "cell_force3": ("cell_force3.cu", "cell_pallas3.py:99"),
         "cell_force3_energy": ("cell_force3.cu", "cell_pallas3.py:99"),
         "cell_force3_static": ("cell_force3.cu", "cell_pallas3.py:336"),

@@ -5,6 +5,10 @@
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
         --N 100000 --cutoff 2.5 --init lattice            # 2D grid engine
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
+        --N 1000000 --cutoff 2.5 --init lattice           # packed layout, B3
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
+        --N 100000 --cutoff 2.5 --init lattice --thermostat langevin --gamma 1.0
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
         --N 100000 --dim 3 --cutoff 2.5 --init lattice    # 3D grid engine
 
 Flag names follow the JAX package's ``jtps md`` (its ``cli.py``), plus
@@ -32,8 +36,9 @@ def _add_md(sub):
     p = sub.add_parser("md", help="Lennard-Jones fluid MD (dense, list and grid force paths)")
     p.add_argument("--N", type=int, default=400)
     p.add_argument("--dim", type=int, default=2, choices=[2, 3],
-                   help="2 (reference) or 3; on the grid engine 2 runs B1, B2 and 3 runs "
-                        "B5 windows with the B4 fallback, B6 rebuilds, fixed-cadence production")
+                   help="2 (reference) or 3; on the grid engine 2 runs B1 (B3 on the packed "
+                        "layout), B2 and 3 runs B5 windows with the B4 fallback, B6 rebuilds, "
+                        "fixed-cadence NVE production")
     p.add_argument("--rho", type=float, default=0.8)
     p.add_argument("--kT", type=float, default=1.0)
     p.add_argument("--dt", type=float, default=1e-3)
@@ -49,7 +54,8 @@ def _add_md(sub):
                         "on the card, else dense_xla")
     p.add_argument("--init", type=str, default="uniform", choices=["uniform", "lattice"])
     p.add_argument("--thermostat", type=str, default="none", choices=["none", "langevin"],
-                   help="none = NVE ('langevin' is not ported yet)")
+                   help="none = NVE; langevin = NVT via BAOAB Langevin windows at kT "
+                        "(grid engine only)")
     p.add_argument("--gamma", type=float, default=1.0,
                    help="Langevin friction coefficient (1/time)")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
@@ -90,10 +96,11 @@ def cmd_md(args) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    ensemble = "NVE" if cfg.thermostat == "none" else f"NVT (langevin, gamma={cfg.gamma})"
     print(f"Molecular Dynamics (PyTorch port) on {name}")
     print(f"N={cfg.n}  dim={cfg.dim}  rho={cfg.rho}  kT={cfg.kt}  box={cfg.box_size:.2f}  "
           f"steps: {cfg.eq_steps:,} eq / {cfg.prod_steps:,} prod  dt={cfg.dt}  "
-          f"force: {impl}  cutoff={cfg.cutoff}  ensemble: NVE")
+          f"force: {impl}  cutoff={cfg.cutoff}  ensemble: {ensemble}")
     if impl == "grid":
         md = lj_fluid._make_grid_md(cfg, device)
         k, gate = lj_fluid._grid_inner_steps(cfg, md)
@@ -101,7 +108,12 @@ def cmd_md(args) -> int:
             driver = f"gated, {k}-step windows at gate {gate}"
         else:
             driver = f"fixed rebuild cadence {res.cadence}"
-        kernels = "B1, B2" if cfg.dim == 2 else f"B5 (cov {md.static_cov}) / B4 fallback, B6"
+        if cfg.dim == 3:
+            kernels = f"B5 (cov {md.static_cov}) / B4 fallback, B6"
+        elif md.rows_per_block > 1:
+            kernels = f"B3 (packed, R={md.rows_per_block}, grid {md.grid_shape}), B2 packed"
+        else:
+            kernels = "B1, B2"
         print(f"grid: {md.cps} cells per side, capacity {md.cap}, skin {md.skin:.4f}; kernels {kernels}; "
               f"equilibration gated, {k}-step windows at gate {gate}; production {driver}")
     else:
@@ -116,7 +128,9 @@ def cmd_md(args) -> int:
     print(f"throughput: {res.particle_steps_per_sec / 1e6:.2f}M particle-steps/s "
           f"({ms_step:.4f} ms/step; production phase, equilibrated: {prod_psps / 1e6:.2f}M)")
     drift = res.energy_drift
-    if math.isfinite(drift):
+    if cfg.thermostat != "none":
+        drift_s = "n/a (NVT: thermostat exchanges energy with the bath)"
+    elif math.isfinite(drift):
         drift_s = f"{drift:.2e}"
     else:
         drift_s = "n/a (singular start: uniform init allows particle overlaps; use --init lattice)"

@@ -40,7 +40,7 @@ class MDConfig:
     # Kahan-compensated integration (grid path): kills the f32 secular
     # energy drift. Default on: correctness first.
     compensated: bool = True
-    # NVT ensemble: "langevin" (not ported yet) | "none" = NVE.
+    # NVT ensemble: "langevin" (BAOAB, grid engine only) | "none" = NVE.
     thermostat: str = "none"
     gamma: float = 1.0  # Langevin friction (1/time units)
 

@@ -49,16 +49,18 @@ def _scalar(arrays: Mapping[str, np.ndarray], name: str, dtype, device) -> torch
 
 
 def grid_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD) -> GridMDState:
-    """A :class:`GridMDState` from the leaves of a JAX ``GridMDState``
-    (unpacked layout, ``rows_per_block=1``) given as numpy arrays by field
-    name. The TPU's padding lanes (``>= cps``) are dropped and ``pid`` is
-    cast to int32; the PRNG key of a Langevin state is ignored."""
+    """A :class:`GridMDState` from the leaves of a JAX ``GridMDState`` given
+    as numpy arrays by field name, on the layout of ``md`` (the JAX engine
+    must use the same ``rows_per_block`` R). The TPU's padding lanes
+    (``>= R * cps``) are dropped and ``pid`` is cast to int32. The PRNG key
+    of a Langevin state is not carried over: the port's state comes without
+    a noise stream (``rng_seed`` None), and a Langevin window needs one."""
     dev = md.device
     return GridMDState(
         dmax2=_scalar(arrays, "dmax2", torch.float32, dev),
         overflow=_scalar(arrays, "overflow", torch.bool, dev),
         time=_scalar(arrays, "time", torch.float32, dev),
-        **_grids(arrays, _GRID_FIELDS, (md.cps, md.cap), md.cps, dev),
+        **_grids(arrays, _GRID_FIELDS, (md.n_blocks, md.cap), md.lanes, dev),
     )
 
 
@@ -66,7 +68,8 @@ def grid3_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD3) -> GridM
     """A :class:`GridMD3State` from the leaves of a JAX ``GridMD3State``
     given as numpy arrays by field name. The TPU's padding lanes
     (``>= cps * cps``) are dropped, ``pid`` is cast to int32 and ``max_occ``
-    is carried as a 0-d int32 tensor."""
+    is carried as a 0-d int32 tensor. As in 2D, the PRNG key is not carried
+    over."""
     dev = md.device
     return GridMD3State(
         dmax2=_scalar(arrays, "dmax2", torch.float32, dev),

@@ -8,17 +8,18 @@ the force to five implementations, as in the JAX package:
                    (``ops/kernels/pairwise_cuda.py``), never (N, N);
 - ``neighbor``     the O(N*K) Verlet list (``ops/kernels/neighbor_list.py``);
 - ``cell``         the roll-based cell-dense force (``ops/kernels/cell_dense.py``);
-- ``grid``         the grid-resident engines: 2D ``GridMD`` (B1, B2) and 3D
-                   ``GridMD3`` (hybrid B5/B4 forces, B6 rebuilds,
-                   fixed-cadence NVE production).
+- ``grid``         the grid-resident engines: 2D ``GridMD`` (B1 or, on the
+                   packed layout, B3; B2) and 3D ``GridMD3`` (hybrid B5/B4
+                   forces, B6 rebuilds, fixed-cadence NVE production).
 
-The Langevin thermostat is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``thermostat="langevin"`` (grid engine only) makes every window BAOAB
+Langevin at ``kt`` with friction ``gamma`` (NVT), on the gated drivers.
 
-Phases: :func:`equilibrate` (NVE) -> :func:`production` (sampled NVE) ->
-:func:`rdf`; :func:`run` times them. Random draws come from a
-``torch.Generator`` seeded with ``cfg.seed``: the same seed gives other
-numbers than the JAX package's ``jax.random``.
+Phases: :func:`equilibrate` -> :func:`production` (sampled) -> :func:`rdf`;
+:func:`run` times them. Random draws come from a ``torch.Generator`` seeded
+with ``cfg.seed`` (the Langevin noise from ``cfg.seed + 0x5EED``, re-armed
+at the start of each phase): the same seed gives other numbers than the
+JAX package's ``jax.random``.
 """
 
 from __future__ import annotations
@@ -147,17 +148,27 @@ def resolve_impl(cfg: MDConfig, device="cuda") -> str:
     return impl
 
 
-def _make_grid_md(cfg: MDConfig, device):
-    if resolve_impl(cfg, device) != "grid":
-        raise ValueError(f"force_impl={cfg.force_impl!r} does not resolve to the grid engine")
+def _grid_thermostat(cfg: MDConfig) -> Optional[Tuple[float, float]]:
+    """``(gamma, kT)`` for BAOAB Langevin windows, or None for NVE."""
     if cfg.thermostat == "langevin":
-        raise NotImplementedError(
-            "the Langevin window is not ported yet (ROADMAP.md section 1, still to "
-            "port: 'The rest of 2D GridMD' and 'The rest of 3D GridMD3'); "
-            "the port runs NVE (thermostat='none')"
-        )
+        return (cfg.gamma, cfg.kt)
     if cfg.thermostat not in ("none", None):
         raise ValueError(f"unknown thermostat {cfg.thermostat!r} (none | langevin)")
+    return None
+
+
+def _grid_seed(cfg: MDConfig) -> Optional[int]:
+    """Seed of the Langevin noise stream, offset from the init-velocity
+    seed as in the JAX package; None (no stream) for NVE."""
+    return cfg.seed + 0x5EED if cfg.thermostat == "langevin" else None
+
+
+def _make_grid_md(cfg: MDConfig, device):
+    """The grid engine for ``cfg``. In 2D it takes the JAX package's default
+    packing (``rows_per_block`` from ``choose_rows_per_block``)."""
+    if resolve_impl(cfg, device) != "grid":
+        raise ValueError(f"force_impl={cfg.force_impl!r} does not resolve to the grid engine")
+    _grid_thermostat(cfg)
     gf = make_cell_grid_fn(
         cfg.box_size, cfg.cutoff, cfg.n, dim=cfg.dim, skin=resolve_skin(cfg), rho=cfg.rho
     )
@@ -273,8 +284,9 @@ def _carry_overflow(carry) -> torch.Tensor:
 
 
 def equilibrate(cfg: MDConfig, state: ParticleState):
-    """NVE equilibration. Returns ``(state, overflow)``: the capacity/skin
-    overflow flag (0-d bool tensor) is carried out, never dropped."""
+    """Equilibration (NVE, or Langevin NVT on the grid engine). Returns
+    ``(state, overflow)``: the capacity/skin overflow flag (0-d bool
+    tensor) is carried out, never dropped."""
     device = state.position.device
     if resolve_impl(cfg, device) != "grid":
         init_fn, step_fn, get_state = build_step(cfg, device)
@@ -282,12 +294,13 @@ def equilibrate(cfg: MDConfig, state: ParticleState):
         return get_state(carry), _carry_overflow(carry)
     md = _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
-    gs = md.init(state.position, state.velocity)
+    thermo = _grid_thermostat(cfg)
+    gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg))
     n_chunks, rem = divmod(cfg.eq_steps, k)
     if n_chunks:
-        gs = md.make_production_run(n_chunks * k, k, gate_frac=gate)(gs)
+        gs = md.make_production_run(n_chunks * k, k, gate_frac=gate, thermostat=thermo)(gs)
     if rem:
-        gs = md.make_chunk_step(rem, gate_frac=gate)(gs)
+        gs = md.make_chunk_step(rem, gate_frac=gate, thermostat=thermo)(gs)
     final = state.replace(
         position=md.positions(gs), velocity=md.velocities(gs), time=state.time + gs.time
     )
@@ -295,10 +308,10 @@ def equilibrate(cfg: MDConfig, state: ParticleState):
 
 
 def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = None):
-    """Sampled NVE production: every ``sample_every`` steps, the positions,
+    """Sampled production: every ``sample_every`` steps, the positions,
     kinetic and potential energy. ``cadence``: the fixed rebuild cadence of
-    the 3D grid engine's fixed driver (see :func:`production_cadence`); None
-    keeps the displacement-gated driver, and the other paths ignore it.
+    the 3D grid engine's fixed NVE driver (see :func:`production_cadence`);
+    None keeps the displacement-gated driver, and the other paths ignore it.
     Returns ``(final_state, (r_history, ke_history, pe_history), overflow)``."""
     if cfg.prod_steps and cfg.sample_every > cfg.prod_steps:
         raise ValueError(
@@ -322,12 +335,13 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
 
     md = _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
-    gs = md.init(state.position, state.velocity)
-    use_fixed = cadence is not None and hasattr(md, "make_production_run_fixed")
+    thermo = _grid_thermostat(cfg)
+    gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg))
+    use_fixed = cadence is not None
     if use_fixed:
-        prod_block = md.make_production_run_fixed(cfg.sample_every, cadence)
+        prod_block = md.make_production_run_fixed(cfg.sample_every, cadence, thermostat=thermo)
     else:
-        prod_block = md.make_production_run(cfg.sample_every, k, gate_frac=gate)
+        prod_block = md.make_production_run(cfg.sample_every, k, gate_frac=gate, thermostat=thermo)
     r_hist, ke_hist, pe_hist = [], [], []
     n_samples = cfg.prod_steps // cfg.sample_every
     for _ in range(n_samples):
@@ -337,15 +351,15 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
         pe_hist.append(md.potential_energy(gs))
     rem = cfg.prod_steps - n_samples * cfg.sample_every
     if rem and use_fixed:
-        gs = md.make_production_run_fixed(rem, cadence)(gs)
+        gs = md.make_production_run_fixed(rem, cadence, thermostat=thermo)(gs)
     elif rem:
         # the tail runs in k-step windows: a longer window would erode the
         # skin margin
         n2, r2 = divmod(rem, k)
         if n2:
-            gs = md.make_production_run(n2 * k, k, gate_frac=gate)(gs)
+            gs = md.make_production_run(n2 * k, k, gate_frac=gate, thermostat=thermo)(gs)
         if r2:
-            gs = md.make_chunk_step(r2, gate_frac=gate)(gs)
+            gs = md.make_chunk_step(r2, gate_frac=gate, thermostat=thermo)(gs)
     final = state.replace(
         position=md.positions(gs), velocity=md.velocities(gs), time=state.time + gs.time
     )
@@ -365,10 +379,10 @@ def production_cadence(cfg: MDConfig, kt_eq: float) -> Optional[int]:
     """Fixed rebuild cadence for the 3D grid engine's NVE production, from
     the MEASURED equilibrated temperature, as the JAX package's ``run``
     computes it: ``max(1, min(auto_cadence(kt_eq, prod_steps),
-    sample_every))``. None (the gated driver, or no engine) in 2D, off the
-    grid engine, and where ``kt_eq`` is not finite and positive: a diverged
-    or frozen state has no drift horizon."""
-    if cfg.dim != 3 or not (math.isfinite(kt_eq) and kt_eq > 0):
+    sample_every))``. None (the gated driver, or no engine) in 2D, under a
+    thermostat, off the grid engine, and where ``kt_eq`` is not finite and
+    positive: a diverged or frozen state has no drift horizon."""
+    if cfg.dim != 3 or cfg.thermostat not in ("none", None) or not (math.isfinite(kt_eq) and kt_eq > 0):
         return None
     if resolve_impl(cfg, "cpu") != "grid":  # the grid rule reads no device
         return None
@@ -446,9 +460,9 @@ def run(
     allocator; that cost is reported as ``time_compile_s``.
 
     A thermostat needs the grid engine (ValueError elsewhere, as in the JAX
-    package). On the 3D grid engine the production phase runs the
+    package). On the 3D grid engine the NVE production phase runs the
     fixed-cadence driver at :func:`production_cadence` of the measured
-    equilibrated kT. If that kT is NaN or not positive, the overflow flag
+    equilibrated kT (under a thermostat, the gated driver). If that kT is NaN or not positive, the overflow flag
     is raised (and in 3D production runs the gated driver). The pressure
     is measured on the grid engine only."""
     cfg = cfg or MDConfig()

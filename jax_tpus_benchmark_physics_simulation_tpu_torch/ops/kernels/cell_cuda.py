@@ -130,8 +130,9 @@ def _launcher():
     return fn
 
 
-def _check_grid(t: torch.Tensor, name: str, p: CellForceParams, device) -> None:
-    shape = (p.cps, p.cap, p.cps)
+def check_grid(t: torch.Tensor, name: str, shape: tuple, device) -> None:
+    """Raise unless ``t`` is a contiguous float32 grid of ``shape`` on
+    ``device``."""
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if tuple(t.shape) != shape:
@@ -147,8 +148,9 @@ def grid_force(
 ) -> Tuple[torch.Tensor, ...]:
     """``(fx, fy)`` (or ``(fx, fy, e, w)``) totals on the cell grid."""
     global LAUNCHES, ENERGY_LAUNCHES
-    _check_grid(xg, "xg", p, xg.device)
-    _check_grid(yg, "yg", p, xg.device)
+    shape = (p.cps, p.cap, p.cps)
+    check_grid(xg, "xg", shape, xg.device)
+    check_grid(yg, "yg", shape, xg.device)
     if xg.device.type == "cpu":
         return grid_force_reference(xg, yg, p, with_energy)
     if xg.device.type != "cuda":

@@ -1,14 +1,20 @@
 """Grid-resident LJ molecular dynamics (2D), the port's main path.
 
 Port of the JAX package's ``ops/kernels/grid_md.py`` (``GridMDState``,
-``GridMD``) for the unpacked layout. All particle state (positions,
-velocities, forces, particle ids, Kahan residuals) lives permanently in the
-cell-grid layout ``(cps, cap, cps)`` read by the force kernel B1
-(``cell_cuda``); empty slots hold the x sentinel ``2.5 * box``.
+``GridMD``), single device. All particle state (positions, velocities,
+forces, particle ids, Kahan residuals) lives permanently in the cell-grid
+layout ``(cps / R, cap, R * cps)``: R (``rows_per_block``) consecutive cell
+rows share a block, slot ``(g, a, lane)`` holds slot ``a`` of cell
+``(g * R + lane // cps, lane % cps)``. R = 1 is the unpacked layout of force
+kernel B1 (``cell_cuda``), R > 1 the packed layout of B3
+(``cell_cuda_packed``); R defaults to the JAX package's
+``choose_rows_per_block``, without its 128-lane padding. Empty slots hold
+the x sentinel ``2.5 * box``.
 
 - The velocity-Verlet update runs in leapfrog windows: one force call and
   one elementwise pass per step, half-kick in and half-unkick out at the
-  window boundary.
+  window boundary. ``thermostat=(gamma, kT)`` makes each step BAOAB
+  Langevin (NVT).
 - Positions are not wrapped per step: between rebuilds a particle drifts at
   most skin/2 outside [0, box), which the kernel's per-offset seam handling
   covers. Coordinates are wrapped once per rebuild.
@@ -17,17 +23,26 @@ cell-grid layout ``(cps, cap, cps)`` read by the force kernel B1
 - The rebuild is sort-free: every particle moves at most one cell between
   rebuilds, so an allocation in plain PyTorch (``_migration_dest``) gives
   each slot a source-frame code, and kernel B2 (``migrate_cuda``) moves the
-  fields.
+  fields. ``_rebuild`` is the sort-based oracle.
 
 Host control flow: the JAX package runs the rebuild gate inside a device
-``while_loop``. Here :meth:`GridMD.make_production_run` is a Python loop
-that reads the scalar ``dmax2`` once per window, one host sync every
-``n_inner`` steps.
+``while_loop``. Here the drivers are Python loops that read the scalar
+``dmax2`` once per window, one host sync every ``n_inner`` steps.
+
+Langevin noise: the state carries its stream as ``rng_seed`` (None for NVE)
+and ``rng_counter``, both Python ints. Each window seeds one
+``torch.Generator`` on the state's device from the pair, draws a
+``(d,) + grid`` normal block per step, and advances the counter by
+``n_inner``: the same state in gives the same state out, as with the JAX
+package's folded keys. The CPU generator (mt19937) and the card's (Philox)
+give different numbers, so Langevin runs on the card and on the CPU agree
+only in distribution.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -35,6 +50,12 @@ import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import (
     make_grid_force_kernel,
+)
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packed import (
+    choose_rows_per_block,
+    make_grid_force_kernel_packed,
+    pack,
+    unpack,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda import migrate
@@ -47,14 +68,28 @@ SENTINEL_FACTOR = 2.5
 # the 9 migration directions, in the class order of the allocation
 _DIRS = tuple((dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1))
 
+_MASK64 = (1 << 64) - 1
+
+
+def _stream_seed(seed: int, counter: int) -> int:
+    """One 64-bit generator seed from (seed, counter), mixed by SplitMix64
+    so that every bit of both reaches the low 32 bits (all that the CPU's
+    mt19937 reads)."""
+    z = (((seed & 0xFFFFFFFF) << 32) + (counter & 0xFFFFFFFF) + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
 
 @dataclass
 class GridMDState:
-    """All (cps, cap, cps) leaves live on ``GridMD.device``.
+    """All (cps/R, cap, R*cps) leaves live on ``GridMD.device``.
 
     ``fxg/fyg`` hold the total force. ``dispx/dispy`` accumulate per-slot
     displacement since the last rebuild (the Verlet-skin monitor).
-    ``dmax2``, ``overflow`` and ``time`` are 0-d tensors.
+    ``dmax2``, ``overflow`` and ``time`` are 0-d tensors. ``rng_seed`` and
+    ``rng_counter`` are the Langevin noise stream (see the module
+    docstring); rebuilds carry them through.
     """
 
     xg: torch.Tensor
@@ -75,6 +110,8 @@ class GridMDState:
     cry: Optional[torch.Tensor] = None
     cvx: Optional[torch.Tensor] = None
     cvy: Optional[torch.Tensor] = None
+    rng_seed: Optional[int] = None
+    rng_counter: int = 0
 
     def replace(self, **changes) -> "GridMDState":
         return dataclasses.replace(self, **changes)
@@ -82,7 +119,13 @@ class GridMDState:
 
 class GridMD:
     """Factory for the grid-resident MD step functions. State lives on
-    ``device``: the card unless the caller asks for the CPU."""
+    ``device``: the card unless the caller asks for the CPU.
+
+    ``rows_per_block``: R, which must divide the cells per side; None takes
+    the JAX package's default, ``choose_rows_per_block(cps)``.
+    """
+
+    AXES = ("x", "y")
 
     def __init__(
         self,
@@ -91,17 +134,11 @@ class GridMD:
         epsilon: float = 1.0,
         dt: float = 1e-3,
         compensated: bool = False,
-        rows_per_block: int = 1,
+        rows_per_block: Optional[int] = None,
         device="cuda",
     ):
         if grid_fn.dim != 2:
             raise ValueError("grid-resident MD is 2D")
-        if rows_per_block != 1:
-            raise NotImplementedError(
-                "rows_per_block > 1 is the lane-packed layout (TPU kernel B3), "
-                "not ported yet (ROADMAP.md section 1, still to port: 'The rest of "
-                "2D GridMD', the packed layout)"
-            )
         if grid_fn.n >= (1 << 24):
             raise ValueError("particle ids ride the rebuild as float32: n must be < 2^24")
         self.compensated = compensated
@@ -114,19 +151,32 @@ class GridMD:
         self.dt = dt
         self.device = torch.device(device)
         self.sentinel = SENTINEL_FACTOR * float(grid_fn.box)
-        self.grid_shape = (self.cps, self.cap, self.cps)
-        self.size = self.cps * self.cap * self.cps
+        if rows_per_block is None:
+            rows_per_block = choose_rows_per_block(self.cps)
+        if rows_per_block < 1 or self.cps % rows_per_block:
+            raise ValueError(f"rows_per_block {rows_per_block} must divide cells_per_side {self.cps}")
+        self.rows_per_block = rows_per_block
+        self.n_blocks = self.cps // rows_per_block
+        self.lanes = rows_per_block * self.cps
+        self.grid_shape = (self.n_blocks, self.cap, self.lanes)
+        self.size = self.n_blocks * self.cap * self.lanes
         # hot-path kernel: forces only; the energy variant runs only at
         # sampling points (potential_energy, virial)
-        self.force_kernel = make_grid_force_kernel(grid_fn, sigma, epsilon)
-        self.energy_kernel = make_grid_force_kernel(grid_fn, sigma, epsilon, with_energy=True)
+        if rows_per_block > 1:
+            def mk(**kw):
+                return make_grid_force_kernel_packed(grid_fn, rows_per_block, sigma, epsilon, **kw)
+        else:
+            def mk(**kw):
+                return make_grid_force_kernel(grid_fn, sigma, epsilon, **kw)
+        self.force_kernel = mk()
+        self.energy_kernel = mk(with_energy=True)
 
     # -- layout helpers ------------------------------------------------------
     def _slot2(self, position: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Flat grid slot for each particle + overflow flag. Particles of a
         cell take slots in particle order (stable sort), as in the JAX
         package."""
-        cps, cap = self.cps, self.cap
+        cps, cap, r = self.cps, self.cap, self.rows_per_block
         coords = torch.div(position, self.box / cps, rounding_mode="floor")
         coords = coords.to(torch.int32).clamp(0, cps - 1)
         ids = coords[:, 0] * cps + coords[:, 1]
@@ -142,9 +192,16 @@ class GridMD:
         aa = slot % cap
         cx = torch.div(cell_id, cps, rounding_mode="floor")
         cy = cell_id % cps
-        return ((cx * cap + aa) * cps + cy).long(), overflow
+        lane = (cx % r) * cps + cy
+        return ((torch.div(cx, r, rounding_mode="floor") * cap + aa) * self.lanes + lane).long(), overflow
 
-    def init(self, position: torch.Tensor, velocity: torch.Tensor) -> GridMDState:
+    def prepare(self, state: GridMDState) -> GridMDState:
+        """Placement hook (parity with the JAX package's ``prepare``)."""
+        return state
+
+    def init(self, position: torch.Tensor, velocity: torch.Tensor, seed: Optional[int] = None) -> GridMDState:
+        """``seed`` arms the state's noise stream, which Langevin windows
+        need and NVE ones ignore."""
         position = position.to(self.device)
         velocity = velocity.to(self.device)
         slot2, overflow = self._slot2(position)
@@ -171,7 +228,7 @@ class GridMD:
             xg=xg, yg=yg, vxg=vxg, vyg=vyg, fxg=fxg, fyg=fyg,
             occ=occ, pid=pid.view(self.grid_shape),
             dispx=torch.zeros_like(xg), dispy=torch.zeros_like(xg),
-            dmax2=zero, overflow=overflow, time=zero.clone(), **comp,
+            dmax2=zero, overflow=overflow, time=zero.clone(), rng_seed=seed, **comp,
         )
 
     # -- migration rebuild (sort-free) ----------------------------------------
@@ -179,22 +236,27 @@ class GridMD:
         """Allocation phase of the rebuild. Returns the wrapped coordinates,
         the source-frame code grid ``dcode * cap + target_a`` (-1 where
         empty or invalid) that kernel B2 consumes, the post-rebuild
-        occupancy grid and the overflow flag."""
-        cps, cap, box = self.cps, self.cap, self.box
+        occupancy grid and the overflow flag.
+
+        The allocation depends only on physical cells and slot order, so it
+        runs on the unpacked ``(cps, cap, cps)`` view of the grids (one copy
+        each way where R > 1) and gives every particle the cell and slot
+        the JAX package's packed allocation gives it."""
+        cps, cap, box, r = self.cps, self.cap, self.box, self.rows_per_block
         dev = s.xg.device
         i32 = torch.int32
-        occ_b = s.occ > 0.5
 
         # unwrapped drift is < skin/2 since the last rebuild; sentinel slots
         # give garbage here, gated by occ_b everywhere below
         xw = torch.remainder(s.xg, box)
         yw = torch.remainder(s.yg, box)
+        occ_b = unpack(s.occ, r) > 0.5
 
         cx = torch.arange(cps, dtype=i32, device=dev).view(cps, 1, 1)
         cy = torch.arange(cps, dtype=i32, device=dev).view(1, 1, cps)
         cell = box / cps
-        txc = torch.div(xw, cell, rounding_mode="floor").to(i32).clamp(0, cps - 1)
-        tyc = torch.div(yw, cell, rounding_mode="floor").to(i32).clamp(0, cps - 1)
+        txc = torch.div(unpack(xw, r), cell, rounding_mode="floor").to(i32).clamp(0, cps - 1)
+        tyc = torch.div(unpack(yw, r), cell, rounding_mode="floor").to(i32).clamp(0, cps - 1)
         # migration direction in {-1, 0, 1} with periodic wrap
         dxc = (txc - cx + 1 + cps) % cps - 1
         dyc = (tyc - cy + 1 + cps) % cps - 1
@@ -233,7 +295,7 @@ class GridMD:
         tot = torch.clamp(rc.sum(0, dtype=i32), max=cap)  # (cps, 1, cps)
         slot_i = torch.arange(cap, dtype=i32, device=dev).view(1, cap, 1)
         occ_new = (slot_i < tot).to(s.occ.dtype)
-        return xw, yw, scode, occ_new, overflow
+        return xw, yw, pack(scode, r), pack(occ_new, r), overflow
 
     def _rebuild_migrate(self, s: GridMDState) -> GridMDState:
         """Sort-free re-binning: allocation in plain PyTorch, then one
@@ -248,13 +310,55 @@ class GridMD:
         if s.crx is not None:
             fields += [s.crx, s.cry, s.cvx, s.cvy]
             fills += [0.0, 0.0, 0.0, 0.0]
-        out = migrate(scode, torch.stack(fields), fills)
+        out = migrate(scode, torch.stack(fields), fills, self.rows_per_block)
         comp = {}
         if s.crx is not None:
             comp = dict(crx=out[7], cry=out[8], cvx=out[9], cvy=out[10])
         return s.replace(
             xg=out[0], yg=out[1], vxg=out[2], vyg=out[3], fxg=out[4], fyg=out[5],
             occ=occ, pid=out[6].to(torch.int32),
+            dispx=torch.zeros_like(s.xg), dispy=torch.zeros_like(s.xg),
+            dmax2=torch.zeros_like(s.dmax2), overflow=overflow, **comp,
+        )
+
+    # -- rebuild (sort-based oracle) -------------------------------------------
+    def _rebuild(self, s: GridMDState) -> GridMDState:
+        """Re-binning by a stable sort of cell ids (the JAX package's
+        oracle): correct for any displacement, so it checks the sort-free
+        rebuild. Overflows a cell's capacity loudly."""
+        cps, cap, lanes, r = self.cps, self.cap, self.lanes, self.rows_per_block
+        dev = s.xg.device
+        occ = s.occ.reshape(-1)
+        x = torch.remainder(s.xg, self.box).reshape(-1)
+        y = torch.remainder(s.yg, self.box).reshape(-1)
+        n_cells = cps * cps
+        cell = self.box / cps
+        cxi = torch.div(x, cell, rounding_mode="floor").to(torch.int32).clamp(0, cps - 1)
+        cyi = torch.div(y, cell, rounding_mode="floor").to(torch.int32).clamp(0, cps - 1)
+        ids = torch.where(occ > 0.5, cxi * cps + cyi, n_cells)  # empties last
+        order = torch.argsort(ids, stable=True)
+        sorted_ids = ids[order]
+        seg = torch.searchsorted(sorted_ids, sorted_ids)
+        rank = torch.arange(self.size, dtype=torch.int32, device=dev) - seg.to(torch.int32)
+        real = sorted_ids < n_cells
+        overflow = s.overflow | torch.any(real & (rank >= cap))
+        rank = rank.clamp(max=cap - 1)
+        cx = torch.div(sorted_ids, cps, rounding_mode="floor")
+        cy = sorted_ids % cps
+        new_slot = (torch.div(cx, r, rounding_mode="floor") * cap + rank) * lanes + (cx % r) * cps + cy
+        new_slot = torch.where(real, new_slot, self.size).long()  # empties to a dropped slot
+
+        def scat(v, fill=0.0):
+            out = torch.full((self.size + 1,), fill, dtype=v.dtype, device=dev)
+            out[new_slot] = v.reshape(-1)[order]
+            return out[: self.size].view(self.grid_shape)
+
+        comp = {}
+        if s.crx is not None:
+            comp = dict(crx=scat(s.crx), cry=scat(s.cry), cvx=scat(s.cvx), cvy=scat(s.cvy))
+        return s.replace(
+            xg=scat(x, fill=self.sentinel), yg=scat(y), vxg=scat(s.vxg), vyg=scat(s.vyg),
+            fxg=scat(s.fxg), fyg=scat(s.fyg), occ=scat(s.occ), pid=scat(s.pid, fill=-1),
             dispx=torch.zeros_like(s.xg), dispy=torch.zeros_like(s.xg),
             dmax2=torch.zeros_like(s.dmax2), overflow=overflow, **comp,
         )
@@ -274,90 +378,138 @@ class GridMD:
         c = (t - x) - y
         return t, c
 
-    def _make_window(self, force_fn, n_inner: int):
+    def _force_args(self, s: GridMDState) -> tuple:
+        """Arguments the force kernel takes after the coordinates."""
+        return ()
+
+    def _make_window(self, force_fn, n_inner: int, thermostat=None):
         """Leapfrog window: ``window(s) -> s`` advancing ``n_inner``
-        velocity-Verlet steps (NVE) with one force call and one elementwise
-        pass per step. If any particle's displacement since the rebuild
-        exceeded skin/2 mid-window, the state's ``overflow`` flag is raised
-        (NaN-safe: ``~(NaN <= t)`` is True)."""
+        velocity-Verlet steps with one force call and one elementwise pass
+        per step, over the engine's ``AXES`` (shared with the 3D engine).
+        If any particle's displacement since the rebuild exceeded skin/2
+        mid-window, the state's ``overflow`` flag is raised (NaN-safe:
+        ``~(NaN <= t)`` is True).
+
+        ``thermostat=(gamma, kT)`` makes each step BAOAB Langevin (NVT): the
+        exact Ornstein-Uhlenbeck map ``vh <- c1*vh + c2*xi`` between two
+        half-drifts, ``c1 = exp(-gamma*dt)``, ``c2 = sqrt(kT*(1-c1^2))``
+        (unit mass), still one force call a step. The noise is masked by
+        occupancy, so empty slots stay exactly at rest; velocity Kahan
+        compensation is bypassed (the OU map rescales vh). A state without a
+        noise stream raises ``ValueError``."""
         dt = self.dt
         comp = bool(self.compensated)
         kadd = self._kadd
+        axes = self.AXES
+        if thermostat is not None:
+            gamma, kt_target = thermostat
+            c1 = float(math.exp(-gamma * dt))
+            c2 = float(math.sqrt(kt_target * (1.0 - c1 * c1)))
 
-        def window(s: GridMDState) -> GridMDState:
-            vhx = s.vxg + 0.5 * dt * s.fxg
-            vhy = s.vyg + 0.5 * dt * s.fyg
-            x, y, crx, cry, cvx, cvy = s.xg, s.yg, s.crx, s.cry, s.cvx, s.cvy
-            dpx, dpy = s.dispx, s.dispy
-            dm = dpx * dpx + dpy * dpy
-            fx, fy = s.fxg, s.fyg
+        def sumsq(v):
+            out = v[0] * v[0]
+            for t in v[1:]:
+                out = out + t * t
+            return out
+
+        def window(s):
+            if thermostat is not None:
+                if s.rng_seed is None:
+                    raise ValueError("Langevin window needs a PRNG stream: init(..., seed=...)")
+                gen = torch.Generator(device=s.xg.device)
+                gen.manual_seed(_stream_seed(s.rng_seed, s.rng_counter))
+                noise_shape = (len(axes),) + tuple(s.xg.shape)
+            extra = self._force_args(s)
+            f = [getattr(s, f"f{a}g") for a in axes]
+            vh = [getattr(s, f"v{a}g") + 0.5 * dt * fa for a, fa in zip(axes, f)]
+            pos = [getattr(s, f"{a}g") for a in axes]
+            cr = [getattr(s, f"cr{a}") for a in axes]
+            cv = [getattr(s, f"cv{a}") for a in axes]
+            disp = [getattr(s, f"disp{a}") for a in axes]
+            dm = sumsq(disp)
             for _ in range(n_inner):
-                incx = dt * vhx
-                incy = dt * vhy
-                if comp:
-                    x, crx = kadd(x, crx, incx)
-                    y, cry = kadd(y, cry, incy)
+                if thermostat is None:
+                    inc = [dt * v for v in vh]
                 else:
-                    x = x + incx
-                    y = y + incy
-                dpx = dpx + incx
-                dpy = dpy + incy
-                dm = torch.maximum(dm, dpx * dpx + dpy * dpy)
-                fx, fy = force_fn(x, y)
-                if comp:
-                    vhx, cvx = kadd(vhx, cvx, dt * fx)
-                    vhy, cvy = kadd(vhy, cvy, dt * fy)
-                else:
-                    vhx = vhx + dt * fx
-                    vhy = vhy + dt * fy
+                    # A O A: drift half on vh, OU-refresh vh, drift half on
+                    # the refreshed vh; the increments fuse into one add
+                    xi = torch.randn(noise_shape, generator=gen, dtype=s.xg.dtype, device=s.xg.device)
+                    vp = [c1 * v + c2 * (xi[k] * s.occ) for k, v in enumerate(vh)]
+                    inc = [0.5 * dt * (v + p) for v, p in zip(vh, vp)]
+                    vh = vp
+                for k in range(len(axes)):
+                    if comp:
+                        pos[k], cr[k] = kadd(pos[k], cr[k], inc[k])
+                    else:
+                        pos[k] = pos[k] + inc[k]
+                    disp[k] = disp[k] + inc[k]
+                dm = torch.maximum(dm, sumsq(disp))
+                f = list(force_fn(*pos, *extra))
+                for k in range(len(axes)):
+                    if comp and thermostat is None:
+                        vh[k], cv[k] = kadd(vh[k], cv[k], dt * f[k])
+                    else:
+                        vh[k] = vh[k] + dt * f[k]
             dmax2 = torch.max(dm)
             violation = ~(dmax2 <= (0.5 * self.skin) ** 2)
-            return s.replace(
-                xg=x, yg=y,
-                vxg=vhx - 0.5 * dt * fx,
-                vyg=vhy - 0.5 * dt * fy,
-                fxg=fx, fyg=fy,
-                crx=crx, cry=cry, cvx=cvx, cvy=cvy,
-                dispx=dpx, dispy=dpy,
-                dmax2=dmax2,
-                overflow=s.overflow | violation,
-                time=s.time + n_inner * dt,
-            )
+            out = dict(dmax2=dmax2, overflow=s.overflow | violation, time=s.time + n_inner * dt)
+            for k, a in enumerate(axes):
+                out.update({
+                    f"{a}g": pos[k], f"v{a}g": vh[k] - 0.5 * dt * f[k], f"f{a}g": f[k],
+                    f"cr{a}": cr[k], f"cv{a}": cv[k], f"disp{a}": disp[k],
+                })
+            if thermostat is not None:
+                out["rng_counter"] = s.rng_counter + n_inner
+            return s.replace(**out)
 
         return window
 
-    def _window_for(self, s: GridMDState, n_inner: int):
+    def _window_for(self, s: GridMDState, n_inner: int, thermostat=None):
         """The ``n_inner``-step window (one force kernel in 2D; the 3D
         engine picks between two by the state's occupancy)."""
-        return self._make_window(self.force_kernel, n_inner)
+        return self._make_window(self.force_kernel, n_inner, thermostat)
 
-    def make_chunk_step(self, n_inner: int, gate_frac: float = 0.25):
+    # -- drivers, shared with the 3D engine ----------------------------------
+    def step_nocheck(self, s):
+        """One velocity-Verlet step with no rebuild logic. Only valid inside
+        rebuild-gated windows; prefer the drivers below for long runs."""
+        return self._make_window(self.force_kernel, 1)(s)
+
+    def step(self, s):
+        """One step with a displacement-gated rebuild before it (one host
+        read of ``dmax2``). Correct for any dt."""
+        if bool(self._needs_rebuild(s)):
+            s = self._rebuild_migrate(s)
+        return self.step_nocheck(s)
+
+    def make_chunk_step(self, n_inner: int, gate_frac: float = 0.25, thermostat=None):
         """``chunk(s) -> s``: a rebuild if the gate trips (one host read of
         ``dmax2``), then an ``n_inner``-step window. Size ``n_inner`` with
         :meth:`auto_chunk_params` for the same ``gate_frac``: the window
-        must fit in the remaining ``(1/2 - gate_frac)`` skin margin."""
-        window = self._make_window(self.force_kernel, n_inner)
+        must fit in the remaining ``(1/2 - gate_frac)`` skin margin.
+        ``thermostat=(gamma, kT)`` makes the windows BAOAB Langevin."""
 
-        def chunk(s: GridMDState) -> GridMDState:
+        def chunk(s):
             if bool(self._needs_rebuild(s, frac=gate_frac)):
                 s = self._rebuild_migrate(s)
-            return window(s)
+            return self._window_for(s, n_inner, thermostat)(s)
 
         return chunk
 
-    def make_production_run(self, n_steps: int, n_inner: int, gate_frac: float = 0.25):
+    def make_production_run(self, n_steps: int, n_inner: int, gate_frac: float = 0.25, thermostat=None):
         """``run(s) -> s`` advancing exactly ``n_steps`` (``n_inner`` must
         divide it): windows run until the rebuild gate trips, checked
         between windows with one host read of ``dmax2``; then a rebuild, and
-        again. The same windows, gate cadence and rebuilds as the JAX
-        package's nested ``while_loop``, including one trailing rebuild."""
+        again. The window is chosen once per rebuild period. The same
+        windows, gate cadence and rebuilds as the JAX package's nested
+        ``while_loop``, including one trailing rebuild."""
         if n_steps % n_inner:
             raise ValueError(f"n_inner {n_inner} must divide n_steps {n_steps}")
-        window = self._make_window(self.force_kernel, n_inner)
 
-        def run(s: GridMDState) -> GridMDState:
+        def run(s):
             done = 0
             while done < n_steps:
+                window = self._window_for(s, n_inner, thermostat)
                 while done < n_steps and not bool(self._needs_rebuild(s, frac=gate_frac)):
                     s = window(s)
                     done += n_inner
@@ -365,6 +517,39 @@ class GridMD:
             return s
 
         return run
+
+    def make_production_run_fixed(self, n_steps: int, cadence: int, thermostat=None):
+        """Fixed-cadence driver: ``rebuild -> cadence-step window`` blocks,
+        with no gate read; ``n_steps % cadence`` trailing steps run as one
+        remainder block. NVE only. Safety rests on the window's skin/2
+        violation flag: a cadence too long for the actual temperature raises
+        ``overflow``, never loses pairs silently. Size it with
+        :meth:`auto_cadence`, on equilibrated states only."""
+        if cadence < 1:
+            raise ValueError(f"cadence must be >= 1, got {cadence}")
+        if thermostat is not None:
+            raise ValueError("the fixed-cadence driver is NVE-only: Langevin runs use the gated drivers")
+        nb, rem = divmod(n_steps, cadence)
+
+        def run(s):
+            for _ in range(nb):
+                s = self._rebuild_migrate(s)
+                s = self._window_for(s, cadence)(s)
+            if rem:
+                s = self._rebuild_migrate(s)
+                s = self._window_for(s, rem)(s)
+            return s
+
+        return run
+
+    def auto_cadence(self, kt: float = 1.0, n_steps: int = 100_000) -> int:
+        """Rebuild cadence for :meth:`make_production_run_fixed`: the fastest
+        one-axis speed among ``N * n_steps`` Gaussian samples,
+        ``sqrt(2 ln(N n_steps) kT)``, may drift at most ``0.5 * skin`` (with
+        a 7% buffer) between rebuilds. The JAX package's rule."""
+        samples = max(float(self.n) * max(n_steps, 1), math.e)
+        vmax = math.sqrt(2.0 * math.log(samples)) * kt**0.5
+        return max(1, int(0.93 * 0.5 * self.skin / (vmax * self.dt)))
 
     def auto_chunk_params(self, kt: float = 1.0) -> Tuple[int, float]:
         """``(n_inner, gate_frac)`` sized together: the highest rebuild gate

@@ -1,8 +1,9 @@
 """Grid-resident LJ molecular dynamics (3D).
 
 Port of the JAX package's ``ops/kernels/grid_md3.py`` (``GridMD3State``,
-``GridMD3``), single device, NVE. It is the 2D engine (``grid_md.py``; read
-its docstring first) with a third coordinate:
+``GridMD3``), single device. It is the 2D engine (``grid_md.py``; read its
+docstring first) with a third coordinate, and shares its leapfrog / BAOAB
+Langevin window and its drivers:
 
 - All particle state lives permanently in the cell-grid layout
   ``(ncx, cap, ncy * ncz)`` of the force kernels B4/B5 (``cell_cuda3``):
@@ -24,8 +25,8 @@ are Python loops here. The gated driver reads ``dmax2`` once per window. In
 the hybrid mode (``static_cov="auto"``), the choice between B5 (while
 ``max_occ <= cov``) and B4 reads ``max_occ`` once per rebuild period.
 
-Deferred (ROADMAP.md): the Langevin window, the sort-based ``_rebuild`` and
-``_rebuild_migrate_rows`` of the sharded engine.
+Not ported: ``_rebuild_migrate_rows`` and the ``.raw`` halo kernels of the
+JAX package's sharded engine.
 """
 
 from __future__ import annotations
@@ -50,12 +51,6 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda3 i
 # the 27 migration directions, in the class order of the allocation
 # (index == dcode = ((dx+1)*3 + (dy+1))*3 + (dz+1))
 _DIRS = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
-
-_NO_LANGEVIN = (
-    "the 3D Langevin window is not ported yet (ROADMAP.md section 1, still to "
-    "port: 'The rest of 3D GridMD3'); the port runs NVE (thermostat=None)"
-)
-
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -91,6 +86,9 @@ class GridMD3State:
     cvx: Optional[torch.Tensor] = None
     cvy: Optional[torch.Tensor] = None
     cvz: Optional[torch.Tensor] = None
+    # the Langevin noise stream (grid_md's module docstring)
+    rng_seed: Optional[int] = None
+    rng_counter: int = 0
 
     def replace(self, **changes) -> "GridMD3State":
         return dataclasses.replace(self, **changes)
@@ -110,6 +108,8 @@ class GridMD3:
     The TPU's lane and VMEM gates of this choice are not ported: they have
     no counterpart on the card.
     """
+
+    AXES = ("x", "y", "z")
 
     def __init__(
         self,
@@ -199,7 +199,9 @@ class GridMD3:
         """Global max cell occupancy (the slot axis is 1), 0-d int32."""
         return occ.sum(1).max().to(torch.int32)
 
-    def init(self, position: torch.Tensor, velocity: torch.Tensor) -> GridMD3State:
+    def init(self, position: torch.Tensor, velocity: torch.Tensor, seed: Optional[int] = None) -> GridMD3State:
+        """``seed`` arms the state's noise stream, which Langevin windows
+        need and NVE ones ignore."""
         position = position.to(self.device)
         velocity = velocity.to(self.device)
         slot, overflow = self._slot3(position)
@@ -229,7 +231,7 @@ class GridMD3:
             xg=xg, yg=yg, zg=zg, vxg=vxg, vyg=vyg, vzg=vzg, fxg=fxg, fyg=fyg, fzg=fzg,
             occ=occ, pid=pid.view(self.grid_shape),
             dispx=torch.zeros_like(xg), dispy=torch.zeros_like(xg), dispz=torch.zeros_like(xg),
-            dmax2=zero, overflow=overflow, time=zero.clone(), max_occ=max_occ, **comp,
+            dmax2=zero, overflow=overflow, time=zero.clone(), max_occ=max_occ, rng_seed=seed, **comp,
         )
 
     # -- migration rebuild (sort-free) ----------------------------------------
@@ -349,146 +351,84 @@ class GridMD3:
             overflow=overflow | mov_of, max_occ=new_mo, **comp,
         )
 
-    def _needs_rebuild(self, s: GridMD3State, frac: float = 0.5) -> torch.Tensor:
-        """Gate on the scalar displacement max kept by the windows. NaN-safe:
-        a NaN ``dmax2`` asks for a rebuild."""
-        return ~(s.dmax2 <= (frac * self.skin) ** 2)
+    # -- rebuild (sort-based oracle) -------------------------------------------
+    def _rebuild(self, s: GridMD3State) -> GridMD3State:
+        """Re-binning by a stable sort of cell ids (the JAX package's
+        oracle): correct for any displacement. Overflows a cell's capacity
+        loudly, and in pure static mode a new ``max_occ`` above
+        ``static_cov``."""
+        cps, cap, plane = self.cps, self.cap, self.plane
+        dev = s.xg.device
+        occ = s.occ.reshape(-1)
+        coords = [torch.remainder(g, self.box).reshape(-1) for g in (s.xg, s.yg, s.zg)]
+        n_cells = cps * cps * cps
+        cell = self.box / cps
+
+        def cellc(v):
+            return torch.div(v, cell, rounding_mode="floor").to(torch.int32).clamp(0, cps - 1)
+
+        ids = torch.where(occ > 0.5, (cellc(coords[0]) * cps + cellc(coords[1])) * cps + cellc(coords[2]), n_cells)
+        order = torch.argsort(ids, stable=True)
+        sorted_ids = ids[order]
+        seg = torch.searchsorted(sorted_ids, sorted_ids)
+        rank = torch.arange(self.size, dtype=torch.int32, device=dev) - seg.to(torch.int32)
+        real = sorted_ids < n_cells
+        overflow = s.overflow | torch.any(real & (rank >= cap))
+        rank = rank.clamp(max=cap - 1)
+        cxs = torch.div(sorted_ids, plane, rounding_mode="floor")
+        new_slot = (cxs * cap + rank) * plane + sorted_ids % plane
+        new_slot = torch.where(real, new_slot, self.size).long()  # empties to a dropped slot
+
+        def scat(v, fill=0.0):
+            out = torch.full((self.size + 1,), fill, dtype=v.dtype, device=dev)
+            out[new_slot] = v.reshape(-1)[order]
+            return out[: self.size].view(self.grid_shape)
+
+        comp = {}
+        if s.crx is not None:
+            comp = {k: scat(getattr(s, k)) for k in ("crx", "cry", "crz", "cvx", "cvy", "cvz")}
+        occ_new = scat(s.occ)
+        new_mo = self._max_occ(occ_new)
+        if self._pure_static:
+            overflow = overflow | (new_mo > self.static_cov)
+        zeros = torch.zeros_like(s.xg)
+        return s.replace(
+            xg=scat(coords[0], fill=self.sentinel), yg=scat(coords[1]), zg=scat(coords[2]),
+            vxg=scat(s.vxg), vyg=scat(s.vyg), vzg=scat(s.vzg),
+            fxg=scat(s.fxg), fyg=scat(s.fyg), fzg=scat(s.fzg),
+            occ=occ_new, pid=scat(s.pid, fill=-1),
+            dispx=zeros, dispy=zeros, dispz=zeros,
+            dmax2=torch.zeros_like(s.dmax2), overflow=overflow, max_occ=new_mo, **comp,
+        )
+
+    _needs_rebuild = GridMD._needs_rebuild
 
     # -- MD step ---------------------------------------------------------------
     _kadd = staticmethod(GridMD._kadd)
+    # the leapfrog / BAOAB window over AXES, and the drivers, are the 2D
+    # engine's (see GridMD._make_window)
+    _make_window = GridMD._make_window
 
-    def _make_window(self, force_fn, n_inner: int):
-        """Leapfrog window: ``window(s) -> s`` advancing ``n_inner``
-        velocity-Verlet steps (NVE) with one force call and one elementwise
-        pass per step. If any particle's displacement since the rebuild
-        exceeded skin/2 mid-window, the state's ``overflow`` flag is raised
-        (NaN-safe: ``~(NaN <= t)`` is True)."""
-        dt = self.dt
-        comp = bool(self.compensated)
-        kadd = self._kadd
+    def _force_args(self, s: GridMD3State) -> tuple:
+        """B4 reads the occupancy bound on the device; it is constant
+        between rebuilds (the binning is fixed)."""
+        return (s.max_occ,)
 
-        def window(s: GridMD3State) -> GridMD3State:
-            mo = s.max_occ  # constant between rebuilds (the binning is fixed)
-            vhx = s.vxg + 0.5 * dt * s.fxg
-            vhy = s.vyg + 0.5 * dt * s.fyg
-            vhz = s.vzg + 0.5 * dt * s.fzg
-            x, y, z = s.xg, s.yg, s.zg
-            crx, cry, crz, cvx, cvy, cvz = s.crx, s.cry, s.crz, s.cvx, s.cvy, s.cvz
-            dpx, dpy, dpz = s.dispx, s.dispy, s.dispz
-            dm = dpx * dpx + dpy * dpy + dpz * dpz
-            fx, fy, fz = s.fxg, s.fyg, s.fzg
-            for _ in range(n_inner):
-                incx, incy, incz = dt * vhx, dt * vhy, dt * vhz
-                if comp:
-                    x, crx = kadd(x, crx, incx)
-                    y, cry = kadd(y, cry, incy)
-                    z, crz = kadd(z, crz, incz)
-                else:
-                    x, y, z = x + incx, y + incy, z + incz
-                dpx, dpy, dpz = dpx + incx, dpy + incy, dpz + incz
-                dm = torch.maximum(dm, dpx * dpx + dpy * dpy + dpz * dpz)
-                fx, fy, fz = force_fn(x, y, z, mo)
-                if comp:
-                    vhx, cvx = kadd(vhx, cvx, dt * fx)
-                    vhy, cvy = kadd(vhy, cvy, dt * fy)
-                    vhz, cvz = kadd(vhz, cvz, dt * fz)
-                else:
-                    vhx, vhy, vhz = vhx + dt * fx, vhy + dt * fy, vhz + dt * fz
-            dmax2 = torch.max(dm)
-            violation = ~(dmax2 <= (0.5 * self.skin) ** 2)
-            return s.replace(
-                xg=x, yg=y, zg=z,
-                vxg=vhx - 0.5 * dt * fx, vyg=vhy - 0.5 * dt * fy, vzg=vhz - 0.5 * dt * fz,
-                fxg=fx, fyg=fy, fzg=fz,
-                crx=crx, cry=cry, crz=crz, cvx=cvx, cvy=cvy, cvz=cvz,
-                dispx=dpx, dispy=dpy, dispz=dpz,
-                dmax2=dmax2,
-                overflow=s.overflow | violation,
-                time=s.time + n_inner * dt,
-            )
-
-        return window
-
-    def _window_for(self, s: GridMD3State, n_inner: int):
+    def _window_for(self, s: GridMD3State, n_inner: int, thermostat=None):
         """The ``n_inner``-step window for the state's binning. In hybrid
         mode: B5's while ``max_occ <= cov``, else B4's, which costs one
         host read of ``max_occ``; ``max_occ`` only changes at a rebuild, so
         the drivers call this once per rebuild period."""
         if self._hybrid and int(s.max_occ) <= self.static_cov:
-            return self._make_window(self.force_kernel_static, n_inner)
-        return self._make_window(self.force_kernel, n_inner)
+            return self._make_window(self.force_kernel_static, n_inner, thermostat)
+        return self._make_window(self.force_kernel, n_inner, thermostat)
 
-    def make_chunk_step(self, n_inner: int, gate_frac: float = 0.25, thermostat=None):
-        """``chunk(s) -> s``: a rebuild if the gate trips (one host read of
-        ``dmax2``), then an ``n_inner``-step window. Size ``n_inner`` with
-        :meth:`auto_chunk_params` for the same ``gate_frac``."""
-        if thermostat is not None:
-            raise NotImplementedError(_NO_LANGEVIN)
-
-        def chunk(s: GridMD3State) -> GridMD3State:
-            if bool(self._needs_rebuild(s, frac=gate_frac)):
-                s = self._rebuild_migrate(s)
-            return self._window_for(s, n_inner)(s)
-
-        return chunk
-
-    def make_production_run(self, n_steps: int, n_inner: int, gate_frac: float = 0.25, thermostat=None):
-        """``run(s) -> s`` advancing exactly ``n_steps`` (``n_inner`` must
-        divide it): windows run until the rebuild gate trips, checked
-        between windows with one host read of ``dmax2``; then a rebuild, and
-        again. The window kernel (B5 or B4) is chosen once per rebuild
-        period. The same windows, gate cadence and rebuilds as the JAX
-        package's nested ``while_loop``, including one trailing rebuild."""
-        if thermostat is not None:
-            raise NotImplementedError(_NO_LANGEVIN)
-        if n_steps % n_inner:
-            raise ValueError(f"n_inner {n_inner} must divide n_steps {n_steps}")
-
-        def run(s: GridMD3State) -> GridMD3State:
-            done = 0
-            while done < n_steps:
-                window = self._window_for(s, n_inner)
-                while done < n_steps and not bool(self._needs_rebuild(s, frac=gate_frac)):
-                    s = window(s)
-                    done += n_inner
-                s = self._rebuild_migrate(s)
-            return s
-
-        return run
-
-    def make_production_run_fixed(self, n_steps: int, cadence: int, thermostat=None):
-        """Fixed-cadence driver: ``rebuild -> cadence-step window`` blocks,
-        with no gate read; ``n_steps % cadence`` trailing steps run as one
-        remainder block. Safety rests on the window's skin/2 violation flag:
-        a cadence too long for the actual temperature raises ``overflow``,
-        never loses pairs silently. Size it with :meth:`auto_cadence`, on
-        equilibrated states only."""
-        if cadence < 1:
-            raise ValueError(f"cadence must be >= 1, got {cadence}")
-        if thermostat is not None:
-            raise ValueError("the fixed-cadence driver is NVE-only: Langevin runs use the gated drivers")
-        nb, rem = divmod(n_steps, cadence)
-
-        def run(s: GridMD3State) -> GridMD3State:
-            for _ in range(nb):
-                s = self._rebuild_migrate(s)
-                s = self._window_for(s, cadence)(s)
-            if rem:
-                s = self._rebuild_migrate(s)
-                s = self._window_for(s, rem)(s)
-            return s
-
-        return run
-
-    def auto_cadence(self, kt: float = 1.0, n_steps: int = 100_000) -> int:
-        """Rebuild cadence for :meth:`make_production_run_fixed`: the fastest
-        one-axis speed among ``N * n_steps`` Gaussian samples,
-        ``sqrt(2 ln(N n_steps) kT)``, may drift at most ``0.5 * skin`` (with
-        a 7% buffer) between rebuilds. The JAX package's rule."""
-        samples = max(float(self.n) * max(n_steps, 1), math.e)
-        vmax = math.sqrt(2.0 * math.log(samples)) * kt**0.5
-        return max(1, int(0.93 * 0.5 * self.skin / (vmax * self.dt)))
-
+    step_nocheck = GridMD.step_nocheck
+    step = GridMD.step
+    make_chunk_step = GridMD.make_chunk_step
+    make_production_run = GridMD.make_production_run
+    make_production_run_fixed = GridMD.make_production_run_fixed
+    auto_cadence = GridMD.auto_cadence
     auto_chunk_params = GridMD.auto_chunk_params
     auto_inner_steps = GridMD.auto_inner_steps
 

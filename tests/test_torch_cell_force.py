@@ -49,7 +49,7 @@ def grids():
     assert (pos[:, 0] >= box).any() and (pos[:, 1] < 0).any()
     gf_j = jax_make_cell_grid_fn(box, 2.5, N, dim=2)
     gf_t = make_cell_grid_fn(box, 2.5, N, dim=2)
-    md_t = GridMD(gf_t, device="cpu")
+    md_t = GridMD(gf_t, rows_per_block=1, device="cpu")
     with exact_pallas_reciprocal():
         gs_j = JaxGridMD(gf_j, rows_per_block=1).init(jnp.asarray(pos), jnp.asarray(vel))
     gs_t = grid_state_from_jax(jax_grid_arrays(gs_j), md_t)

@@ -17,10 +17,12 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.models import lj_fluid
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import (
     cell_cuda,
     cell_cuda3,
+    cell_cuda_packed,
     migrate_cuda,
     migrate_cuda3,
     pairwise_cuda,
 )
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD
 
 pytestmark = pytest.mark.cuda
 
@@ -35,12 +37,14 @@ def cuda_device():
 
 
 CFG = override(MDConfig(), n=4096, rho=0.8, cutoff=2.5, force_impl="grid", init="lattice",
-               eq_steps=100, prod_steps=100, sample_every=50)
+               eq_steps=100, prod_steps=100, sample_every=50)  # cps 24: the engine packs R=24
 
 
-def _advanced_state(device):
-    """A grid state 20 steps after a rebuild: coordinates unwrapped."""
-    md = lj_fluid._make_grid_md(CFG, device)
+def _advanced_state(device, rows_per_block=1):
+    """A grid state 20 steps after a rebuild, on the layout with
+    ``rows_per_block`` cell rows a block: coordinates unwrapped."""
+    gf = lj_fluid._make_grid_md(CFG, device).grid_fn
+    md = GridMD(gf, dt=CFG.dt, compensated=True, rows_per_block=rows_per_block, device=device)
     s0 = lj_fluid.init_state(CFG, device)
     gs = md.make_production_run(200, 5, gate_frac=0.35)(md.init(s0.position, s0.velocity))
     return md, md._make_window(md.force_kernel, 20)(gs)
@@ -83,6 +87,42 @@ def test_migrate_kernel_bit_equal(cuda_device):
     got = migrate_cuda.migrate(scode, fields, fills)
     assert torch.equal(got, migrate_cuda.migrate_reference(scode, fields, fills))
     assert migrate_cuda.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("rows_per_block", [4, 24])  # G = 6 and 1
+def test_cell_force_packed_kernel_matches_plain(cuda_device, rows_per_block):
+    """B3 (both variants) against its plain version: forces at atol 1e-4 on
+    occupied slots (summation order), exact zeros elsewhere, e and w sums
+    at rtol 1e-5; two launches bit-equal (no atomics)."""
+    md, gs = _advanced_state(cuda_device, rows_per_block)
+    assert tuple(gs.xg.shape) == (24 // rows_per_block, md.cap, 24 * rows_per_block)
+    p = cell_cuda.CellForceParams.from_grid(md.grid_fn)
+    occ = gs.occ > 0.5
+    before = (cell_cuda_packed.LAUNCHES, cell_cuda_packed.ENERGY_LAUNCHES)
+    for with_energy in (False, True):
+        got = cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, p, rows_per_block, with_energy)
+        again = cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, p, rows_per_block, with_energy)
+        want = cell_cuda_packed.grid_force_packed_reference(gs.xg, gs.yg, p, rows_per_block, with_energy)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, b in zip(got[:2], want[:2]):
+            assert float((a - b)[occ].abs().max()) <= 1e-4
+            assert bool((a[~occ] == 0).all())
+        for a, b in zip(got[2:], want[2:]):
+            np.testing.assert_allclose(float(a.double().sum()), float(b.double().sum()), rtol=1e-5)
+    assert (cell_cuda_packed.LAUNCHES, cell_cuda_packed.ENERGY_LAUNCHES) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("rows_per_block", [4, 24])
+def test_migrate_packed_kernel_bit_equal(cuda_device, rows_per_block):
+    md, gs = _advanced_state(cuda_device, rows_per_block)
+    _, _, scode, _, _ = md._migration_dest(gs)
+    fields = torch.stack([gs.xg, gs.yg, gs.vxg, gs.vyg, gs.pid.float()])
+    fills = [md.sentinel, 0.0, 0.0, 0.0, -1.0]
+    before = (migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES)
+    got = migrate_cuda.migrate(scode, fields, fills, rows_per_block)
+    assert torch.equal(got, migrate_cuda.migrate_reference(scode, fields, fills, rows_per_block))
+    assert (migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES) == (before[0], before[1] + 1)
 
 
 def test_cell_force3_kernels_match_plain(cuda_device):
@@ -152,8 +192,9 @@ def test_wrappers_reject_bad_cuda_inputs(cuda_device):
 
 
 def test_engine_on_card_matches_cpu(cuda_device):
-    """The same equilibrate + production on the card (kernels) and on the
-    CPU (plain versions): energies at rtol 1e-4 (summation order)."""
+    """The same equilibrate + production on the card (kernels B3, B2 on the
+    packed layout) and on the CPU (plain versions): energies at rtol 1e-4
+    (summation order)."""
     out = {}
     for device in (cuda_device, torch.device("cpu")):
         s_eq, ovf_eq = lj_fluid.equilibrate(CFG, lj_fluid.init_state(CFG, device))

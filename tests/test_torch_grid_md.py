@@ -36,7 +36,8 @@ def _engines(compensated=True):
     box = float(np.sqrt(N / RHO))
     md_j = JaxGridMD(jax_make_cell_grid_fn(box, 2.5, N, dim=2), dt=DT,
                      compensated=compensated, rows_per_block=1)
-    md_t = GridMD(make_cell_grid_fn(box, 2.5, N, dim=2), dt=DT, compensated=compensated, device="cpu")
+    md_t = GridMD(make_cell_grid_fn(box, 2.5, N, dim=2), dt=DT, compensated=compensated, rows_per_block=1,
+                  device="cpu")
     pos = np.mod(lattice_positions(N, box, seed=8), box)
     return md_j, md_t, pos, velocities(N, kt=1.0, seed=9)
 
@@ -134,7 +135,7 @@ def test_auto_params_match_jax():
         box = float(np.sqrt(n / 0.8))
         for dt in (1e-4, 1e-3, 5e-3, 2e-2):
             md_j = JaxGridMD(jax_make_cell_grid_fn(box, 2.5, n, dim=2), dt=dt, rows_per_block=1)
-            md_t = GridMD(make_cell_grid_fn(box, 2.5, n, dim=2), dt=dt)
+            md_t = GridMD(make_cell_grid_fn(box, 2.5, n, dim=2), dt=dt, rows_per_block=1)
             for kt in (0.25, 1.0, 2.0):
                 assert md_t.auto_chunk_params(kt) == md_j.auto_chunk_params(kt), (n, dt, kt)
                 assert md_t.auto_inner_steps(kt) == md_j.auto_inner_steps(kt), (n, dt, kt)
@@ -145,9 +146,14 @@ def test_auto_params_match_jax():
 
 
 def test_unported_layouts_raise():
+    """R = 4 builds the packed (cps/4, cap, 4*cps) grid, a non-divisor R
+    raises; so do a 3D geometry and a window that does not divide the run."""
     gf = make_cell_grid_fn(float(np.sqrt(1200 / 0.5)), 2.5, 1200, dim=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GridMD(gf, rows_per_block=4)
+    md = GridMD(gf, rows_per_block=4)
+    assert (gf.cells_per_side, gf.capacity) == (16, 16)
+    assert md.grid_shape == (4, 16, 64) and md.size == 16 * 16 * 16
+    with pytest.raises(ValueError, match="must divide"):
+        GridMD(gf, rows_per_block=3)
     with pytest.raises(ValueError):
         GridMD(make_cell_grid_fn(20.0, 2.5, 1000, dim=3))
     with pytest.raises(ValueError, match="n_inner"):

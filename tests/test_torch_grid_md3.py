@@ -228,10 +228,14 @@ def test_auto_params_match_jax():
 def test_unported_and_invalid_raise():
     gf = make_cell_grid_fn(BOX, 2.5, N, dim=3)
     md = GridMD3(gf)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        md.make_chunk_step(5, thermostat=(1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        md.make_production_run(20, 5, thermostat=(1.0, 1.0))
+    # a Langevin window on a state without a noise stream
+    md_c = GridMD3(gf, device="cpu")
+    pos = np.mod(lattice_positions(N, BOX, seed=1, dim=3), BOX)
+    gs = md_c.init(torch.from_numpy(pos), torch.from_numpy(velocities(N, dim=3)))
+    with pytest.raises(ValueError, match="PRNG"):
+        md_c.make_chunk_step(5, thermostat=(1.0, 1.0))(gs)
+    with pytest.raises(ValueError, match="PRNG"):
+        md_c.make_production_run(20, 5, thermostat=(1.0, 1.0))(gs)
     with pytest.raises(ValueError, match="NVE"):
         md.make_production_run_fixed(20, 5, thermostat=(1.0, 1.0))
     with pytest.raises(ValueError, match="n_inner"):
@@ -245,3 +249,19 @@ def test_unported_and_invalid_raise():
     with pytest.raises(ValueError):
         GridMD(gf)
     assert md.device == torch.device("cuda")  # the card unless the caller asks for the CPU
+
+
+def test_sort_rebuild_oracle_matches_migrate_rebuild():
+    """The sort-based ``_rebuild`` oracle puts every particle at the
+    position and velocity the sort-free rebuild gives it, with the same
+    occupancy bound (its slots within a cell follow another order)."""
+    md = GridMD3(make_cell_grid_fn(BOX, 2.5, N, dim=3), dt=DT, compensated=True, device="cpu")
+    pos = np.mod(lattice_positions(N, BOX, seed=3, dim=3), BOX)
+    s = md.init(torch.from_numpy(pos), torch.from_numpy(velocities(N, kt=1.0, seed=4, dim=3)))
+    s = md._make_window(md.force_kernel, 25)(s)
+    srt, mig = md._rebuild(s), md._rebuild_migrate(s)
+    assert not bool(srt.overflow) and not bool(mig.overflow)
+    assert int(srt.occ.sum()) == N and int(srt.max_occ) == int(mig.max_occ)
+    np.testing.assert_array_equal(md.positions(srt).numpy(), md.positions(mig).numpy())
+    np.testing.assert_array_equal(md.velocities(srt).numpy(), md.velocities(mig).numpy())
+    assert float(srt.dmax2) == 0.0 and bool((srt.xg[srt.occ < 0.5] == md.sentinel).all())

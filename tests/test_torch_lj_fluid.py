@@ -37,7 +37,7 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.thermo impo
 from tests.torch_parity import exact_pallas_reciprocal, lattice_positions, periodic_distance, velocities
 
 # n=1024: cps 12, which 8 does not divide, so the JAX side stays off the
-# sharded engine on the 8-device test mesh
+# sharded engine on the 8-device test mesh; both packages pack R=6 (B3)
 SLICE = dict(
     n=1024, rho=0.8, cutoff=2.5, force_impl="grid", init="lattice",
     eq_steps=40, prod_steps=100, sample_every=20, dt=1e-3,
@@ -64,8 +64,8 @@ def test_lattice_init_matches_jax():
 
 def test_equilibrate_production_match_jax():
     """``equilibrate`` + ``production`` over 140 steps from one numpy state.
-    The JAX side runs its lane-packed kernel B3 here (cps 12 packs R=6)
-    while the port runs B1, so the histories are compared at rtol 1e-4 and
+    Both packages run the lane-packed layout here (cps 12 packs R=6), the
+    JAX package's B3 against the port's; histories at rtol 1e-4 and
     positions at 1e-4 * box: the same physics summed in another order."""
     cfg_j = jax_override(JaxMDConfig(), **SLICE)
     cfg_t = override(MDConfig(), **SLICE)
@@ -126,15 +126,18 @@ def test_run_end_to_end_cpu():
 
 def test_unported_paths_raise():
     """Every force path resolves now (tests/test_torch_lj_fluid_paths.py
-    runs them); the Langevin window is still unported and raises."""
+    runs them), and so does the Langevin thermostat on the grid engine
+    (tests/test_torch_langevin.py); an unknown thermostat raises."""
     base = override(MDConfig(), n=5000, cutoff=2.5)
     assert lj_fluid.resolve_impl(base) == "grid"
     assert lj_fluid.resolve_impl(override(base, force_impl="dense_xla")) == "dense_xla"
     assert lj_fluid.resolve_impl(override(base, n=400), "cpu") == "dense_xla"
     with pytest.raises(ValueError, match="requires a cutoff"):
         lj_fluid.resolve_impl(override(base, cutoff=None, force_impl="grid"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lj_fluid.equilibrate(override(base, thermostat="langevin"), lj_fluid.init_state(base, "cpu"))
+    with pytest.raises(ValueError, match="unknown thermostat"):
+        lj_fluid.equilibrate(override(base, thermostat="berendsen"), lj_fluid.init_state(base, "cpu"))
+    assert lj_fluid._grid_seed(override(base, thermostat="langevin")) == base.seed + 0x5EED
+    assert lj_fluid._grid_seed(base) is None
     with pytest.raises(ValueError, match="sample_every"):
         lj_fluid.production(override(base, prod_steps=50), lj_fluid.init_state(base, "cpu"))
 
@@ -148,5 +151,5 @@ def test_cli_md_cpu(capsys):
     assert "throughput:" in out and "energy drift:" in out and "P* =" in out
     assert "OVERFLOW" not in out
     assert cli.main(["md", "--N", "400", "--force-impl", "neighbor", "--device", "cpu"]) == 2  # no cutoff
-    assert cli.main(["md", "--N", "5000", "--cutoff", "2.5", "--thermostat", "langevin",
-                     "--device", "cpu"]) == 2
+    assert cli.main(["md", "--N", "5000", "--cutoff", "2.5", "--force-impl", "neighbor",
+                     "--thermostat", "langevin", "--device", "cpu"]) == 2  # grid engine only

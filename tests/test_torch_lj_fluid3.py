@@ -141,5 +141,5 @@ def test_cli_md_3d_cpu(capsys):
     assert "B5 (cov 8) / B4 fallback, B6" in out and "4 cells per side, capacity 16" in out
     assert "throughput:" in out and "energy drift:" in out and "P* =" in out
     assert "OVERFLOW" not in out
-    assert cli.main(["md", "--N", "5000", "--dim", "3", "--cutoff", "2.5", "--thermostat", "langevin",
-                     "--device", "cpu"]) == 2
+    assert cli.main(["md", "--N", "5000", "--dim", "3", "--cutoff", "2.5", "--force-impl", "cell",
+                     "--thermostat", "langevin", "--device", "cpu"]) == 2  # grid engine only

@@ -45,7 +45,8 @@ def advanced():
     vel = velocities(N, kt=1.0, seed=7)
     gf_j = jax_make_cell_grid_fn(box, 2.5, N, dim=2)
     md_j = JaxGridMD(gf_j, dt=2e-3, compensated=True, rows_per_block=1)
-    md_t = GridMD(make_cell_grid_fn(box, 2.5, N, dim=2), dt=2e-3, compensated=True, device="cpu")
+    md_t = GridMD(make_cell_grid_fn(box, 2.5, N, dim=2), dt=2e-3, compensated=True, rows_per_block=1,
+                  device="cpu")
     rebuild = jax.jit(md_j._rebuild_migrate)
     with exact_pallas_reciprocal():
         window = jax.jit(md_j._make_window(md_j.force_kernel, 20))
@@ -140,6 +141,55 @@ def test_migrate_reference_is_the_permutation():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _random_codes(cps, cap, rng):
+    """Random injective source-frame codes on the (cps, cap, cps) frame
+    (several movers into one target cell included)."""
+    scode = np.full((cps, cap, cps), -1, np.int32)
+    taken = set()
+    for cx in range(cps):
+        for b in range(cap):
+            for cy in range(cps):
+                if rng.random() < 0.3:
+                    continue
+                d = int(rng.integers(9))
+                tx, ty = (cx + d // 3 - 1) % cps, (cy + d % 3 - 1) % cps
+                free = [a for a in range(cap) if (tx, a, ty) not in taken]
+                if free:
+                    taken.add((tx, free[0], ty))
+                    scode[cx, b, cy] = d * cap + free[0]
+    return scode
+
+
+def test_migrate_packed_plain_matches_jax_kernel():
+    """B2 on the packed layout (cps 8, R 4, G 2: every direction crosses a
+    block seam somewhere): the plain version bit-equal to the JAX package's
+    ``make_migrate_kernel(..., rows_per_block=4)`` in interpret mode, slot
+    by slot and in particle order through a carried id field, and to the
+    unpacked migrate on the same codes."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packed import pack, unpack
+
+    cps, cap, r = 8, 3, 4
+    rng = np.random.default_rng(1)
+    scode = torch.from_numpy(_random_codes(cps, cap, rng))
+    values = torch.from_numpy(rng.standard_normal((cps, cap, cps)).astype(np.float32))
+    ids = torch.arange(cps * cap * cps, dtype=torch.float32).view(cps, cap, cps)
+    fills = [7.0, -1.0]
+    scode_p = pack(scode, r)
+    fields_p = torch.stack([pack(values, r), pack(ids, r)])
+    got = migrate_cuda.migrate(scode_p, fields_p, fills, rows_per_block=r)
+    assert tuple(got.shape) == (2, 2, cap, 32)
+    pad = ((0, 0), (0, 0), (0, 128 - 32))
+    scode_j = jnp.asarray(np.pad(scode_p.numpy(), pad, constant_values=-1))
+    fields_j = [jnp.asarray(np.pad(f.numpy(), pad)) for f in fields_p]
+    out_j = jax_make_migrate_kernel(cps, cap, r, 2, fills, interpret=True)(scode_j, *fields_j)
+    for f in range(2):
+        np.testing.assert_array_equal(got[f].numpy(), np.asarray(out_j[f])[:, :, :32])
+    moved = got[1] >= 0
+    assert torch.equal(got[0][moved], values.reshape(-1)[got[1][moved].long()])
+    flat = migrate_cuda.migrate(scode, torch.stack([values, ids]), fills)
+    assert torch.equal(torch.stack([unpack(g, r) for g in got]), flat)
+
+
 def test_migrate_wrapper_rejects_bad_inputs():
     scode = torch.full((4, 3, 4), -1, dtype=torch.int32)
     fields = torch.zeros((2, 4, 3, 4))
@@ -155,3 +205,5 @@ def test_migrate_wrapper_rejects_bad_inputs():
         migrate_cuda.migrate(scode.transpose(0, 2), fields, [0.0, 0.0])
     with pytest.raises(ValueError):
         migrate_cuda.migrate(scode.to("meta"), fields.to("meta"), [0.0, 0.0])
+    with pytest.raises(ValueError, match="R = 2"):  # 4 cell rows do not pack into 4 lanes
+        migrate_cuda.migrate(scode, fields, [0.0, 0.0], rows_per_block=2)
