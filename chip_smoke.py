@@ -80,7 +80,35 @@ Run from the repository root. It builds the CUDA kernels from
     2D and 3D (2000 + 2000 steps): overflow False, the mean kinetic
     temperature of the production samples within 5% of kT, and after 100
     more Langevin steps every empty slot's velocity exactly 0;
-20. prints a JSON line with each kernel's launches on its main path,
+20. B9 (all-pairs softened gravity) through ``make_gravity_accel_pairwise``
+    at N=16,384 in 2D and N=65,536 in 3D (positions normal * 10, masses
+    0.5 + U(0, 1) from a numpy seed, softening 0.1, g 1), with and without
+    the potential, every counter set to 0 just before: acceleration and phi
+    within 1e-5 * max |.| of the plain version, two launches bit-equal, and
+    at N=16,384 0.5 * sum(m * phi) against ``Gravity(mode="plummer")
+    .energy`` at rtol 1e-5; timed with CUDA events;
+21. B10 (the bandwidth op's copy) through ``make_bandwidth_op(mode=
+    "pallas_copy")`` at 64Mi float32 and 128Mi bfloat16 elements (256 MiB
+    each): bit-equal to the source; kernel, plain (``clone``) and
+    ``dst.copy_(src)`` times; then B10 under ``runners._timed_loop`` (chain
+    ``direct``, 20 steps), with every counter set to 0 just before, and its
+    GiB/s;
+22. the op suite, ``run_sweep`` in this process at full widths (matrix
+    4096, depth 6, conv 64x128x128x32 -> 64, bandwidth 256 MiB) at steps
+    20, warmup 1, repeats 2, in float32 and bfloat16: six rows with no
+    error, every TFLOPS and GiB/s finite and under the card's peak for the
+    dtype; then ``run_sweep_isolated`` with ops 2D and Bandwidth at steps 5,
+    whose rows come back through the worker subprocess;
+23. the n-body main path, ``nbody_merger.run`` in the default configuration
+    (3 bodies, 1000 RK4 steps, tangent Lyapunov): finite trajectory and
+    h_+, a finite positive Lyapunov exponent, the first 300 steps against
+    the same run on the CPU at rtol 1e-5 (the margin printed), ms per RK4
+    step and launches per step (``torch.profiler``); a dopri5 run
+    (``steps_exceeded`` False, attempts printed); the two-trajectory
+    estimate (d0 = 1e-2) with the tangent one's sign; the full-length
+    tangent estimate on the CPU, and on the card with ``y0[0]`` one float32
+    ulp up and down (finite; printed beside the card's);
+24. prints a JSON line with each kernel's launches on its main path,
     error, times, and bound (the larger of the operations over the card's
     float32 peak and the bytes over its memory rate, counted on this run's
     inputs), and as the last line ``{"ok": true, "device": {...}}``.
@@ -99,9 +127,12 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 # H100 SXM data sheet: float32 outside the tensor cores, and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -204,6 +235,18 @@ def _pairwise_bounds(n: int, dim: int):
             _bound(pairs * (4 * dim + 16), 4 * n * (2 * dim + 1)))
 
 
+def _gravity_bounds(n: int, dim: int):
+    """Bounds of B9 and its potential variant: N^2 (5d + 4) operations (d
+    differences, d squares and d sums with the softening, the rsqrt, two
+    products for inv_r^3, g m_j times inv_r^3, d products and d sums; g m_j
+    is formed once per j and the j == i selects are not operations), N^2
+    (5d + 6) with the potential (its product and sum); positions and masses
+    in, accelerations (and potentials) out."""
+    pairs = float(n) * n
+    return (_bound(pairs * (5 * dim + 4), 4 * n * (2 * dim + 1)),
+            _bound(pairs * (5 * dim + 6), 4 * n * (2 * dim + 2)))
+
+
 def _migrate_bound(n_fields: int, n_slots: int):
     """A permutation: the code grid and F fields read once, F written."""
     return _bound(0.0, 4 * n_slots * (2 * n_fields + 1))
@@ -223,6 +266,7 @@ def main() -> int:
         cell_cuda,
         cell_cuda3,
         cell_cuda_packed,
+        copy_cuda,
         migrate_cuda,
         migrate_cuda3,
         pairwise_cuda,
@@ -241,6 +285,8 @@ def main() -> int:
         cell_cuda3.LAUNCHES = cell_cuda3.ENERGY_LAUNCHES = cell_cuda3.STATIC_LAUNCHES = 0
         migrate_cuda3.LAUNCHES = migrate_cuda3.FLAT_LAUNCHES = 0
         pairwise_cuda.LAUNCHES = pairwise_cuda.ENERGY_LAUNCHES = 0
+        pairwise_cuda.GRAVITY_LAUNCHES = pairwise_cuda.GRAVITY_POTENTIAL_LAUNCHES = 0
+        copy_cuda.COPY_LAUNCHES = 0
 
     # -- 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -830,29 +876,223 @@ def main() -> int:
               f"max {float(kt_prod.max()):.4f}), kT_eq {resl.kt_eq:.4f}, P* {resl.pressure:.4f}; "
               f"after 100 more steps: empty-slot |v| max {v_empty}, {int(gsl.occ.sum())} particles", flush=True)
 
-    # -- 20. result --------------------------------------------------------------
+    # -- 20. B9 through its factory ----------------------------------------------
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.forces.gravity import Gravity
+
+    rng = np.random.default_rng(2020)
+    library = {}
+    for dim, n, tag in ((2, 16_384, ""), (3, 65_536, "3")):
+        pos_g = torch.from_numpy((rng.standard_normal((n, dim)) * 10.0).astype(np.float32)).to(dev)
+        m_g = torch.from_numpy((0.5 + rng.random(n)).astype(np.float32)).to(dev)
+        accel = pairwise_cuda.make_gravity_accel_pairwise(n, g=1.0, softening=0.1)
+        accel_phi = pairwise_cuda.make_gravity_accel_pairwise(n, g=1.0, softening=0.1, with_potential=True)
+        reset_counts()
+        a_k = accel(pos_g, m_g)
+        a_kp, phi_k = accel_phi(pos_g, m_g)
+        torch.cuda.synchronize()
+        names = (f"pairwise_gravity{tag}", f"pairwise_gravity{tag}_potential")
+        launches[names[0]] = pairwise_cuda.GRAVITY_LAUNCHES
+        launches[names[1]] = pairwise_cuda.GRAVITY_POTENTIAL_LAUNCHES
+        if min(launches[names[0]], launches[names[1]]) <= 0:
+            raise AssertionError(f"B9 N={n}: the factory did not launch the kernel")
+        if not (torch.equal(a_k, accel(pos_g, m_g)) and torch.equal(phi_k, accel_phi(pos_g, m_g)[1])):
+            raise AssertionError(f"B9 N={n}: two launches on one input are not bit-equal")
+        a_r, phi_r = pairwise_cuda.gravity_accel_pairwise_reference(pos_g, m_g, 1.0, 0.1, True)
+        errs = []
+        for label, got, want in (("a", a_k, a_r), ("a (potential variant)", a_kp, a_r), ("phi", phi_k, phi_r)):
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            if not err <= 1e-5 * scale:
+                raise AssertionError(f"B9 N={n} {label}: max abs diff {err:.3e} > 1e-5 * {scale:.3e}")
+            errs.append(err / scale)
+        errors[names[0]], errors[names[1]] = float((a_k - a_r).abs().max()), max(
+            float((a_kp - a_r).abs().max()), float((phi_k - phi_r).abs().max()))
+        energy_s = ""
+        if n == 16_384:
+            e_k = 0.5 * float(torch.sum(m_g.double() * phi_k.double()))
+            e_ref = float(Gravity(g=1.0, mode="plummer", softening=0.1).energy(pos_g.double(), m_g.double()))
+            if not abs(e_k - e_ref) <= 1e-5 * abs(e_ref):
+                raise AssertionError(f"B9 N={n}: 0.5 sum(m phi) {e_k} vs Gravity.energy {e_ref}, beyond rtol 1e-5")
+            energy_s = f"; 0.5 sum(m phi) {e_k:.6e} vs Gravity.energy {e_ref:.6e} (rel {abs(e_k - e_ref) / abs(e_ref):.2e})"
+        times[names[0]] = (_cuda_ms(lambda: accel(pos_g, m_g), 20),
+                           _cuda_ms(lambda: pairwise_cuda.gravity_accel_pairwise_reference(pos_g, m_g, 1.0, 0.1), 3))
+        times[names[1]] = (_cuda_ms(lambda: accel_phi(pos_g, m_g), 20),
+                           _cuda_ms(lambda: pairwise_cuda.gravity_accel_pairwise_reference(pos_g, m_g, 1.0, 0.1, True), 3))
+        bounds[names[0]], bounds[names[1]] = _gravity_bounds(n, dim)
+        print(f"phase 20 B9 N={n} {dim}D: launches {launches[names[0]]} + {launches[names[1]]} (potential); "
+              f"a, a (potential variant), phi max abs diff / max |.|: {errs[0]:.2e}, {errs[1]:.2e}, "
+              f"{errs[2]:.2e}; two launches bit-equal{energy_s}", flush=True)
+        for name in names:
+            print(f"phase 20 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+                  f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+        del pos_g, m_g, a_k, a_kp, phi_k, a_r, phi_r
+    torch.cuda.empty_cache()
+
+    # -- 21. B10 through make_bandwidth_op, alone and under the timed loop -----
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.bench import ops as bench_ops
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.bench import runners
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import BenchConfig
+
+    for dtype, n_el, name in ((torch.float32, 64 << 20, "copy"), (torch.bfloat16, 128 << 20, "copy_bf16")):
+        gen = torch.Generator(device=dev).manual_seed(21)
+        src = torch.randn(n_el, generator=gen, device=dev).to(dtype)
+        op = bench_ops.make_bandwidth_op(n_el, dtype=dtype, mode="pallas_copy")
+        out = op(src)
+        if op.n_elems != n_el or not torch.equal(out, src):
+            raise AssertionError(f"B10 {dtype}: the copy is not bit-equal to its source")
+        errors[name] = float((out.float() - src.float()).abs().max())
+        dst = torch.empty_like(src)
+        times[name] = (_cuda_ms(lambda: copy_cuda.chunked_copy(src), 20),
+                       _cuda_ms(lambda: copy_cuda.copy_reference(src), 20))
+        library[name] = _cuda_ms(lambda: dst.copy_(src), 20)
+        bounds[name] = _bound(0.0, op.bytes_per_call)  # each byte read once and written once
+        ctx = runners.BenchContext(BenchConfig(warmup=1, repeats=2, steps=20), print, dev)
+        reset_counts()
+        avg = runners._timed_loop(ctx, op, (src,), 1, chain="direct")
+        launches[name] = copy_cuda.COPY_LAUNCHES
+        if launches[name] <= 0:
+            raise AssertionError(f"B10 {dtype}: the timed loop did not launch the kernel")
+        print(f"phase 21 B10 {dtype} {n_el} elements ({op.bytes_per_call // 2 >> 20} MiB): bit-equal; "
+              f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, dst.copy_ "
+              f"{library[name]:.4f} ms, bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call; "
+              f"_timed_loop (direct, 20 steps): {avg * 1e3:.4f} ms a copy, "
+              f"{op.bytes_per_call / avg / 2**30:.1f} GiB/s, {launches[name]} launches", flush=True)
+        del src, dst, out
+    torch.cuda.empty_cache()
+
+    # -- 22. the op suite ---------------------------------------------------------
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.bench.isolate import run_sweep_isolated
+
+    sweep = dict(warmup=1, repeats=2, steps=20, matrix_size=4096, matrix_depth=6, conv_size=128,
+                 batch_size=64, conv_cin=32, conv_cout=64)
+    peak_gibs = PEAK_HBM_BYTES / 2**30
+    for precision, peak in (("float32", PEAK_FP32_FLOPS), ("bfloat16", PEAK_BF16_FLOPS)):
+        t22 = time.perf_counter()
+        rows = runners.run_sweep(BenchConfig(precision=precision, **sweep), log=lambda m: None, device=dev)
+        if [r["test"] for r in rows] != [name for name, _ in runners.ALL_BENCHMARKS]:
+            raise AssertionError(f"sweep {precision}: rows {[r['test'] for r in rows]}")
+        for r in rows:
+            rate, limit = (r["tflops"], peak / 1e12) if "tflops" in r else (r["bandwidth_gbs"], peak_gibs)
+            if "error" in r or not (math.isfinite(rate) and 0 < rate < limit):
+                raise AssertionError(f"sweep {precision} {r['test']}: {r} (limit {limit:.1f})")
+            unit = "TFLOPS" if "tflops" in r else "GiB/s"
+            print(f"phase 22 sweep {precision} {r['test']}: {r['avg_ms']:.4f} ms, {rate:.2f} {unit}", flush=True)
+        print(f"phase 22 sweep {precision}: six rows in {time.perf_counter() - t22:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    rows_i, info_i, _ = run_sweep_isolated(BenchConfig(**{**sweep, "steps": 5}, ops=("2D", "Bandwidth")),
+                                           log=lambda m: None, device="cuda")
+    if [r["test"] for r in rows_i] != ["2D", "Bandwidth"] or any("error" in r for r in rows_i):
+        raise AssertionError(f"isolated sweep rows: {rows_i}")
+    print(f"phase 22 isolated sweep (worker on {info_i.get('device_kind')}, float32 matmul precision "
+          f"{info_i.get('float32_matmul_precision')}): "
+          + "; ".join(f"{r['test']} {r['avg_ms']:.4f} ms" for r in rows_i), flush=True)
+
+    # -- 23. the n-body main path -------------------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import NBodyConfig
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.models import nbody_merger as nb
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.integrators import rk4_step_fn
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.integrators_adaptive import dopri5_integrate
+
+    cfg_nb = NBodyConfig()
+    reset_counts()
+    res_nb = nb.run(cfg_nb, device="cuda")
+    ys_nb = res_nb.trajectory_flat
+    if tuple(ys_nb.shape) != (cfg_nb.num_steps + 1, 4 * cfg_nb.n_bodies) or not bool(torch.isfinite(ys_nb).all()):
+        raise AssertionError(f"n-body: trajectory {tuple(ys_nb.shape)} not finite or of the wrong shape")
+    if not bool(torch.isfinite(res_nb.h_plus).all()) or not (math.isfinite(res_nb.lyapunov) and res_nb.lyapunov > 0):
+        raise AssertionError(f"n-body: h_plus finite {bool(torch.isfinite(res_nb.h_plus).all())}, "
+                             f"Lyapunov {res_nb.lyapunov}")
+    cpu300 = override(cfg_nb, num_steps=300, sim_time=cfg_nb.sim_time * 300 / cfg_nb.num_steps)
+    ys_cpu = nb.simulate(cpu300, nb.init_state_flat(cpu300, "cpu"), torch.tensor(cpu300.masses)).double()
+    ys_card = ys_nb[:301].cpu().double()
+    margin = 0.0
+    for sl in (slice(0, 2 * cfg_nb.n_bodies), slice(2 * cfg_nb.n_bodies, None)):
+        a, b = ys_card[:, sl], ys_cpu[:, sl]
+        atol = 1e-5 * float(b.abs().max())
+        # the largest share of the allowed difference rtol * |b| + atol used
+        margin = max(margin, float(((a - b).abs() / (1e-5 * b.abs() + atol)).max()))
+    if not margin <= 1.0:
+        raise AssertionError(f"n-body first 300 steps, card vs CPU: {margin:.3f} of the rtol 1e-5 allowance")
+    masses_nb = torch.tensor(cfg_nb.masses, device=dev)
+    y0_nb = nb.init_state_flat(cfg_nb, dev)
+    step_nb = rk4_step_fn(nb.make_ode(cfg_nb, masses_nb), cfg_nb.sim_time / cfg_nb.num_steps)
+    y_nb = step_nb(y0_nb, 0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            y_nb = step_nb(y_nb, 0.0)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ms_rk4 = 1e3 * res_nb.sim_wall_s / cfg_nb.num_steps
+    print(f"phase 23 nbody_merger.run (default: 3 bodies, {cfg_nb.num_steps} RK4 steps): "
+          f"simulation {res_nb.sim_wall_s * 1e3:.2f} ms = {ms_rk4:.4f} ms per RK4 step "
+          f"({len(dev_events) / 10:.0f} device ops and {sum(e.self_device_time_total for e in dev_events) / 10:.1f} us "
+          f"device time a step, traced); tangent Lyapunov {res_nb.lyapunov:.6f}; max |h_+| "
+          f"{float(res_nb.h_plus.abs().max()):.4e}; first 300 steps vs CPU: {margin:.4f} of the rtol 1e-5 "
+          f"allowance used", flush=True)
+    t23 = time.perf_counter()
+    d5 = dopri5_integrate(nb.make_ode(cfg_nb, masses_nb), y0_nb, nb.time_grid(cfg_nb, dev),
+                          rtol=cfg_nb.rtol, atol=cfg_nb.atol)
+    torch.cuda.synchronize()
+    t_d5 = time.perf_counter() - t23
+    if d5.steps_exceeded or not bool(torch.isfinite(d5.ys).all()):
+        raise AssertionError(f"n-body dopri5: steps_exceeded {d5.steps_exceeded}")
+    lam2 = float(nb.lyapunov(override(cfg_nb, lyapunov_method="two_trajectory"), y0_nb, masses_nb, d0=1e-2))
+    if not (math.isfinite(lam2) and (lam2 > 0) == (res_nb.lyapunov > 0)):
+        raise AssertionError(f"n-body two-trajectory estimate {lam2} against tangent {res_nb.lyapunov}")
+    print(f"phase 23 dopri5 (rtol {cfg_nb.rtol}, atol {cfg_nb.atol}): {d5.steps_taken} attempts, "
+          f"{d5.ode_evals} ODE evaluations, steps_exceeded False, {t_d5:.3f} s "
+          f"({1e3 * t_d5 / d5.steps_taken:.4f} ms an attempt, one host read each); two-trajectory "
+          f"Lyapunov (d0 1e-2) {lam2:.6f}, the tangent one's sign", flush=True)
+    # the full-length tangent estimate on the CPU, and on the card with y0[0]
+    # one float32 ulp up and down: how far roundoff alone moves it
+    t23 = time.perf_counter()
+    lam_cpu = float(nb.lyapunov(cfg_nb, nb.init_state_flat(cfg_nb, "cpu"), torch.tensor(cfg_nb.masses)))
+    t_cpu = time.perf_counter() - t23
+    lam_ulp = []
+    for toward in (math.inf, -math.inf):
+        y_ulp = y0_nb.clone()
+        y_ulp[0] = torch.nextafter(y_ulp[0], torch.tensor(toward, device=dev))
+        lam_ulp.append(float(nb.lyapunov(cfg_nb, y_ulp, masses_nb)))
+    if not all(math.isfinite(v) for v in (lam_cpu, *lam_ulp)):
+        raise AssertionError(f"n-body tangent Lyapunov: CPU {lam_cpu}, one ulp up and down {lam_ulp}")
+    print(f"phase 23 tangent Lyapunov over all {cfg_nb.num_steps} steps: card {res_nb.lyapunov:.6f}, CPU "
+          f"{lam_cpu:.6f} ({t_cpu:.1f} s); card with y0[0] one ulp up {lam_ulp[0]:.6f}, one ulp down "
+          f"{lam_ulp[1]:.6f}", flush=True)
+
+    # -- 24. result --------------------------------------------------------------
     root = "jax_tpus_benchmark_physics_simulation_tpu_torch/ops/kernels/csrc/"
-    ref = "jax_tpus_benchmark_physics_simulation_tpu/ops/kernels/"
+    ref = "jax_tpus_benchmark_physics_simulation_tpu/"
+    kref = ref + "ops/kernels/"
     meta = {
-        "cell_force": ("cell_force.cu", "cell_pallas.py:82"),
-        "cell_force_energy": ("cell_force.cu", "cell_pallas.py:82"),
-        "migrate": ("migrate.cu", "migrate_pallas.py:80"),
-        "cell_force_packed": ("cell_force.cu", "cell_pallas_packed.py:111"),
-        "cell_force_packed_energy": ("cell_force.cu", "cell_pallas_packed.py:111"),
-        "migrate_packed": ("migrate.cu", "migrate_pallas.py:80"),
-        "cell_force3": ("cell_force3.cu", "cell_pallas3.py:99"),
-        "cell_force3_energy": ("cell_force3.cu", "cell_pallas3.py:99"),
-        "cell_force3_static": ("cell_force3.cu", "cell_pallas3.py:336"),
-        "migrate3": ("migrate3.cu", "migrate_pallas3.py:158"),
-        "migrate3_flat": ("migrate3.cu", "migrate_pallas3.py:94"),
-        "pairwise_lj": ("pairwise_lj.cu", "pairwise_pallas.py:48"),
-        "pairwise_lj_energy": ("pairwise_lj.cu", "pairwise_pallas.py:48"),
+        "cell_force": ("cell_force.cu", kref + "cell_pallas.py:82"),
+        "cell_force_energy": ("cell_force.cu", kref + "cell_pallas.py:82"),
+        "migrate": ("migrate.cu", kref + "migrate_pallas.py:80"),
+        "cell_force_packed": ("cell_force.cu", kref + "cell_pallas_packed.py:111"),
+        "cell_force_packed_energy": ("cell_force.cu", kref + "cell_pallas_packed.py:111"),
+        "migrate_packed": ("migrate.cu", kref + "migrate_pallas.py:80"),
+        "cell_force3": ("cell_force3.cu", kref + "cell_pallas3.py:99"),
+        "cell_force3_energy": ("cell_force3.cu", kref + "cell_pallas3.py:99"),
+        "cell_force3_static": ("cell_force3.cu", kref + "cell_pallas3.py:336"),
+        "migrate3": ("migrate3.cu", kref + "migrate_pallas3.py:158"),
+        "migrate3_flat": ("migrate3.cu", kref + "migrate_pallas3.py:94"),
+        "pairwise_lj": ("pairwise_lj.cu", kref + "pairwise_pallas.py:48"),
+        "pairwise_lj_energy": ("pairwise_lj.cu", kref + "pairwise_pallas.py:48"),
+        "pairwise_gravity": ("pairwise_gravity.cu", kref + "pairwise_pallas.py:196"),
+        "pairwise_gravity_potential": ("pairwise_gravity.cu", kref + "pairwise_pallas.py:196"),
+        "pairwise_gravity3": ("pairwise_gravity.cu", kref + "pairwise_pallas.py:196"),
+        "pairwise_gravity3_potential": ("pairwise_gravity.cu", kref + "pairwise_pallas.py:196"),
+        "copy": ("copy.cu", ref + "bench/ops.py:71"),
+        "copy_bf16": ("copy.cu", ref + "bench/ops.py:71"),
     }
     kernels = [
-        {"name": name, "route": "cuda", "source": root + src, "replaces": ref + tpu,
+        {"name": name, "route": "cuda", "source": root + src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errors[name],
          "ms": times[name][0], "plain_ms": times[name][1],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": library.get(name)}
         for name, (src, tpu) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

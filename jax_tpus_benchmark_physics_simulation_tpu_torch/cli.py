@@ -1,4 +1,5 @@
-"""Command line of the PyTorch port: the ``md`` subcommand.
+"""Command line of the PyTorch port: ``md``, ``nbody``, ``bench`` and
+``devices``.
 
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
         --N 16384 --init lattice                          # all pairs, B8
@@ -10,10 +11,17 @@
         --N 100000 --cutoff 2.5 --init lattice --thermostat langevin --gamma 1.0
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
         --N 100000 --dim 3 --cutoff 2.5 --init lattice    # 3D grid engine
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli nbody   # RK4 + GW + Lyapunov
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli bench   # the op suite
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli devices
 
-Flag names follow the JAX package's ``jtps md`` (its ``cli.py``), plus
-``--device``. Output is plain text lines; there is no plot, manifest or
-checkpoint yet.
+Flag names follow the JAX package's ``jtps`` subcommands (its ``cli.py``),
+plus ``--device`` (``cuda`` by default, ``cpu`` for the plain versions).
+Output is plain text lines. Not ported yet: plots, media (GIF, WAV, JSON),
+run manifests and checkpoints (``--plot``, ``--no-plot``, ``--show``,
+``--no-media``, ``--manifest``, ``--ckpt-dir``, md's ``--output`` and
+``--msd-output``), ``nbody --interactive`` (it needs ``rich``), and the
+``mdscale``, ``em3``, ``vmc`` and ``check-deps`` subcommands.
 """
 
 from __future__ import annotations
@@ -83,8 +91,7 @@ def cmd_md(args) -> int:
         thermostat=args.thermostat, gamma=args.gamma,
     )
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("error: --device cuda but torch.cuda.is_available() is False", file=sys.stderr)
+    if not _check_device(device):
         return 2
     if args.profile and device.type != "cuda":
         print("error: --profile measures the card: use --device cuda", file=sys.stderr)
@@ -179,14 +186,187 @@ def cmd_md(args) -> int:
     return 0
 
 
+def _add_device(p):
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device: cuda (the card) or cpu")
+
+
+def _check_device(device) -> bool:
+    """False (after a message) when the card is asked for and absent."""
+    import torch
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda but torch.cuda.is_available() is False", file=sys.stderr)
+        return False
+    return True
+
+
+def _add_nbody(sub):
+    p = sub.add_parser("nbody", help="N-body BH merger + GW + Lyapunov")
+    p.add_argument("--n_bodies", type=int, default=3)
+    p.add_argument("--masses", type=float, nargs="+", default=None,
+                   help="per-body masses in Msun (default 30 each)")
+    p.add_argument("--initial_distance", type=float, default=100.0)
+    p.add_argument("--initial_velocity", type=float, default=0.1)
+    p.add_argument("--sim_time", type=float, default=200.0)
+    p.add_argument("--d_gw", type=float, default=410.0)
+    p.add_argument("--num_steps", type=int, default=1000)
+    p.add_argument("--no-chaos", action="store_true")
+    p.add_argument("--lyapunov", type=str, default="tangent", choices=["tangent", "two_trajectory"])
+    _add_device(p)
+
+
+def cmd_nbody(args) -> int:
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import NBodyConfig, override
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.models import nbody_merger
+
+    if not _check_device(args.device):
+        return 2
+    masses = tuple(args.masses) if args.masses else tuple([30.0] * args.n_bodies)
+    cfg = override(
+        NBodyConfig(), n_bodies=args.n_bodies, masses=masses,
+        initial_distance=args.initial_distance, initial_velocity=args.initial_velocity,
+        sim_time=args.sim_time, d_gw_mpc=args.d_gw, num_steps=args.num_steps,
+        compute_chaos=not args.no_chaos, lyapunov_method=args.lyapunov,
+    )
+    device = torch.device(args.device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"N-Body BH merger (PyTorch port) on {name}")
+    print(f"bodies={cfg.n_bodies} masses={masses} sep={cfg.initial_distance} "
+          f"v/c={cfg.initial_velocity} T={cfg.sim_time} steps={cfg.num_steps} "
+          f"D_gw={cfg.d_gw_mpc} Mpc integrator={cfg.integrator}")
+    print(f"kernels: none: plain PyTorch on {cfg.n_bodies} bodies")
+    res = nbody_merger.run(cfg, device=device)
+    print(f"simulation: {res.sim_wall_s * 1e3:.2f} ms "
+          f"({res.sim_wall_s * 1e3 / max(cfg.num_steps, 1):.4f} ms per RK4 step, GW strain included)")
+    h = res.h_plus
+    print(f"GW strain h_+: {h.numel()} samples, max |h_+| {float(h.abs().max()):.4e}")
+    if res.lyapunov is not None:
+        print(f"Lyapunov exponent ({cfg.lyapunov_method}): {res.lyapunov:.4f} (positive = chaotic orbit)")
+    return 0
+
+
+def _add_bench(sub):
+    p = sub.add_parser("bench", help="op benchmark suite (matmul/FFT/conv/bandwidth)")
+    p.add_argument("-w", "--warmup", type=int, default=1,
+                   help="untimed executions of the timing loop (each = STEPS op iterations)")
+    p.add_argument("-r", "--repeats", type=int, default=3, help="timed executions per op (best-of)")
+    p.add_argument("-m", "--steps", type=int, default=2500)
+    p.add_argument("-mxs", "--matrix_size", type=int, default=4096)
+    p.add_argument("-md", "--matrix_depth", type=int, default=6)
+    p.add_argument("-c", "--conv_size", type=int, default=128,
+                   help="conv input H=W (the compute-bound sizing; --reference-conv for the "
+                        "reference's -c 64 -b 8 --conv_cin 3)")
+    p.add_argument("-b", "--batch_size", type=int, default=64)
+    p.add_argument("--conv_cin", type=int, default=32)
+    p.add_argument("--conv_cout", type=int, default=64)
+    p.add_argument("--reference-conv", action="store_true",
+                   help="use the reference's conv sizing (-c 64 -b 8 --conv_cin 3 --conv_cout 64)")
+    p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--max_cores", type=int, default=0,
+                   help="0 = auto; the port runs one device (more waits for the multi-device slice)")
+    p.add_argument("--csv", type=str, default=None)
+    p.add_argument("--csv-append", action="store_true",
+                   help="append to --csv (no header rewrite), for split sweeps")
+    p.add_argument("--ops", type=str, default=None,
+                   help="comma list of ops to run (2D,3D,Conv,2D_FFT,3D_FFT,Bandwidth); default all")
+    p.add_argument("--no-isolate", action="store_true",
+                   help="run the sweep in this process instead of the default crash-isolated "
+                        "worker subprocess")
+    _add_device(p)
+
+
+_BENCH_COLUMNS = ("test", "cores", "tflops", "bandwidth_gbs", "avg_ms", "error")
+
+
+def _print_rows(title: str, rows, columns=None) -> None:
+    print(f"{title}:")
+    for row in rows:
+        keys = columns or tuple(row)
+        cells = []
+        for k in keys:
+            if k in row:
+                v = row[k]
+                cells.append(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}")
+        print("  " + "  ".join(cells))
+
+
+def cmd_bench(args) -> int:
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import BenchConfig
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.report.export import write_csv
+
+    if args.reference_conv:
+        args.conv_size, args.batch_size = 64, 8
+        args.conv_cin, args.conv_cout = 3, 64
+    cfg = BenchConfig(
+        warmup=max(0, args.warmup), repeats=max(1, args.repeats), steps=max(1, args.steps),
+        matrix_size=max(1, args.matrix_size), matrix_depth=max(1, args.matrix_depth),
+        conv_size=max(1, args.conv_size), batch_size=max(1, args.batch_size),
+        conv_cin=max(1, args.conv_cin), conv_cout=max(1, args.conv_cout),
+        precision=args.precision, max_cores=args.max_cores,
+        ops=tuple(s.strip() for s in args.ops.split(",") if s.strip()) if args.ops else None,
+    )
+    if cfg.max_cores > 1:
+        print(f"error: --max_cores {cfg.max_cores}: a sweep over several devices waits for "
+              "the port's multi-device slice", file=sys.stderr)
+        return 2
+    log = lambda msg: print(msg, flush=True)  # noqa: E731
+    if args.no_isolate:
+        from jax_tpus_benchmark_physics_simulation_tpu_torch.bench import device_rows, run_sweep, system_info
+
+        if not _check_device(args.device):
+            return 2
+        _print_rows("System information", [system_info(args.device)])
+        _print_rows("Devices", device_rows(args.device))
+        results = run_sweep(cfg, log=log, device=args.device)
+    else:
+        # the sweep runs in a worker subprocess; this process never
+        # initializes CUDA, and a worker crash costs one loud row
+        from jax_tpus_benchmark_physics_simulation_tpu_torch.bench.isolate import run_sweep_isolated
+
+        results, sysinfo, devrows = run_sweep_isolated(cfg, log=log, device=args.device)
+        if sysinfo:
+            _print_rows("System information", [sysinfo])
+        if devrows:
+            _print_rows("Devices", devrows)
+    if not results:
+        print("No benchmark results collected.")
+        return 1
+    _print_rows("Benchmark results", results, _BENCH_COLUMNS)
+    if args.csv:
+        write_csv(results, args.csv, append=args.csv_append)
+        print(f"CSV written: {args.csv}")
+    return 0
+
+
+def _add_devices(sub):
+    p = sub.add_parser("devices", help="list the devices")
+    _add_device(p)
+
+
+def cmd_devices(args) -> int:
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.bench.sysinfo import device_rows
+
+    if not _check_device(args.device):
+        return 2
+    _print_rows("Devices", device_rows(args.device))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="jtps-torch", description="PyTorch + CUDA port of the particle-simulation engine"
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
+    _add_bench(sub)
     _add_md(sub)
+    _add_nbody(sub)
+    _add_devices(sub)
     args = parser.parse_args(argv)
-    return {"md": cmd_md}[args.cmd](args)
+    commands = {"bench": cmd_bench, "md": cmd_md, "nbody": cmd_nbody, "devices": cmd_devices}
+    return commands[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,18 @@
-"""Typed configuration for the LJ fluid workload.
+"""Typed configuration for the ported workloads.
 
-A copy of ``MDConfig`` and ``override`` from the JAX package's
-``core/config.py``, field for field, so a config means the same run in both
-packages. It is copied rather than imported because importing anything from
-the JAX package imports jax.
+Copies of ``MDConfig``, ``NBodyConfig``, ``BenchConfig`` and ``override``
+from the JAX package's ``core/config.py``, field for field with the same
+defaults, so a config means the same run in both packages. They are copied
+rather than imported because importing anything from the JAX package
+imports jax. ``BenchConfig`` has no device field: the device travels as an
+argument.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -47,6 +49,53 @@ class MDConfig:
     @property
     def box_size(self) -> float:
         return (self.n / self.rho) ** (1.0 / self.dim)
+
+
+@dataclass(frozen=True)
+class NBodyConfig:
+    """N-body BH merger (reference interactive prompts nbody...:29-39)."""
+
+    n_bodies: int = 3
+    masses: tuple = (30.0, 30.0, 30.0)
+    initial_distance: float = 100.0
+    initial_velocity: float = 0.1
+    sim_time: float = 200.0
+    d_gw_mpc: float = 410.0
+    num_steps: int = 1000  # hardcoded at nbody...:113
+    compute_chaos: bool = True
+    g: float = 1.0
+    c: float = 1.0
+    lyapunov_method: str = "tangent"  # tangent (variational) | two_trajectory (reference)
+    integrator: str = "rk4"  # rk4 (reference) | dopri5 (adaptive)
+    rtol: float = 1e-6  # dopri5 tolerances
+    atol: float = 1e-9
+
+
+@dataclass(frozen=True)
+class BenchConfig:
+    """Op benchmark suite (tpus_benchmark...:28-47).
+
+    ``warmup``: untimed executions of the timing loop (each covers ``steps``
+    op iterations); ``repeats``: timed executions (best-of). The conv
+    defaults (64x128x128x32 -> 64) are sized compute-bound, unlike the
+    reference's never-run 8x64x64x3 conv. ``ops``: None = all ops, else
+    case-insensitive op names to run (e.g. ``("2D", "Bandwidth")``).
+    """
+
+    warmup: int = 1
+    repeats: int = 3
+    steps: int = 2500
+    matrix_size: int = 4096
+    matrix_depth: int = 6
+    conv_size: int = 128
+    batch_size: int = 64
+    conv_cin: int = 32
+    conv_cout: int = 64
+    precision: str = "float32"  # float32 | bfloat16
+    max_cores: int = 0  # 0 = auto up to available
+    ops: Optional[Tuple[str, ...]] = None
+    csv: Optional[str] = None
+    plot: Optional[str] = "tpu_benchmark_results.png"
 
 
 def override(cfg, **kwargs):

@@ -1,1 +1,1 @@
-"""Workloads on the engine: the 2D LJ fluid."""
+"""Workloads on the engine: the LJ fluid (2D and 3D) and the n-body merger."""

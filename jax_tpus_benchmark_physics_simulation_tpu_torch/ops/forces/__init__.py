@@ -1,1 +1,1 @@
-"""Periodic boundaries and the dense Lennard-Jones oracle."""
+"""Periodic boundaries, the dense Lennard-Jones oracle and Newtonian gravity."""

@@ -1,6 +1,7 @@
-"""Integrators as ``state -> state`` step functions (port of the JAX
-package's ``ops/integrators.py``: velocity Verlet; RK4 and the adaptive
-integrators belong to the n-body workload and are not ported yet)."""
+"""Integrators (port of the JAX package's ``ops/integrators.py``): velocity
+Verlet as ``state -> state`` step functions, and classic RK4 on a flat ODE
+vector for the n-body workload. The Boris push and the reference EM step
+belong to the EM three-body workload and are not ported yet."""
 
 from __future__ import annotations
 
@@ -34,3 +35,19 @@ def velocity_verlet(
         return state.replace(position=r_new, velocity=v_new, force=f_new, time=state.time + dt)
 
     return init_fn, step_fn
+
+
+def rk4_step_fn(ode_fn: Callable, dt: float) -> Callable:
+    """Classic fixed-step RK4 ``step(y, t)`` for ``dy/dt = ode_fn(t, y)`` on
+    a flat tensor ``y``, with the JAX package's k-combination order (that of
+    nbody...:79-85): each stage coefficient is a Python float times a
+    tensor, the final sum ``((k1 + 2 k2) + 2 k3) + k4``."""
+
+    def step(y: torch.Tensor, t):
+        k1 = ode_fn(t, y)
+        k2 = ode_fn(t + 0.5 * dt, y + 0.5 * dt * k1)
+        k3 = ode_fn(t + 0.5 * dt, y + 0.5 * dt * k2)
+        k4 = ode_fn(t + dt, y + dt * k3)
+        return y + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    return step

@@ -1,6 +1,8 @@
-"""Kernel B8: all-pairs Lennard-Jones forces and per-particle energies.
+"""Kernels B8 (all-pairs Lennard-Jones forces and per-particle energies) and
+B9 (all-pairs softened gravitational accelerations and potentials), as the
+JAX package's ``ops/kernels/pairwise_pallas.py`` holds both.
 
-Replaces the TPU kernel ``ops/kernels/pairwise_pallas.py:_lj_kernel`` of the
+B8 replaces the TPU kernel ``ops/kernels/pairwise_pallas.py:_lj_kernel`` of the
 JAX package (built by ``make_lj_force_pallas`` and ``make_lj_energy_pallas``).
 The CUDA source is ``csrc/pairwise_lj.cu``; its header says what bounds it
 on an H100 (N^2 (4d + 12) operations, two IEEE divides a pair) and how the
@@ -22,6 +24,19 @@ block are gone.
   ``make_lj_energy_pallas`` (an energy whose gradient is -force);
 - ``LAUNCHES`` / ``ENERGY_LAUNCHES``: kernel launches of the force-only and
   the energy variant, counted where the wrapper launches them.
+
+B9 replaces ``_gravity_kernel`` (built by ``make_gravity_accel_pallas``);
+its source is ``csrc/pairwise_gravity.cu``, B8's design with ``(x, y[, z],
+m)`` j-tiles and ``rsqrtf`` as the TPU kernel's ``lax.rsqrt``:
+
+- :func:`gravity_accel_pairwise_reference`: the plain version, the Pallas
+  body's own formula, in row chunks;
+- :func:`gravity_accel_pairwise`: the wrapper (CPU tensor: plain version;
+  CUDA tensor: the kernel or raise);
+- :func:`make_gravity_accel_pairwise`: the counterpart of
+  ``make_gravity_accel_pallas`` (``block_size`` and ``interpret`` have no
+  meaning on the card and are not taken);
+- ``GRAVITY_LAUNCHES`` / ``GRAVITY_POTENTIAL_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -37,8 +52,10 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import _build
 
 LAUNCHES = 0
 ENERGY_LAUNCHES = 0
+GRAVITY_LAUNCHES = 0
+GRAVITY_POTENTIAL_LAUNCHES = 0
 
-THREADS = 256  # kThreads in csrc/pairwise_lj.cu: a block's rows and a j-tile
+THREADS = 256  # kThreads in csrc/pairwise_{lj,gravity}.cu: a block's rows and a j-tile
 MAX_SLICES = 16  # j slices: 64 row blocks x 16 = 1024 blocks at N=16,384
 _REFERENCE_PAIRS = 1 << 27  # pair elements one chunk of the plain version holds
 
@@ -230,3 +247,124 @@ def make_lj_energy_pairwise(
         return _PairwiseEnergy.apply(position, p)
 
     return energy
+
+
+# ---------------------------------------------------------------------------
+# B9: softened gravity
+# ---------------------------------------------------------------------------
+
+
+def gravity_accel_pairwise_reference(
+    position: torch.Tensor,
+    masses: torch.Tensor,
+    g: float = 1.0,
+    softening: float = 0.0,
+    with_potential: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of B9: ``(a,)``, or ``(a, phi)`` with
+    ``with_potential`` (total potential energy = 0.5 * sum(m * phi)). The
+    Pallas body's formula (``pairwise_pallas.py:204-225``): ``dx = x_j -
+    x_i``, ``r2 = sum dx^2 + soft^2``, ``inv_r = rsqrt(r2)``, ``a += (g m_j)
+    inv_r^3 dx``, ``phi += (-g m_j) inv_r``, ``j == i`` excluded. Works in
+    any float dtype, in row chunks of at most about 2^27 pairs."""
+    n, dim = position.shape
+    dev = position.device
+    rows = max(1, _REFERENCE_PAIRS // n)
+    cols = torch.arange(n, device=dev)
+    zero = position.new_zeros(())
+    soft2 = float(softening) ** 2
+    gm = (g * masses)[None, :]
+    neg_gm = (-g * masses)[None, :]
+    a_parts, phi_parts = [], []
+    for r0 in range(0, n, rows):
+        xi = position[r0 : r0 + rows]
+        dxs = [position[None, :, d] - xi[:, None, d] for d in range(dim)]
+        r2 = dxs[0] * dxs[0]
+        for dx in dxs[1:]:
+            r2 = r2 + dx * dx
+        r2 = r2 + soft2
+        valid = torch.arange(r0, r0 + xi.shape[0], device=dev)[:, None] != cols[None, :]
+        inv_r = torch.rsqrt(torch.where(valid, r2, torch.ones_like(r2)))
+        inv_r3 = inv_r * inv_r * inv_r
+        amag = torch.where(valid, gm * inv_r3, zero)
+        a_parts.append(torch.stack([torch.sum(amag * dx, dim=1) for dx in dxs], dim=1))
+        if with_potential:
+            phi_parts.append(torch.sum(torch.where(valid, neg_gm * inv_r, zero), dim=1))
+    a = torch.cat(a_parts)
+    return (a, torch.cat(phi_parts)) if with_potential else (a,)
+
+
+@functools.lru_cache(maxsize=None)
+def _gravity_launcher():
+    fn = _build.library().jtps_pairwise_gravity
+    fn.argtypes = (
+        [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 4
+        + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 2
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gravity_accel_pairwise(
+    position: torch.Tensor,
+    masses: torch.Tensor,
+    g: float = 1.0,
+    softening: float = 0.0,
+    with_potential: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """``(a,)`` (or ``(a, phi)``): all-pairs softened gravitational
+    accelerations on ``(N, D)`` float32 positions with ``(N,)`` float32
+    masses, and with ``with_potential`` the per-particle potentials."""
+    global GRAVITY_LAUNCHES, GRAVITY_POTENTIAL_LAUNCHES
+    for name, t in (("position", position), ("masses", masses)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    if position.dim() != 2 or position.shape[1] not in (2, 3) or position.shape[0] < 1:
+        raise ValueError(f"position: expected shape (N, 2) or (N, 3), got {tuple(position.shape)}")
+    if tuple(masses.shape) != (position.shape[0],):
+        raise ValueError(f"masses: expected shape ({position.shape[0]},), got {tuple(masses.shape)}")
+    if masses.device != position.device:
+        raise ValueError(f"masses on {masses.device}, position on {position.device}")
+    if position.device.type == "cpu":
+        return gravity_accel_pairwise_reference(position, masses, g, softening, with_potential)
+    if position.device.type != "cuda":
+        raise ValueError(f"gravity_accel_pairwise runs on cpu or cuda tensors, not {position.device}")
+    n, dim = position.shape
+    slices, slice_len = _slices(n)
+    partial = torch.empty((slices, n, dim + 1), dtype=torch.float32, device=position.device)
+    a = torch.empty_like(position)
+    phi = torch.empty(n, dtype=torch.float32, device=position.device) if with_potential else None
+    status = _gravity_launcher()(
+        position.data_ptr(), masses.data_ptr(), partial.data_ptr(), a.data_ptr(),
+        phi.data_ptr() if with_potential else None,
+        n, dim, slices, slice_len, float(g), float(softening) ** 2, int(with_potential),
+        position.device.index, torch.cuda.current_stream(position.device).cuda_stream,
+    )
+    _build.check(status, "pairwise_gravity kernel")
+    if with_potential:
+        GRAVITY_POTENTIAL_LAUNCHES += 1
+        return a, phi
+    GRAVITY_LAUNCHES += 1
+    return (a,)
+
+
+def make_gravity_accel_pairwise(
+    n: int, g: float = 1.0, softening: float = 0.0, with_potential: bool = False
+):
+    """``accel_fn(R, masses) -> A`` (Plummer-softened), or ``(A, phi)`` with
+    ``with_potential``; the counterpart of the JAX package's
+    ``make_gravity_accel_pallas``, the same physics as
+    ``Gravity(mode="plummer", softening=softening).acceleration``."""
+
+    def accel_fn(position: torch.Tensor, masses: torch.Tensor):
+        if position.shape[0] != n:
+            raise ValueError(f"kernel built for N={n}, got {position.shape[0]}")
+        out = gravity_accel_pairwise(position, masses, g, softening, with_potential)
+        return out if with_potential else out[0]
+
+    return accel_fn

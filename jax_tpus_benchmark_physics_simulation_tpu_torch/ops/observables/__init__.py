@@ -1,1 +1,1 @@
-"""Observables: kinetic energy, temperature, radial distribution."""
+"""Observables: kinetic energy, temperature, radial distribution, MSD, GW strain, Lyapunov exponents."""

@@ -18,6 +18,7 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import (
     cell_cuda,
     cell_cuda3,
     cell_cuda_packed,
+    copy_cuda,
     migrate_cuda,
     migrate_cuda3,
     pairwise_cuda,
@@ -267,3 +268,56 @@ def test_force_paths_on_card_match_cpu(cuda_device, impl, cutoff):
         out[device.type] = (ke.cpu().double().numpy(), pe.cpu().double().numpy())
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-4)
+
+
+def _bodies(device, n: int, dim: int, seed: int = 0):
+    """Positions normal * 10 and masses 0.5 + U(0, 1), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy((rng.standard_normal((n, dim)) * 10.0).astype(np.float32)).to(device)
+    return pos, torch.from_numpy((0.5 + rng.random(n)).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("n,dim", [(4096, 2), (4096, 3), (3001, 2), (1000, 3)])
+def test_gravity_kernel_matches_plain(cuda_device, n, dim):
+    """B9 with and without the potential against its plain version: within
+    1e-5 x max |.| (rsqrtf's 2 ulp and the summation order), two launches
+    bit-equal (no atomics); 3001 and 1000 leave a ragged last tile."""
+    pos, m = _bodies(cuda_device, n, dim, seed=n + dim)
+    before = (pairwise_cuda.GRAVITY_LAUNCHES, pairwise_cuda.GRAVITY_POTENTIAL_LAUNCHES)
+    for with_potential in (False, True):
+        got = pairwise_cuda.gravity_accel_pairwise(pos, m, 1.0, 0.1, with_potential)
+        again = pairwise_cuda.gravity_accel_pairwise(pos, m, 1.0, 0.1, with_potential)
+        want = pairwise_cuda.gravity_accel_pairwise_reference(pos, m, 1.0, 0.1, with_potential)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert (pairwise_cuda.GRAVITY_LAUNCHES, pairwise_cuda.GRAVITY_POTENTIAL_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_gravity_wrapper_rejects_bad_cuda_inputs(cuda_device):
+    pos, m = _bodies(cuda_device, 64, 2)
+    with pytest.raises(ValueError, match="masses on"):
+        pairwise_cuda.gravity_accel_pairwise(pos, m.cpu())
+    with pytest.raises(TypeError):
+        pairwise_cuda.gravity_accel_pairwise(pos.double(), m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_copy_kernel_bit_equal(cuda_device, dtype):
+    """B10 bit-equal to its source, through make_bandwidth_op's truncation to
+    whole chunks and on a length whose bytes are not a multiple of 16."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.bench.ops import make_bandwidth_op
+
+    src = torch.randn(3 * 4096 + 77, device=cuda_device).to(dtype)
+    before = copy_cuda.COPY_LAUNCHES
+    op = make_bandwidth_op(src.numel(), dtype=dtype, mode="pallas_copy", chunk=4096)
+    out = op(src)
+    assert op.n_elems == 3 * 4096 and torch.equal(out, src[: op.n_elems])
+    odd = copy_cuda.chunked_copy(src[: 12 * 1001])
+    assert odd.numel() == 12 * 1001 and torch.equal(odd, src[: odd.numel()])
+    assert torch.equal(copy_cuda.chunked_copy(src), copy_cuda.copy_reference(src))
+    assert copy_cuda.COPY_LAUNCHES == before + 3
+    with pytest.raises(ValueError, match="aligned"):
+        copy_cuda.chunked_copy(src[1:])
