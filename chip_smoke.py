@@ -108,7 +108,32 @@ Run from the repository root. It builds the CUDA kernels from
     estimate (d0 = 1e-2) with the tangent one's sign; the full-length
     tangent estimate on the CPU, and on the card with ``y0[0]`` one float32
     ulp up and down (finite; printed beside the card's);
-24. prints a JSON line with each kernel's launches on its main path,
+24. the 2D halo kernels at N=97,044 (``scaling._round_to_divisible_n``
+    of 100k for devices [1, 2, 4]: 120 cells per side, R=1) on a state 20
+    steps after a rebuild: over 1, 2 and 4 row blocks with the halo rows
+    (the x seam added as the exchange adds it), B1 halo (both variants) and
+    B2 halo bit-equal to B1 and B2 on the whole grid and within 1e-4 (B2
+    halo: bit-equal) of their plain halo versions; timed at one rank's
+    shape (world size 1: 122 rows in, 120 out) beside B1 and B2;
+25. the 3D halo kernels at N=100k rounded for devices [1, 2] (the skin
+    rounded to 2 devices: 18 cells per side) on a state 90 steps into the
+    melt: over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 halo and
+    B6 halo bit-equal to the whole-grid kernels, B6 halo's mover flag
+    where B6 raises it, and within 1e-4 of their plain versions; timed at
+    one rank's shape beside the whole-grid kernels;
+26. the row-sharded engines on the card: an NCCL process group of world
+    size 1 from an in-process store, then ``lj_fluid.run`` (2000 + 2000
+    steps) on ``ShardedGridMD`` at the 2D N of phase 24 and on
+    ``ShardedGridMD3`` (hybrid B5/B4 halo windows, k_mov 16 as ``mdscale``
+    builds it) at the 3D N of phase 25, every counter set to 0 just before each: overflow False,
+    finite histories and P*, drift < 1e-4, every halo kernel launched and
+    no whole-grid kernel; then the unsharded engine at the same N (its
+    ms/step printed beside the sharded one's) and 50 steps of trajectory
+    parity at ``scaling._check_parity``'s rtol = atol = 2e-4, and what an
+    all-reduce on the group and one step's edge-row exchange cost each; at
+    the 3D geometry also lj_fluid's engine (k_mov 8), whose overflow flag
+    is printed (it rises at the first rebuild of the melt, an open fault); the group is destroyed at the end;
+27. prints a JSON line with each kernel's launches on its main path,
     error, times, and bound (the larger of the operations over the card's
     float32 peak and the bytes over its memory rate, counted on this run's
     inputs), and as the last line ``{"ok": true, "device": {...}}``.
@@ -150,6 +175,20 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _host_us(fn, reps: int = 200) -> float:
+    """Host microseconds a call of ``fn()``, work on the card included:
+    ``reps`` calls after one warm call, ended by a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / reps
 
 
 def _max_diff(got, want, occ, name: str, tol: float) -> float:
@@ -213,15 +252,17 @@ def _bound(flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _force_bounds(work, dim: int, n_slots: int):
+def _force_bounds(work, dim: int, n_slots: int, n_in_slots=None):
     """Bounds of the force kernel and its energy variant: a distance test
     costs 3d - 1 operations, an in-cutoff pair 7 + 2d more (one divide,
     s^6, the force magnitude, d products and d sums), 14 + 2d with the
-    energy and virial; d coordinate grids in, d (or d + 2) out."""
+    energy and virial; d coordinate grids in (``n_in_slots`` each, the halo
+    rows included; default ``n_slots``), d (or d + 2) out."""
     candidates, in_cut = work
     tests = (3 * dim - 1) * candidates
-    return (_bound(tests + (7 + 2 * dim) * in_cut, 4 * n_slots * 2 * dim),
-            _bound(tests + (14 + 2 * dim) * in_cut, 4 * n_slots * (2 * dim + 2)))
+    n_in = n_slots if n_in_slots is None else n_in_slots
+    return (_bound(tests + (7 + 2 * dim) * in_cut, 4 * dim * (n_in + n_slots)),
+            _bound(tests + (14 + 2 * dim) * in_cut, 4 * (dim * n_in + (dim + 2) * n_slots)))
 
 
 def _pairwise_bounds(n: int, dim: int):
@@ -247,9 +288,11 @@ def _gravity_bounds(n: int, dim: int):
             _bound(pairs * (5 * dim + 6), 4 * n * (2 * dim + 2)))
 
 
-def _migrate_bound(n_fields: int, n_slots: int):
-    """A permutation: the code grid and F fields read once, F written."""
-    return _bound(0.0, 4 * n_slots * (2 * n_fields + 1))
+def _migrate_bound(n_fields: int, n_slots: int, n_in_slots=None):
+    """A permutation: the code grid and F fields read once (``n_in_slots``
+    each, the halo rows included; default ``n_slots``), F written."""
+    n_in = n_slots if n_in_slots is None else n_in_slots
+    return _bound(0.0, 4 * (n_in * (n_fields + 1) + n_slots * n_fields))
 
 
 def main() -> int:
@@ -271,13 +314,34 @@ def main() -> int:
         migrate_cuda3,
         pairwise_cuda,
     )
+    import torch.distributed as dist
+
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md3 import GridMD3
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.thermo import temperature
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel import scaling
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md3_sharded import ShardedGridMD3
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md_sharded import ShardedGridMD
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import halo_blocks, make_mesh
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    def launch_counts() -> dict:
+        """Every kernel's launch counter, by its name in the kernels line."""
+        return {
+            "cell_force": cell_cuda.LAUNCHES, "cell_force_energy": cell_cuda.ENERGY_LAUNCHES,
+            "migrate": migrate_cuda.LAUNCHES, "cell_force_packed": cell_cuda_packed.LAUNCHES,
+            "cell_force_packed_energy": cell_cuda_packed.ENERGY_LAUNCHES,
+            "migrate_packed": migrate_cuda.PACKED_LAUNCHES, "cell_force3": cell_cuda3.LAUNCHES,
+            "cell_force3_energy": cell_cuda3.ENERGY_LAUNCHES, "cell_force3_static": cell_cuda3.STATIC_LAUNCHES,
+            "migrate3": migrate_cuda3.LAUNCHES, "migrate3_flat": migrate_cuda3.FLAT_LAUNCHES,
+            "cell_force_halo": cell_cuda.HALO_LAUNCHES, "cell_force_halo_energy": cell_cuda.HALO_ENERGY_LAUNCHES,
+            "migrate_halo": migrate_cuda.HALO_LAUNCHES, "cell_force3_halo": cell_cuda3.HALO_LAUNCHES,
+            "cell_force3_halo_energy": cell_cuda3.HALO_ENERGY_LAUNCHES,
+            "cell_force3_static_halo": cell_cuda3.HALO_STATIC_LAUNCHES, "migrate3_halo": migrate_cuda3.HALO_LAUNCHES,
+        }
 
     def reset_counts():
         cell_cuda.LAUNCHES = cell_cuda.ENERGY_LAUNCHES = migrate_cuda.LAUNCHES = 0
@@ -287,6 +351,9 @@ def main() -> int:
         pairwise_cuda.LAUNCHES = pairwise_cuda.ENERGY_LAUNCHES = 0
         pairwise_cuda.GRAVITY_LAUNCHES = pairwise_cuda.GRAVITY_POTENTIAL_LAUNCHES = 0
         copy_cuda.COPY_LAUNCHES = 0
+        cell_cuda.HALO_LAUNCHES = cell_cuda.HALO_ENERGY_LAUNCHES = migrate_cuda.HALO_LAUNCHES = 0
+        cell_cuda3.HALO_LAUNCHES = cell_cuda3.HALO_ENERGY_LAUNCHES = cell_cuda3.HALO_STATIC_LAUNCHES = 0
+        migrate_cuda3.HALO_LAUNCHES = 0
 
     # -- 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -1063,7 +1130,209 @@ def main() -> int:
           f"{lam_cpu:.6f} ({t_cpu:.1f} s); card with y0[0] one ulp up {lam_ulp[0]:.6f}, one ulp down "
           f"{lam_ulp[1]:.6f}", flush=True)
 
-    # -- 24. result --------------------------------------------------------------
+    # -- 24. 2D halo kernels against the whole-grid kernels ----------------------
+    # N rounded as mdscale rounds it for devices [1, 2, 4] (120 cells per
+    # side, R = 1); a state 20 steps after a rebuild, coordinates unwrapped;
+    # P row blocks with the halo rows each rank's exchange attaches
+    cfg2s = override(cfg, n=scaling._round_to_divisible_n(cfg.n, cfg, [1, 2, 4]))
+    md2s = lj_fluid._make_grid_md(cfg2s, dev)
+    if md2s.rows_per_block != 1:
+        raise AssertionError(f"2D sharded configuration: R = {md2s.rows_per_block}, expected the unpacked layout")
+    k2, gate2 = lj_fluid._grid_inner_steps(cfg2s, md2s)
+    st2 = lj_fluid.init_state(cfg2s, dev)
+    g2 = md2s.make_production_run(150 * k2, k2, gate_frac=gate2)(md2s.init(st2.position, st2.velocity))
+    g2 = md2s._make_window(md2s.force_kernel, 20)(g2)
+    occ2 = g2.occ > 0.5
+    p2 = cell_cuda.CellForceParams.from_grid(md2s.grid_fn)
+    full2 = {False: cell_cuda.grid_force(g2.xg, g2.yg, p2), True: cell_cuda.grid_force(g2.xg, g2.yg, p2, with_energy=True)}
+    _, _, scode2, _, _ = md2s._migration_dest(g2)
+    fields2 = torch.stack([torch.remainder(g2.xg, md2s.box), torch.remainder(g2.yg, md2s.box),
+                           g2.vxg, g2.vyg, g2.fxg, g2.fyg, g2.pid.float(), g2.crx, g2.cry, g2.cvx, g2.cvy])
+    full_m2 = migrate_cuda.migrate(scode2, fields2, fills)
+    errors["cell_force_halo"] = errors["cell_force_halo_energy"] = errors["migrate_halo"] = 0.0
+
+    for n_blocks in (1, 2, 4):
+        xb, yb = halo_blocks(g2.xg, n_blocks, md2s.box), halo_blocks(g2.yg, n_blocks)
+        for name, energy in (("cell_force_halo", False), ("cell_force_halo_energy", True)):
+            got = [cell_cuda.grid_force_halo(x, y, p2, energy) for x, y in zip(xb, yb)]
+            plain = [cell_cuda.grid_force_halo_reference(x, y, p2, energy) for x, y in zip(xb, yb)]
+            got = [torch.cat(q) for q in zip(*got)]
+            plain = [torch.cat(q) for q in zip(*plain)]
+            if not all(torch.equal(a, b) for a, b in zip(got, full2[energy])):
+                raise AssertionError(f"{name} over {n_blocks} row blocks is not bit-equal to B1")
+            err = _max_diff(got[:2], plain[:2], occ2, f"{name} vs plain", 1e-4)
+            if energy:
+                err = max(err, _sums_close(got[2:], plain[2:], name, 1e-5))
+            errors[name] = max(errors[name], err)
+        cb, fb = halo_blocks(scode2, n_blocks), halo_blocks(fields2, n_blocks, dim=1)
+        got_m = torch.cat([migrate_cuda.migrate_halo(c, f, fills) for c, f in zip(cb, fb)], dim=1)
+        plain_m = torch.cat([migrate_cuda.migrate_halo_reference(c, f, fills) for c, f in zip(cb, fb)], dim=1)
+        if not (torch.equal(got_m, full_m2) and torch.equal(got_m, plain_m)):
+            raise AssertionError(f"B2 halo over {n_blocks} row blocks is not bit-equal to B2 and to its plain version")
+    # one rank's shapes at world size 1: all 120 rows and the two halo rows
+    (xh,), (yh,) = halo_blocks(g2.xg, 1, md2s.box), halo_blocks(g2.yg, 1)
+    (ch,), (fh,) = halo_blocks(scode2, 1), halo_blocks(fields2, 1, dim=1)
+    times["cell_force_halo"] = (_cuda_ms(lambda: cell_cuda.grid_force_halo(xh, yh, p2), 50),
+                                _cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2), 10))
+    times["cell_force_halo_energy"] = (
+        _cuda_ms(lambda: cell_cuda.grid_force_halo(xh, yh, p2, True), 50),
+        _cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2, True), 10))
+    times["migrate_halo"] = (_cuda_ms(lambda: migrate_cuda.migrate_halo(ch, fh, fills), 50),
+                             _cuda_ms(lambda: migrate_cuda.migrate_halo_reference(ch, fh, fills), 10))
+    full_ms2 = (_cuda_ms(lambda: cell_cuda.grid_force(g2.xg, g2.yg, p2), 50),
+                _cuda_ms(lambda: migrate_cuda.migrate(scode2, fields2, fills), 50))
+    work2s = _pair_work((g2.xg, g2.yg), g2.occ, md2s.cps, md2s.cap, md2s.box, p2.cutoff2)
+    bounds["cell_force_halo"], bounds["cell_force_halo_energy"] = _force_bounds(work2s, 2, g2.xg.numel(), xh.numel())
+    bounds["migrate_halo"] = _migrate_bound(fields2.shape[0], g2.xg.numel(), ch.numel())
+    print(f"phase 24 2D halo kernels, N={cfg2s.n} (grid {tuple(g2.xg.shape)}): over 1, 2 and 4 row blocks "
+          f"B1 halo (both variants) and B2 halo bit-equal to B1 and B2 on the whole grid; against their "
+          f"plain versions: forces {errors['cell_force_halo']:.3e}, energy variant "
+          f"{errors['cell_force_halo_energy']:.3e}, B2 halo bit-equal; at one rank's shape B1 halo "
+          f"{times['cell_force_halo'][0]:.4f} ms against B1 {full_ms2[0]:.4f} ms, B2 halo "
+          f"{times['migrate_halo'][0]:.4f} ms against B2 {full_ms2[1]:.4f} ms", flush=True)
+    for name in ("cell_force_halo", "cell_force_halo_energy", "migrate_halo"):
+        print(f"phase 24 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+
+    # -- 25. 3D halo kernels against the whole-grid kernels ----------------------
+    # N rounded for devices [1, 2] with the skin rounded to 2 devices: 18
+    # cells per side; a state 90 steps into the melt from the lattice
+    cfg3s = override(cfg3, n=scaling._round_to_divisible_n(cfg3.n, cfg3, [1, 2]))
+    cfg3s = override(cfg3s, skin=lj_fluid.resolve_skin(cfg3s, "grid", n_devices=2))
+    md3s = lj_fluid._make_grid_md(cfg3s, dev)
+    st3 = lj_fluid.init_state(cfg3s, dev)
+    g3 = md3s.make_production_run_fixed(90, 9)(md3s.init(st3.position, st3.velocity))
+    occ3s = g3.occ > 0.5
+    c3s = (g3.xg, g3.yg, g3.zg)
+    mo3, cov3 = int(g3.max_occ), md3s.static_cov
+    p3s = cell_cuda3.CellForce3Params.from_grid(md3s.grid_fn)
+    variants3 = (("cell_force3_halo", dict(max_occ=g3.max_occ), mo3),
+                 ("cell_force3_halo_energy", dict(max_occ=g3.max_occ, with_energy=True), mo3),
+                 ("cell_force3_static_halo", dict(static_cov=cov3), cov3))
+    full3 = {name: cell_cuda3.grid_force3(*c3s, p3s, **kw) for name, kw, _ in variants3}
+    _, _, _, scode3s, _, _ = md3s._migration_dest3(g3)
+    fields3s = torch.stack([torch.remainder(g, md3s.box) for g in c3s]
+                           + [g3.vxg, g3.vyg, g3.vzg, g3.fxg, g3.fyg, g3.fzg, g3.pid.float(),
+                              g3.crx, g3.cry, g3.crz, g3.cvx, g3.cvy, g3.cvz])
+    full_m3, mov_of3 = migrate_cuda3.migrate3(scode3s, fields3s, fills3, k_mov=md3s.migrate_k_mov)
+    for name, *_ in variants3:
+        errors[name] = 0.0
+    errors["migrate3_halo"] = 0.0
+    for n_blocks in (1, 2, 3):
+        blocks = list(zip(halo_blocks(g3.xg, n_blocks, md3s.box), halo_blocks(g3.yg, n_blocks),
+                          halo_blocks(g3.zg, n_blocks)))
+        for name, kw, bound in variants3:
+            got = [torch.cat(q) for q in zip(*(cell_cuda3.grid_force3_halo(*b, p3s, **kw) for b in blocks))]
+            plain = [torch.cat(q) for q in zip(*(cell_cuda3.grid_force3_halo_reference(
+                *b, p3s, bound, kw.get("with_energy", False)) for b in blocks))]
+            if not all(torch.equal(a, b) for a, b in zip(got, full3[name])):
+                raise AssertionError(f"{name} over {n_blocks} row blocks is not bit-equal to the whole-grid kernel")
+            err = _max_diff(got[:3], plain[:3], occ3s, f"{name} vs plain", 1e-4)
+            if kw.get("with_energy"):
+                err = max(err, _sums_close(got[3:], plain[3:], name, 1e-5))
+            errors[name] = max(errors[name], err)
+        cb, fb = halo_blocks(scode3s, n_blocks), halo_blocks(fields3s, n_blocks, dim=1)
+        outs = [migrate_cuda3.migrate3_halo(c, f, fills3, k_mov=md3s.migrate_k_mov) for c, f in zip(cb, fb)]
+        got_m = torch.cat([o[0] for o in outs], dim=1)
+        plain_m = torch.cat([migrate_cuda3.migrate3_halo_reference(c, f, fills3) for c, f in zip(cb, fb)], dim=1)
+        if not (torch.equal(got_m, full_m3) and torch.equal(got_m, plain_m)):
+            raise AssertionError(f"B6 halo over {n_blocks} row blocks is not bit-equal to B6 and to its plain version")
+        if any(bool(o[1]) for o in outs) != bool(mov_of3):
+            raise AssertionError(f"B6 halo's mover flag over {n_blocks} row blocks differs from B6's")
+    (xh3,), (yh3,), (zh3,) = (halo_blocks(g, 1, s) for g, s in zip(c3s, (md3s.box, 0.0, 0.0)))
+    (ch3,), (fh3,) = halo_blocks(scode3s, 1), halo_blocks(fields3s, 1, dim=1)
+    for name, kw, bound in variants3:
+        energy = kw.get("with_energy", False)
+        times[name] = (
+            _cuda_ms(lambda kw=kw: cell_cuda3.grid_force3_halo(xh3, yh3, zh3, p3s, **kw), 50),
+            _cuda_ms(lambda b=bound, e=energy: cell_cuda3.grid_force3_halo_reference(xh3, yh3, zh3, p3s, b, e), 5))
+    times["migrate3_halo"] = (
+        _cuda_ms(lambda: migrate_cuda3.migrate3_halo(ch3, fh3, fills3, k_mov=md3s.migrate_k_mov), 50),
+        _cuda_ms(lambda: migrate_cuda3.migrate3_halo_reference(ch3, fh3, fills3), 10))
+    full_ms3 = (_cuda_ms(lambda: cell_cuda3.grid_force3(*c3s, p3s, max_occ=g3.max_occ), 50),
+                _cuda_ms(lambda: cell_cuda3.grid_force3(*c3s, p3s, static_cov=cov3), 50),
+                _cuda_ms(lambda: migrate_cuda3.migrate3(scode3s, fields3s, fills3, k_mov=md3s.migrate_k_mov), 50))
+    n_out3, n_in3 = g3.xg.numel(), xh3.numel()
+    b4h, b4he = _force_bounds(_pair_work(c3s, g3.occ, md3s.cps, mo3, md3s.box, p3s.cutoff2), 3, n_out3, n_in3)
+    b5h, _ = _force_bounds(_pair_work(c3s, g3.occ, md3s.cps, cov3, md3s.box, p3s.cutoff2), 3, n_out3, n_in3)
+    bounds.update(cell_force3_halo=b4h, cell_force3_halo_energy=b4he, cell_force3_static_halo=b5h,
+                  migrate3_halo=_migrate_bound(fields3s.shape[0], n_out3, ch3.numel()))
+    print(f"phase 25 3D halo kernels, N={cfg3s.n} (grid {tuple(g3.xg.shape)}, skin {md3s.skin:.4f}, max "
+          f"occupancy {mo3}, B5 bound {cov3}): over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 "
+          f"halo and B6 halo bit-equal to the whole-grid kernels, the mover flag ({bool(mov_of3)}) "
+          f"where B6 raises it; against their plain versions: B4 halo {errors['cell_force3_halo']:.3e}, "
+          f"energy variant {errors['cell_force3_halo_energy']:.3e}, B5 halo "
+          f"{errors['cell_force3_static_halo']:.3e}, B6 halo bit-equal; at one rank's shape B4 halo "
+          f"{times['cell_force3_halo'][0]:.4f} ms against B4 {full_ms3[0]:.4f} ms, B5 halo "
+          f"{times['cell_force3_static_halo'][0]:.4f} ms against B5 {full_ms3[1]:.4f} ms, B6 halo "
+          f"{times['migrate3_halo'][0]:.4f} ms against B6 {full_ms3[2]:.4f} ms", flush=True)
+    for name in ("cell_force3_halo", "cell_force3_halo_energy", "cell_force3_static_halo", "migrate3_halo"):
+        print(f"phase 25 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+
+    # -- 26. the row-sharded engines on the card, world size 1 ---------------------
+    # an NCCL process group of one rank from an in-process store (no
+    # address); lj_fluid's phases on ShardedGridMD / ShardedGridMD3, which
+    # run the halo kernels (the exchange a local swap, the reductions on
+    # the group), then on the one-device engine mdscale compares them with
+    # at the same N, and the trajectory parity of scaling._check_parity.
+    # The engines are mdscale's (scaling._build_engine): in 3D k_mov 16 (at
+    # 18 cells per side the first rebuild of the melt from the lattice has
+    # 14 movers in a cell, and lj_fluid's k_mov 8 raises B6's mover flag in
+    # both engines: tests/torch_kmov_witness.py)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    mesh = make_mesh(device=dev)
+    full_names = {"2D": ("cell_force", "cell_force_energy", "migrate", "cell_force_packed",
+                         "cell_force_packed_energy", "migrate_packed"),
+                  "3D": ("cell_force3", "cell_force3_energy", "cell_force3_static", "migrate3", "migrate3_flat")}
+    halo_names = {"2D": ("cell_force_halo", "cell_force_halo_energy", "migrate_halo"),
+                  "3D": ("cell_force3_halo", "cell_force3_halo_energy", "cell_force3_static_halo", "migrate3_halo")}
+    for label, c, engine, kw in (("2D", cfg2s, ShardedGridMD, {}),
+                                 ("3D", cfg3s, ShardedGridMD3, dict(static_cov="auto"))):
+        plain_md = scaling._build_engine(c, 1, dev)[0]
+        sharded = engine(plain_md.grid_fn, mesh, sigma=c.sigma, epsilon=c.epsilon, dt=c.dt,
+                         compensated=c.compensated, **kw)
+        reset_counts()
+        res_s = lj_fluid.run(c, device=dev, md=sharded)
+        counts = launch_counts()
+        check_run(res_s, f"{label} sharded engine", c)
+        if any(counts[n] for n in full_names[label]) or not all(counts[n] > 0 for n in halo_names[label]):
+            raise AssertionError(f"{label} sharded engine: launches {counts}; expected the halo kernels only")
+        launches.update({n: counts[n] for n in halo_names[label]})
+        res_u = lj_fluid.run(c, device=dev, md=plain_md)
+        check_run(res_u, f"{label} unsharded engine at N={c.n}", c)
+        ok, err = scaling.parity(c, sharded, lj_fluid.init_state(c, dev), 50, dev)
+        if not ok:
+            raise AssertionError(f"{label} sharded vs unsharded over 50 steps: max abs diff {err:.3e}, "
+                                 f"beyond rtol = atol = {scaling.PARITY_TOL}")
+        # what the sharded step adds, each on its own (host clock over 200
+        # calls ended by a sync): an all-reduce MAX on the group, as each
+        # window's dmax2 takes, and one step's exchange of the edge rows
+        probe = torch.zeros((), device=dev)
+        coords = [torch.zeros(sharded.grid_shape, device=dev) for _ in range(c.dim)]
+        us_reduce = _host_us(lambda: sharded._all_max(probe))
+        us_halo = _host_us(lambda: sharded._with_halo(*coords))
+        steps = c.eq_steps + c.prod_steps
+        ms_s = 1e3 * (res_s.time_eq_s + res_s.time_prod_s) / steps
+        ms_u = 1e3 * (res_u.time_eq_s + res_u.time_prod_s) / steps
+        print(f"phase 26 {label} {type(sharded).__name__} at world size 1 (NCCL), N={c.n}, grid "
+              f"{sharded.grid_shape}: {ms_s:.4f} ms/step = {res_s.particle_steps_per_sec:.4e} particle-steps/s "
+              f"against the unsharded {type(plain_md).__name__}'s {ms_u:.4f} ms/step = "
+              f"{res_u.particle_steps_per_sec:.4e}; drift {res_s.energy_drift:.3e} (unsharded "
+              f"{res_u.energy_drift:.3e}); overflow False; P* {res_s.pressure:.4f} ({res_u.pressure:.4f}); "
+              f"production cadence {res_s.cadence}; 50-step parity max abs diff {err:.3e} (tolerance "
+              f"{scaling.PARITY_TOL}); halo launches {[counts[n] for n in halo_names[label]]}, whole-grid "
+              f"launches 0; an all-reduce MAX {us_reduce:.1f} us, one step's edge-row exchange "
+              f"{us_halo:.1f} us", flush=True)
+    # lj_fluid's 3D engine (k_mov 8) at the same geometry: its mover flag
+    res8 = lj_fluid.run(cfg3s, device=dev, md=ShardedGridMD3(
+        plain_md.grid_fn, mesh, sigma=cfg3s.sigma, epsilon=cfg3s.epsilon, dt=cfg3s.dt,
+        compensated=cfg3s.compensated, static_cov="auto", migrate_k_mov=8))
+    print(f"phase 26 3D ShardedGridMD3 with lj_fluid's k_mov 8 at the same geometry: overflow "
+          f"{res8.overflow} (B6's mover flag at the first rebuild of the melt)", flush=True)
+    dist.destroy_process_group()
+
+    # -- 27. result --------------------------------------------------------------
     root = "jax_tpus_benchmark_physics_simulation_tpu_torch/ops/kernels/csrc/"
     ref = "jax_tpus_benchmark_physics_simulation_tpu/"
     kref = ref + "ops/kernels/"
@@ -1087,6 +1356,13 @@ def main() -> int:
         "pairwise_gravity3_potential": ("pairwise_gravity.cu", kref + "pairwise_pallas.py:196"),
         "copy": ("copy.cu", ref + "bench/ops.py:71"),
         "copy_bf16": ("copy.cu", ref + "bench/ops.py:71"),
+        "cell_force_halo": ("cell_force.cu", kref + "cell_pallas.py:346"),
+        "cell_force_halo_energy": ("cell_force.cu", kref + "cell_pallas.py:346"),
+        "migrate_halo": ("migrate.cu", kref + "migrate_pallas.py:226"),
+        "cell_force3_halo": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
+        "cell_force3_static_halo": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
+        "cell_force3_halo_energy": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
+        "migrate3_halo": ("migrate3.cu", kref + "migrate_pallas3.py:471"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": root + src, "replaces": tpu,

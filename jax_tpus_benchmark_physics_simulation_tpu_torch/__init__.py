@@ -13,10 +13,13 @@ and ``numpy`` only, never ``jax`` or the JAX package.
                MD engines (2D, 3D), observables (GW strain, Lyapunov too)
 - ``models``   ``lj_fluid`` (the LJ fluid on every force path) and
                ``nbody_merger``
+- ``parallel`` the row mesh over ``torch.distributed`` (NCCL, gloo), the
+               row-sharded grid engines on the halo kernels, the scaling
+               sweep, and the spawn of one process a rank
 - ``bench``    the op benchmark suite and its crash-isolated sweep
 - ``report``   CSV export
 - ``interop``  carries state exported from the JAX package into the port
-- ``cli``      ``md``, ``nbody``, ``bench`` and ``devices`` subcommands
+- ``cli``      ``md``, ``mdscale``, ``nbody``, ``bench`` and ``devices``
 """
 
 __version__ = "0.1.0"

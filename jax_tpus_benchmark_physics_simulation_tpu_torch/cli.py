@@ -1,5 +1,5 @@
-"""Command line of the PyTorch port: ``md``, ``nbody``, ``bench`` and
-``devices``.
+"""Command line of the PyTorch port: ``md``, ``mdscale``, ``nbody``,
+``bench`` and ``devices``.
 
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
         --N 16384 --init lattice                          # all pairs, B8
@@ -11,6 +11,11 @@
         --N 100000 --cutoff 2.5 --init lattice --thermostat langevin --gamma 1.0
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
         --N 100000 --dim 3 --cutoff 2.5 --init lattice    # 3D grid engine
+    torchrun --nproc_per_node 4 -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \
+        --N 97044 --cutoff 2.5 --init lattice             # row-sharded over 4 cards
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli mdscale --N 100000
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli mdscale --device cpu --virtual 4 \
+        --N 20000                                         # 4 gloo processes on the CPU
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli nbody   # RK4 + GW + Lyapunov
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli bench   # the op suite
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli devices
@@ -21,7 +26,13 @@ Output is plain text lines. Not ported yet: plots, media (GIF, WAV, JSON),
 run manifests and checkpoints (``--plot``, ``--no-plot``, ``--show``,
 ``--no-media``, ``--manifest``, ``--ckpt-dir``, md's ``--output`` and
 ``--msd-output``), ``nbody --interactive`` (it needs ``rich``), and the
-``mdscale``, ``em3``, ``vmc`` and ``check-deps`` subcommands.
+``em3``, ``vmc`` and ``check-deps`` subcommands.
+
+Under a launcher (``torchrun``: ``WORLD_SIZE`` set) ``md`` joins the
+process group, NCCL between cards, and the grid engine runs row-sharded
+over it; a group whose size does not divide the cells per side, or a
+force path other than the grid engine, is refused (each rank would run
+the whole job). The primary rank reports.
 """
 
 from __future__ import annotations
@@ -81,6 +92,8 @@ def cmd_md(args) -> int:
 
     from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import MDConfig, override
     from jax_tpus_benchmark_physics_simulation_tpu_torch.models import lj_fluid
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md_sharded import RowSharded
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.multihost import is_primary, world_size
 
     cfg = override(
         MDConfig(),
@@ -90,7 +103,7 @@ def cmd_md(args) -> int:
         force_impl=args.force_impl, init=args.init,
         thermostat=args.thermostat, gamma=args.gamma,
     )
-    device = torch.device(args.device)
+    device = _launched_device(args.device)
     if not _check_device(device):
         return 2
     if args.profile and device.type != "cuda":
@@ -98,13 +111,18 @@ def cmd_md(args) -> int:
         return 2
     try:
         impl = lj_fluid.resolve_impl(cfg, device)
+        if world_size() > 1 and impl != "grid":
+            raise ValueError(f"force_impl {impl!r} runs on one device: only the grid engine shards over ranks")
         res = lj_fluid.run(cfg, device=device)
     except (NotImplementedError, ValueError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
+    if not is_primary():
+        return 0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     ensemble = "NVE" if cfg.thermostat == "none" else f"NVT (langevin, gamma={cfg.gamma})"
-    print(f"Molecular Dynamics (PyTorch port) on {name}")
+    ranks = f" x {world_size()} ranks" if world_size() > 1 else ""
+    print(f"Molecular Dynamics (PyTorch port) on {name}{ranks}")
     print(f"N={cfg.n}  dim={cfg.dim}  rho={cfg.rho}  kT={cfg.kt}  box={cfg.box_size:.2f}  "
           f"steps: {cfg.eq_steps:,} eq / {cfg.prod_steps:,} prod  dt={cfg.dt}  "
           f"force: {impl}  cutoff={cfg.cutoff}  ensemble: {ensemble}")
@@ -115,7 +133,10 @@ def cmd_md(args) -> int:
             driver = f"gated, {k}-step windows at gate {gate}"
         else:
             driver = f"fixed rebuild cadence {res.cadence}"
-        if cfg.dim == 3:
+        if isinstance(md, RowSharded):
+            halo = f"B5 halo (cov {md.static_cov}) / B4 halo, B6 halo" if cfg.dim == 3 else "B1 halo, B2 halo"
+            kernels = f"{halo}, row-sharded over {md.n_shards} ranks ({md.rows_local} rows each)"
+        elif cfg.dim == 3:
             kernels = f"B5 (cov {md.static_cov}) / B4 fallback, B6"
         elif md.rows_per_block > 1:
             kernels = f"B3 (packed, R={md.rows_per_block}, grid {md.grid_shape}), B2 packed"
@@ -186,6 +207,110 @@ def cmd_md(args) -> int:
     return 0
 
 
+def _launched_device(device: str):
+    """The device of this process: ``device``, or under a launcher
+    (``WORLD_SIZE`` set) this rank's card after joining the process group
+    (gloo and the CPU with ``--device cpu``)."""
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.multihost import init_multihost
+
+    device = torch.device(device)
+    if "WORLD_SIZE" in os.environ:
+        init_multihost(backend="gloo" if device.type == "cpu" else "nccl")
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _add_mdscale(sub):
+    p = sub.add_parser(
+        "mdscale",
+        help="multi-device MD scaling sweep (strong/weak) of the row-sharded grid engines, "
+             "with one-device trajectory parity checks",
+    )
+    p.add_argument("--N", type=int, default=100_000)
+    p.add_argument("--dim", type=int, default=2, choices=[2, 3],
+                   help="2D (ShardedGridMD: B1 halo, B2 halo) or 3D (ShardedGridMD3: B5/B4 halo, B6 halo)")
+    p.add_argument("--rho", type=float, default=0.8)
+    p.add_argument("--kT", type=float, default=1.0)
+    p.add_argument("--dt", type=float, default=1e-3)
+    p.add_argument("--cutoff", type=float, default=2.5)
+    p.add_argument("--mode", type=str, default="strong", choices=["strong", "weak"])
+    p.add_argument("--steps", type=int, default=200, help="timed steps per sweep point")
+    p.add_argument("--parity-steps", type=int, default=50,
+                   help="steps for the sharded-vs-one-device parity check (0 = skip)")
+    p.add_argument("--devices", type=int, nargs="+", default=None,
+                   help="mesh sizes to sweep (default: 1, powers of 2, the card count, or D with --virtual)")
+    p.add_argument("--virtual", type=int, default=0, metavar="D",
+                   help="run on D gloo processes on the CPU (the JAX package's D virtual CPU "
+                        "devices): the sharded code path with real collectives; needs --device cpu")
+    p.add_argument("--csv", type=str, default=None)
+    p.add_argument("--manifest", type=str, default=None,
+                   help="not supported yet: run manifests wait for the port's report module")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device: cuda (one process a card) or cpu (with --virtual)")
+
+
+def cmd_mdscale(args) -> int:
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import MDConfig, override
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel import scaling
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.multihost import is_primary, world_size
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.spawn import run_ranks
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.report.export import write_csv
+
+    if args.manifest:
+        print("error: --manifest is not supported yet (run manifests wait for the report module)",
+              file=sys.stderr)
+        return 2
+    if args.virtual and args.device != "cpu":
+        print("error: --virtual D runs D gloo processes on the CPU: pass --device cpu", file=sys.stderr)
+        return 2
+    device = _launched_device(args.device)
+    if not args.virtual and not _check_device(device):
+        return 2
+    # sane start: uniform init's overlaps eject particles at skin-violating speeds
+    cfg = override(MDConfig(), n=args.N, dim=args.dim, rho=args.rho, kt=args.kT, dt=args.dt,
+                   cutoff=args.cutoff, init="lattice")
+    if args.virtual:
+        ranks = args.virtual
+    elif world_size() > 1:
+        ranks = 0  # a launcher started the ranks
+    else:  # one process a card, spawned here
+        ranks = max(args.devices) if args.devices else (torch.cuda.device_count() if device.type == "cuda" else 1)
+    backend = "gloo" if device.type == "cpu" else "nccl"
+    devices = args.devices or scaling.default_devices(ranks or world_size())
+    if is_primary():
+        where = (f"{args.virtual} gloo processes on the CPU" if args.virtual
+                 else f"{device.type}, {ranks or world_size()} rank(s)")
+        print(f"MD scaling sweep (row-sharded grid engine): N={cfg.n:,} dim={cfg.dim} mode={args.mode} "
+              f"steps={args.steps} devices={devices} on {where}", flush=True)
+    sweep = (cfg, devices, args.mode, args.steps, args.parity_steps)
+    try:
+        if ranks > 1:
+            rows = run_ranks(scaling.sweep_on_rank, ranks, *sweep, device.type, backend=backend)[0]
+        else:
+            rows = scaling.md_scaling_sweep(*sweep, log=lambda msg: print(msg, flush=True), device=device)
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    if not is_primary():
+        return 0
+    if not rows:
+        print("no sweep points ran")
+        return 1
+    _print_rows("MD scaling", rows, ("devices", "n", "ms_per_step", "psps", "efficiency_pct", "parity_ok"))
+    if args.csv:
+        write_csv(rows, args.csv)
+        print(f"CSV written: {args.csv}")
+    if any(r["parity_ok"] is False for r in rows):
+        print("[WARNING] sharded trajectory parity FAILED on some points")
+        return 1
+    return 0
+
+
 def _add_device(p):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the card) or cpu")
@@ -238,7 +363,11 @@ def cmd_nbody(args) -> int:
           f"v/c={cfg.initial_velocity} T={cfg.sim_time} steps={cfg.num_steps} "
           f"D_gw={cfg.d_gw_mpc} Mpc integrator={cfg.integrator}")
     print(f"kernels: none: plain PyTorch on {cfg.n_bodies} bodies")
-    res = nbody_merger.run(cfg, device=device)
+    try:
+        res = nbody_merger.run(cfg, device=device)
+    except ValueError as exc:  # the two-trajectory start that rounds away
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
     print(f"simulation: {res.sim_wall_s * 1e3:.2f} ms "
           f"({res.sim_wall_s * 1e3 / max(cfg.num_steps, 1):.4f} ms per RK4 step, GW strain included)")
     h = res.h_plus
@@ -362,10 +491,12 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_bench(sub)
     _add_md(sub)
+    _add_mdscale(sub)
     _add_nbody(sub)
     _add_devices(sub)
     args = parser.parse_args(argv)
-    commands = {"bench": cmd_bench, "md": cmd_md, "nbody": cmd_nbody, "devices": cmd_devices}
+    commands = {"bench": cmd_bench, "md": cmd_md, "mdscale": cmd_mdscale, "nbody": cmd_nbody,
+                "devices": cmd_devices}
     return commands[args.cmd](args)
 
 

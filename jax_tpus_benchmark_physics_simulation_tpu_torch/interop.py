@@ -7,7 +7,7 @@ through both packages and compared.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Union
 
 import numpy as np
 import torch
@@ -60,7 +60,7 @@ def grid_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD) -> GridMDS
         dmax2=_scalar(arrays, "dmax2", torch.float32, dev),
         overflow=_scalar(arrays, "overflow", torch.bool, dev),
         time=_scalar(arrays, "time", torch.float32, dev),
-        **_grids(arrays, _GRID_FIELDS, (md.n_blocks, md.cap), md.lanes, dev),
+        **_grids(arrays, _GRID_FIELDS, md.grid_shape[:2], md.lanes, dev),
     )
 
 
@@ -76,8 +76,22 @@ def grid3_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD3) -> GridM
         overflow=_scalar(arrays, "overflow", torch.bool, dev),
         time=_scalar(arrays, "time", torch.float32, dev),
         max_occ=_scalar(arrays, "max_occ", torch.int32, dev),
-        **_grids(arrays, _GRID3_FIELDS, (md.cps, md.cap), md.plane, dev),
+        **_grids(arrays, _GRID3_FIELDS, md.grid_shape[:2], md.plane, dev),
     )
+
+
+def sharded_state_from_jax(arrays: Mapping[str, np.ndarray], md) -> Union[GridMDState, GridMD3State]:
+    """This rank's rows of a JAX grid state over the whole grid (a
+    ``GridMDState`` at R = 1 or a ``GridMD3State``, as numpy arrays by
+    field name), for the row-sharded engine ``md`` (``ShardedGridMD`` or
+    ``ShardedGridMD3``): every 3-D leaf is cut to the rank's rows, then
+    carried as :func:`grid_state_from_jax` / :func:`grid3_state_from_jax`
+    carry a whole state."""
+    r0, rows = md._row0, md.rows_local
+    local = {k: (np.asarray(v)[r0 : r0 + rows] if np.ndim(v) == 3 else v) for k, v in arrays.items()}
+    if isinstance(md, GridMD3):
+        return grid3_state_from_jax(local, md)
+    return grid_state_from_jax(local, md)
 
 
 def neighbor_list_from_jax(arrays: Mapping[str, np.ndarray], device="cuda") -> NeighborList:

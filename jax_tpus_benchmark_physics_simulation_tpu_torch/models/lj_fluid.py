@@ -10,7 +10,12 @@ the force to five implementations, as in the JAX package:
 - ``cell``         the roll-based cell-dense force (``ops/kernels/cell_dense.py``);
 - ``grid``         the grid-resident engines: 2D ``GridMD`` (B1 or, on the
                    packed layout, B3; B2) and 3D ``GridMD3`` (hybrid B5/B4
-                   forces, B6 rebuilds, fixed-cadence NVE production).
+                   forces, B6 rebuilds, fixed-cadence NVE production). In a
+                   process group of P > 1 ranks whose size divides the cells
+                   per side, the row-sharded ``ShardedGridMD`` /
+                   ``ShardedGridMD3`` (``parallel/``) on their halo kernels:
+                   every rank runs the same phases on its own rows, and
+                   :func:`run` warns from the primary rank only.
 
 ``thermostat="langevin"`` (grid engine only) makes every window BAOAB
 Langevin at ``kt`` with friction ``gamma`` (NVT), on the gated drivers.
@@ -60,6 +65,10 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.thermo impo
     kinetic_energy,
     temperature,
 )
+from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md3_sharded import ShardedGridMD3
+from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md_sharded import ShardedGridMD
+from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import make_mesh
+from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.multihost import is_primary, world_size
 
 SKIN_DEFAULT = 0.4  # the skin everywhere but the 3D grid engine
 IMPLS = ("dense_xla", "dense_pallas", "neighbor", "cell", "grid")
@@ -102,22 +111,33 @@ def _auto_picks_grid(cfg: MDConfig) -> bool:
     return cfg.cutoff is not None and cfg.n >= 4096 and cps >= 3
 
 
-def resolve_skin(cfg: MDConfig) -> float:
+def resolve_skin(cfg: MDConfig, impl: Optional[str] = None, n_devices: Optional[int] = None) -> float:
     """Concrete Verlet skin for ``cfg`` (``cfg.skin`` unless it is None), by
-    the JAX package's policy on one device: 0.4, except on the 3D grid
-    engine, where the densest cell geometry wins. There it takes the
-    largest cells-per-side with skin >= max(0.1, 80*sqrt(kT)*dt), never
-    coarser than the 0.4-skin geometry. (The JAX package also rounds the
-    cells per side to a multiple of the device count, for its sharded
-    engine, which the port does not have yet.)"""
+    the JAX package's policy: 0.4, except on the 3D grid engine (``impl``,
+    default the one ``cfg`` resolves to), where the densest cell geometry
+    wins. There it takes the largest cells-per-side with skin >=
+    max(0.1, 80*sqrt(kT)*dt), rounded down to a multiple of ``n_devices``
+    (default: the process group's size) so that the row-sharded engine
+    stays available, and never coarser than the 0.4-skin geometry the same
+    rounding gives."""
     if cfg.skin is not None:
         return cfg.skin
-    grid = cfg.force_impl == "grid" or (cfg.force_impl == "auto" and _auto_picks_grid(cfg))
-    if not grid or cfg.dim != 3 or cfg.cutoff is None:
+    if impl is None:
+        impl = "grid" if cfg.force_impl == "grid" or (cfg.force_impl == "auto" and _auto_picks_grid(cfg)) else None
+    if impl != "grid" or cfg.dim != 3 or cfg.cutoff is None:
         return SKIN_DEFAULT
+    if n_devices is None:
+        n_devices = world_size()
     box = cfg.box_size
     floor = max(0.1, 80.0 * cfg.kt**0.5 * cfg.dt)
-    cps = max(int(box / (cfg.cutoff + floor)), int(box / (cfg.cutoff + SKIN_DEFAULT)))
+
+    def cells(skin: float) -> int:
+        c = int(box / (cfg.cutoff + skin))
+        if n_devices > 1 and c >= n_devices:
+            c -= c % n_devices
+        return c
+
+    cps = max(cells(floor), cells(SKIN_DEFAULT))
     if cps < 3:
         return SKIN_DEFAULT
     return box / cps - cfg.cutoff
@@ -165,20 +185,39 @@ def _grid_seed(cfg: MDConfig) -> Optional[int]:
 
 def _make_grid_md(cfg: MDConfig, device):
     """The grid engine for ``cfg``. In 2D it takes the JAX package's default
-    packing (``rows_per_block`` from ``choose_rows_per_block``)."""
+    packing (``rows_per_block`` from ``choose_rows_per_block``). In a
+    process group of P > 1 ranks, the row-sharded engine over the group,
+    with this rank's rows on ``device`` (the JAX package's auto-shard over
+    all devices). Where P does not divide the cells per side, ValueError:
+    the JAX package then runs the one-device engine in its one process,
+    but here each rank would run the whole grid."""
     if resolve_impl(cfg, device) != "grid":
         raise ValueError(f"force_impl={cfg.force_impl!r} does not resolve to the grid engine")
     _grid_thermostat(cfg)
+    n_dev = world_size()
     gf = make_cell_grid_fn(
-        cfg.box_size, cfg.cutoff, cfg.n, dim=cfg.dim, skin=resolve_skin(cfg), rho=cfg.rho
+        cfg.box_size, cfg.cutoff, cfg.n, dim=cfg.dim, skin=resolve_skin(cfg, "grid", n_dev), rho=cfg.rho
     )
-    kw = dict(sigma=cfg.sigma, epsilon=cfg.epsilon, dt=cfg.dt, compensated=cfg.compensated, device=device)
+    kw = dict(sigma=cfg.sigma, epsilon=cfg.epsilon, dt=cfg.dt, compensated=cfg.compensated)
+    sharded = n_dev > 1
+    if sharded and gf.cells_per_side % n_dev:
+        from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.scaling import _round_to_divisible_n
+
+        raise ValueError(
+            f"{n_dev} ranks do not divide the {gf.cells_per_side} cells per side at N={cfg.n}; "
+            f"N={_round_to_divisible_n(cfg.n, cfg, [n_dev])} divides (mdscale's rounding)"
+        )
     if cfg.dim == 3:
         # the JAX package's 3D default: B5 windows at the estimated
         # occupancy bound with the exact B4 fallback, and k_mov=8 with its
         # loud mover flag
-        return GridMD3(gf, static_cov="auto", migrate_k_mov=8, **kw)
-    return GridMD(gf, **kw)
+        kw.update(static_cov="auto", migrate_k_mov=8)
+        if sharded:
+            return ShardedGridMD3(gf, make_mesh(device=device), **kw)
+        return GridMD3(gf, device=device, **kw)
+    if sharded:
+        return ShardedGridMD(gf, make_mesh(device=device), **kw)
+    return GridMD(gf, device=device, **kw)
 
 
 def _grid_inner_steps(cfg: MDConfig, md) -> Tuple[int, float]:
@@ -283,16 +322,17 @@ def _carry_overflow(carry) -> torch.Tensor:
     return torch.zeros((), dtype=torch.bool, device=carry.position.device)
 
 
-def equilibrate(cfg: MDConfig, state: ParticleState):
+def equilibrate(cfg: MDConfig, state: ParticleState, md=None):
     """Equilibration (NVE, or Langevin NVT on the grid engine). Returns
     ``(state, overflow)``: the capacity/skin overflow flag (0-d bool
-    tensor) is carried out, never dropped."""
+    tensor) is carried out, never dropped. ``md``: the grid engine to run
+    (default :func:`_make_grid_md`'s), for example a row-sharded one."""
     device = state.position.device
     if resolve_impl(cfg, device) != "grid":
         init_fn, step_fn, get_state = build_step(cfg, device)
         carry = run_steps(step_fn, init_fn(state), cfg.eq_steps)
         return get_state(carry), _carry_overflow(carry)
-    md = _make_grid_md(cfg, device)
+    md = md if md is not None else _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
     thermo = _grid_thermostat(cfg)
     gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg))
@@ -307,11 +347,12 @@ def equilibrate(cfg: MDConfig, state: ParticleState):
     return final, gs.overflow
 
 
-def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = None):
+def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = None, md=None):
     """Sampled production: every ``sample_every`` steps, the positions,
     kinetic and potential energy. ``cadence``: the fixed rebuild cadence of
     the 3D grid engine's fixed NVE driver (see :func:`production_cadence`);
     None keeps the displacement-gated driver, and the other paths ignore it.
+    ``md``: the grid engine to run, as in :func:`equilibrate`.
     Returns ``(final_state, (r_history, ke_history, pe_history), overflow)``."""
     if cfg.prod_steps and cfg.sample_every > cfg.prod_steps:
         raise ValueError(
@@ -333,7 +374,7 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
         )
         return get_state(final), hist, _carry_overflow(final)
 
-    md = _make_grid_md(cfg, device)
+    md = md if md is not None else _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
     thermo = _grid_thermostat(cfg)
     gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg))
@@ -375,7 +416,7 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
     return final, hist, gs.overflow
 
 
-def production_cadence(cfg: MDConfig, kt_eq: float) -> Optional[int]:
+def production_cadence(cfg: MDConfig, kt_eq: float, md=None) -> Optional[int]:
     """Fixed rebuild cadence for the 3D grid engine's NVE production, from
     the MEASURED equilibrated temperature, as the JAX package's ``run``
     computes it: ``max(1, min(auto_cadence(kt_eq, prod_steps),
@@ -386,7 +427,7 @@ def production_cadence(cfg: MDConfig, kt_eq: float) -> Optional[int]:
         return None
     if resolve_impl(cfg, "cpu") != "grid":  # the grid rule reads no device
         return None
-    md = _make_grid_md(cfg, "cpu")  # only its geometry is read
+    md = md if md is not None else _make_grid_md(cfg, "cpu")  # only its geometry is read
     return max(1, min(md.auto_cadence(kt_eq, cfg.prod_steps), cfg.sample_every))
 
 
@@ -451,6 +492,7 @@ def run(
     cfg: Optional[MDConfig] = None,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    md=None,
 ) -> MDResult:
     """Full timed pipeline: equilibrate -> production -> g(r), matching the
     reference's three-phase timing (molecular_dynamics...:138-165).
@@ -464,7 +506,9 @@ def run(
     fixed-cadence driver at :func:`production_cadence` of the measured
     equilibrated kT (under a thermostat, the gated driver). If that kT is NaN or not positive, the overflow flag
     is raised (and in 3D production runs the gated driver). The pressure
-    is measured on the grid engine only."""
+    is measured on the grid engine only. ``md`` overrides the grid engine,
+    as in :func:`equilibrate`: a caller drives the row-sharded engine on
+    one rank with it."""
     cfg = cfg or MDConfig()
     device = torch.device(device)
     impl = resolve_impl(cfg, device)
@@ -482,13 +526,13 @@ def run(
         eq_steps=min(cfg.eq_steps, cfg.sample_every),
         prod_steps=min(cfg.prod_steps, cfg.sample_every),
     )
-    warm_eq, _ = equilibrate(warm, state)
-    production(warm, warm_eq, production_cadence(warm, float(temperature(warm_eq))))
+    warm_eq, _ = equilibrate(warm, state, md)
+    production(warm, warm_eq, production_cadence(warm, float(temperature(warm_eq)), md), md)
     _sync(device)
     time_compile = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    state_eq, overflow_eq = equilibrate(cfg, state)
+    state_eq, overflow_eq = equilibrate(cfg, state, md)
     overflow_eq = bool(overflow_eq)
     _sync(device)
     time_eq = time.perf_counter() - t0
@@ -498,15 +542,15 @@ def run(
     kt_eq = float(temperature(state_eq))
     if not (math.isfinite(kt_eq) and kt_eq > 0):
         overflow_eq = True
-    cadence = production_cadence(cfg, kt_eq)
+    cadence = production_cadence(cfg, kt_eq, md)
 
     t0 = time.perf_counter()
-    final, (r_hist, ke_hist, pe_hist), overflow_prod = production(cfg, state_eq, cadence)
+    final, (r_hist, ke_hist, pe_hist), overflow_prod = production(cfg, state_eq, cadence, md)
     overflow_prod = bool(overflow_prod)
     _sync(device)
     time_prod = time.perf_counter() - t0
     overflow = overflow_eq or overflow_prod
-    if overflow:
+    if overflow and is_primary():
         import warnings
 
         warnings.warn(
@@ -523,7 +567,7 @@ def run(
 
     pressure = float("nan")
     if impl == "grid":
-        md = _make_grid_md(cfg, device)
+        md = md if md is not None else _make_grid_md(cfg, device)
         pressure = float(md.pressure(md.init(final.position, final.velocity)))
 
     return MDResult(

@@ -33,11 +33,12 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.observables.lyapunov im
 )
 
 
-def init_state_flat(cfg: NBodyConfig, device="cuda") -> torch.Tensor:
+def init_state_flat(cfg: NBodyConfig, device="cuda", dtype=torch.float32) -> torch.Tensor:
     """Reference ICs (nbody...:99-108): bodies on a ring of diameter
     ``initial_distance`` with tangential velocities, in the ``[pos...,
-    vel...]`` layout; built in float64 with numpy and rounded to float32,
-    as the JAX package's ``jnp.asarray`` does."""
+    vel...]`` layout; built in float64 with numpy and rounded to ``dtype``,
+    as the JAX package's ``jnp.asarray`` does (float32, or float64 under
+    ``jax_enable_x64``)."""
     n = cfg.n_bodies
     pos = np.zeros((n, 2))
     vel = np.zeros((n, 2))
@@ -45,14 +46,14 @@ def init_state_flat(cfg: NBodyConfig, device="cuda") -> torch.Tensor:
         angle = 2 * np.pi * i / n
         pos[i] = [cfg.initial_distance * np.cos(angle) / 2, cfg.initial_distance * np.sin(angle) / 2]
         vel[i] = [-cfg.initial_velocity * np.sin(angle), cfg.initial_velocity * np.cos(angle)]
-    flat = np.concatenate([pos.ravel(), vel.ravel()]).astype(np.float32)
-    return torch.from_numpy(flat).to(device)
+    flat = np.concatenate([pos.ravel(), vel.ravel()])
+    return torch.from_numpy(flat).to(device=device, dtype=dtype)
 
 
-def time_grid(cfg: NBodyConfig, device="cuda") -> torch.Tensor:
-    """The float32 output times ``0, dt, ..., sim_time`` (``jnp.linspace``
-    in JAX; a third of the points differ from it in the last bit)."""
-    return torch.linspace(0.0, cfg.sim_time, cfg.num_steps + 1, dtype=torch.float32, device=device)
+def time_grid(cfg: NBodyConfig, device="cuda", dtype=torch.float32) -> torch.Tensor:
+    """The output times ``0, dt, ..., sim_time`` (``jnp.linspace`` in JAX;
+    in float32 a third of the points differ from it in the last bit)."""
+    return torch.linspace(0.0, cfg.sim_time, cfg.num_steps + 1, dtype=dtype, device=device)
 
 
 def make_ode(cfg: NBodyConfig, masses: torch.Tensor):
@@ -75,7 +76,7 @@ def simulate(cfg: NBodyConfig, y0: torch.Tensor, masses: torch.Tensor) -> torch.
     ``dopri5``: adaptive embedded RK45 to each output time."""
     ode = make_ode(cfg, masses)
     if cfg.integrator == "dopri5":
-        ts = time_grid(cfg, y0.device).to(y0.dtype)
+        ts = time_grid(cfg, y0.device, y0.dtype)
         return dopri5_integrate(ode, y0, ts, rtol=cfg.rtol, atol=cfg.atol).ys
 
     dt = cfg.sim_time / cfg.num_steps
@@ -93,7 +94,7 @@ def simulate_with_waveform(cfg: NBodyConfig, y0: torch.Tensor, masses: torch.Ten
     """``(ys, t, positions_t, h_plus)``: the trajectory and its GW strain."""
     ys = simulate(cfg, y0, masses)
     n = cfg.n_bodies
-    t = time_grid(cfg, y0.device)
+    t = time_grid(cfg, y0.device, y0.dtype)
     positions_t = ys[:, : 2 * n].reshape(-1, n, 2)
     h_plus = gw_strain(t, positions_t, masses, cfg.d_gw_mpc, g=cfg.g, c=cfg.c)
     return ys, t, positions_t, h_plus
@@ -102,7 +103,10 @@ def simulate_with_waveform(cfg: NBodyConfig, y0: torch.Tensor, masses: torch.Ten
 def lyapunov(cfg: NBodyConfig, y0: torch.Tensor, masses: torch.Tensor, d0: float = 1e-6) -> torch.Tensor:
     """Largest Lyapunov exponent. ``tangent``: the Benettin variational
     method along the RK4 steps; ``two_trajectory``: the reference estimator
-    (nbody...:175-208), one extra trajectory from ``y0 + d0*e_0``."""
+    (nbody...:175-208), one extra trajectory from ``y0 + d0*e_0``. Where
+    ``y0[0] + d0`` rounds back to ``y0[0]`` (the default start, 50.0, in
+    float32, whose ulp there is 3.8e-6) the two trajectories are one and
+    the estimate would be exactly 0: that raises ``ValueError`` instead."""
     dt = cfg.sim_time / cfg.num_steps
     ode = make_ode(cfg, masses)
     step = rk4_step_fn(ode, dt)
@@ -113,8 +117,14 @@ def lyapunov(cfg: NBodyConfig, y0: torch.Tensor, masses: torch.Tensor, d0: float
     ys = simulate(cfg, y0, masses)
     y0_pert = y0.clone()
     y0_pert[0] += d0
+    if torch.equal(y0_pert, y0):
+        raise ValueError(
+            f"two_trajectory Lyapunov: y0[0] + d0 = {float(y0[0])!r} + {d0!r} rounds back to "
+            f"y0[0] in {y0.dtype}, so both trajectories are one and the estimate would be 0; "
+            "use the tangent method, a larger d0 or float64"
+        )
     ys_pert = simulate(cfg, y0_pert, masses)
-    lyap, _ = lyapunov_two_trajectory(time_grid(cfg, y0.device), ys, ys_pert, d0=d0)
+    lyap, _ = lyapunov_two_trajectory(time_grid(cfg, y0.device, y0.dtype), ys, ys_pert, d0=d0)
     return lyap
 
 
@@ -133,15 +143,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(cfg: Optional[NBodyConfig] = None, device="cuda") -> NBodyResult:
+def run(cfg: Optional[NBodyConfig] = None, device="cuda", dtype=torch.float32) -> NBodyResult:
     """Warm up, then time ``simulate_with_waveform``; then the Lyapunov
     exponent (untimed, as in the JAX package). The warm-up is a short run
     of the same functions (at most 10 steps of the same dt), not a second
-    full simulation."""
+    full simulation. ``dtype`` is the state's and the masses' (float32 as
+    in the JAX package; float64 for an oracle run)."""
     cfg = cfg or NBodyConfig()
     device = torch.device(device)
-    masses = torch.tensor(cfg.masses, dtype=torch.float32, device=device)
-    y0 = init_state_flat(cfg, device)
+    masses = torch.tensor(cfg.masses, dtype=dtype, device=device)
+    y0 = init_state_flat(cfg, device, dtype)
 
     warm_steps = min(cfg.num_steps, 10)
     warm = override(cfg, num_steps=warm_steps, sim_time=cfg.sim_time * warm_steps / cfg.num_steps)

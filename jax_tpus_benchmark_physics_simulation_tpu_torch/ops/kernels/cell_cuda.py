@@ -1,7 +1,9 @@
-"""Kernel B1: 2D Lennard-Jones forces on the cell grid.
+"""Kernel B1: 2D Lennard-Jones forces on the cell grid, and its halo form.
 
 Replaces the TPU kernel ``ops/kernels/cell_pallas.py:_newton_kernel`` of the
-JAX package (built by ``make_grid_force_kernel``). The CUDA source is
+JAX package (built by ``make_grid_force_kernel``) and, as B1 halo, its
+explicit-halo call ``.raw`` (``cell_pallas.py:346``) that the row-sharded
+engine runs on each device's rows. The CUDA source is
 ``csrc/cell_force.cu``; its header says what bounds it on an H100 (at
 N=100k, 234k slots x 9*16 partners a step with the grid in L2: pair
 arithmetic and one divide per pair) and how the design answers that.
@@ -14,8 +16,15 @@ test ``0 < r2 < cutoff^2`` rejects, so no occupancy mask is read.
   tensors and as the kernel's reference on the card;
 - :func:`grid_force`: the wrapper. A CPU tensor takes the plain version, a
   CUDA tensor launches the kernel or raises;
-- ``LAUNCHES`` / ``ENERGY_LAUNCHES``: kernel launches of the force-only and
-  the energy variant, counted where the wrapper launches them.
+- :func:`grid_force_halo_reference` / :func:`grid_force_halo`: the same
+  for B1 halo, on one rank's ``rows`` cell rows with one halo row on each
+  side, ``(rows + 2, cap, cps)`` in and ``(rows, cap, cps)`` out. The
+  caller puts the x seam into the halo rows (``-box`` on the first rank's
+  previous row, ``+box`` on the last rank's next row); rows do not wrap.
+  Over P row blocks the result is bit-equal to B1 on the whole grid;
+- ``LAUNCHES`` / ``ENERGY_LAUNCHES`` / ``HALO_LAUNCHES`` /
+  ``HALO_ENERGY_LAUNCHES``: kernel launches of B1's force-only and energy
+  variants and of B1 halo's, counted where the wrappers launch them.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense impo
 
 LAUNCHES = 0
 ENERGY_LAUNCHES = 0
+HALO_LAUNCHES = 0
+HALO_ENERGY_LAUNCHES = 0
 
 
 @dataclass(frozen=True)
@@ -74,6 +85,33 @@ def grid_force_reference(
     grid is the rolled grid plus the seam offset (+-box where the cell row
     or column wraps), and the (cps, a, b, cps) pair block is summed over b.
     Works in any float dtype."""
+    idx = torch.arange(p.cps, device=xg.device)
+
+    def partners(dx):
+        # +box where the row index wraps past the top, -box past the bottom
+        seam = ((idx + dx >= p.cps).to(xg.dtype) - (idx + dx < 0).to(xg.dtype)) * p.box
+        return torch.roll(xg, -dx, 0) + seam[:, None, None], torch.roll(yg, -dx, 0)
+
+    return _pair_sums(xg, yg, partners, p, with_energy)
+
+
+def grid_force_halo_reference(
+    xh: torch.Tensor, yh: torch.Tensor, p: CellForceParams, with_energy: bool = False
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of B1 halo: ``(rows + 2, cap, cps)`` grids with
+    their halo rows (seam offsets included) in, B1's outputs on the
+    ``rows`` local rows out."""
+    rows = xh.shape[0] - 2
+    return _pair_sums(
+        xh[1:-1], yh[1:-1], lambda dx: (xh[1 + dx : 1 + dx + rows], yh[1 + dx : 1 + dx + rows]),
+        p, with_energy,
+    )
+
+
+def _pair_sums(xg, yg, partners, p: CellForceParams, with_energy: bool):
+    """The pair sums of the plain versions: ``partners(dx)`` gives the
+    partner grids of row offset ``dx`` (x seam included); the column
+    offsets roll along the last axis with their y seam."""
     cps = p.cps
     idx = torch.arange(cps, device=xg.device)
     xi = xg[:, :, None, :]
@@ -91,8 +129,7 @@ def grid_force_reference(
         return ((idx + d >= cps).to(xg.dtype) - (idx + d < 0).to(xg.dtype)) * p.box
 
     for dx in (-1, 0, 1):
-        xr = torch.roll(xg, -dx, 0) + seam(dx)[:, None, None]
-        yr = torch.roll(yg, -dx, 0)
+        xr, yr = partners(dx)
         for dy in (-1, 0, 1):
             xp = torch.roll(xr, -dy, 2)[:, None, :, :]
             yp = (torch.roll(yr, -dy, 2) + seam(dy)[None, None, :])[:, None, :, :]
@@ -173,6 +210,54 @@ def grid_force(
         return fx, fy, e, w
     LAUNCHES += 1
     return fx, fy
+
+
+@functools.lru_cache(maxsize=None)
+def _halo_launcher():
+    fn = _build.library().jtps_cell_force_halo
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 3
+        + [ctypes.c_float] * 6
+        + [ctypes.c_int] * 2
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def grid_force_halo(
+    xh: torch.Tensor, yh: torch.Tensor, p: CellForceParams, with_energy: bool = False
+) -> Tuple[torch.Tensor, ...]:
+    """B1 halo: ``(fx, fy)`` (or ``(fx, fy, e, w)``) on the local rows of
+    ``(rows + 2, cap, cps)`` grids that carry one halo row on each side."""
+    global HALO_LAUNCHES, HALO_ENERGY_LAUNCHES
+    rows = xh.shape[0] - 2
+    if xh.dim() != 3 or rows < 1:
+        raise ValueError(f"xh: expected (rows + 2, cap, cps) with rows >= 1, got {tuple(xh.shape)}")
+    shape = (rows + 2, p.cap, p.cps)
+    check_grid(xh, "xh", shape, xh.device)
+    check_grid(yh, "yh", shape, xh.device)
+    if xh.device.type == "cpu":
+        return grid_force_halo_reference(xh, yh, p, with_energy)
+    if xh.device.type != "cuda":
+        raise ValueError(f"grid_force_halo runs on cpu or cuda tensors, not {xh.device}")
+    outs = [torch.empty((rows, p.cap, p.cps), dtype=xh.dtype, device=xh.device)
+            for _ in range(4 if with_energy else 2)]
+    ew = outs[2:] if with_energy else [None, None]
+    status = _halo_launcher()(
+        xh.data_ptr(), yh.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+        *(None if t is None else t.data_ptr() for t in ew),
+        rows, p.cps, p.cap, p.box, p.cutoff2, p.sigma2, p.fscale, p.epsilon, p.shift,
+        int(with_energy), xh.device.index,
+        torch.cuda.current_stream(xh.device).cuda_stream,
+    )
+    _build.check(status, "cell_force halo kernel")
+    if with_energy:
+        HALO_ENERGY_LAUNCHES += 1
+    else:
+        HALO_LAUNCHES += 1
+    return tuple(outs)
 
 
 def make_grid_force_kernel(

@@ -1,9 +1,12 @@
-"""Kernels B4 and B5: 3D Lennard-Jones forces on the cell grid.
+"""Kernels B4 and B5: 3D Lennard-Jones forces on the cell grid, and their
+halo forms.
 
 Replace the TPU kernels ``ops/kernels/cell_pallas3.py:_newton_kernel3`` (B4,
 partner slots bounded at run time by the max cell occupancy) and
 ``:_static_kernel3`` (B5, the bound ``cov`` fixed at compile time) of the
-JAX package, both built by ``make_grid_force_kernel3``. The CUDA source is
+JAX package, both built by ``make_grid_force_kernel3``, and, as B4/B5
+halo, their explicit-halo call ``.raw`` (``cell_pallas3.py:722``) that the
+row-sharded engine runs on each device's x-rows. The CUDA source is
 ``csrc/cell_force3.cu``: one template, with the bound as the template
 parameter ``COV`` (0 for B4, which reads ``max_occ`` through a device
 pointer) and the energy/virial variant as a template flag. Its header says
@@ -18,9 +21,15 @@ rejects, so no occupancy mask is read. Slots at or past the bound get zero.
   tensors and as the kernels' reference on the card;
 - :func:`grid_force3`: the wrapper. A CPU tensor takes the plain version, a
   CUDA tensor launches the kernel or raises;
+- :func:`grid_force3_halo_reference` / :func:`grid_force3_halo`: the same
+  on one rank's ``rows`` x-rows with one halo x-row on each side,
+  ``(rows + 2, cap, ncy * ncz)`` in and ``(rows, cap, ncy * ncz)`` out. The
+  caller puts the x seam into the halo rows; x does not wrap. Over P row
+  blocks the result is bit-equal to the full kernels;
 - ``LAUNCHES`` / ``ENERGY_LAUNCHES`` / ``STATIC_LAUNCHES``: launches of B4,
-  of B4's energy variant and of B5 (either variant), counted where the
-  wrapper launches them.
+  of B4's energy variant and of B5 (either variant), and ``HALO_LAUNCHES`` /
+  ``HALO_ENERGY_LAUNCHES`` / ``HALO_STATIC_LAUNCHES`` the same of the halo
+  forms, counted where the wrappers launch them.
 """
 
 from __future__ import annotations
@@ -33,12 +42,16 @@ from typing import Optional, Tuple
 import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import _build
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import check_grid
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import SENTINEL_FACTOR
 
 LAUNCHES = 0
 ENERGY_LAUNCHES = 0
 STATIC_LAUNCHES = 0
+HALO_LAUNCHES = 0
+HALO_ENERGY_LAUNCHES = 0
+HALO_STATIC_LAUNCHES = 0
 # the compile-time bounds csrc/cell_force3.cu instantiates for B5
 STATIC_COVS = (8, 16, 24, 32, 40, 48, 56, 64)
 
@@ -100,9 +113,46 @@ def grid_force3_reference(
     block is summed over b. Works in any float dtype."""
     c, cap = p.cps, p.cap
     bound = cap if bound is None else min(max(int(bound), 0), cap)
-    dt, dev = xg.dtype, xg.device
-    idx = torch.arange(c, device=dev)
+    idx = torch.arange(c, device=xg.device)
     x4, y4, z4 = (g.view(c, cap, c, c)[:, :bound] for g in (xg, yg, zg))
+
+    def partners(dx):
+        # +box where the x index wraps past the top, -box past the bottom
+        seam = ((idx + dx >= c).to(xg.dtype) - (idx + dx < 0).to(xg.dtype)) * p.box
+        return torch.roll(x4, -dx, 0) + seam[:, None, None, None], torch.roll(y4, -dx, 0), torch.roll(z4, -dx, 0)
+
+    return _pair_sums3(x4, y4, z4, partners, p, bound, with_energy)
+
+
+def grid_force3_halo_reference(
+    xh: torch.Tensor,
+    yh: torch.Tensor,
+    zh: torch.Tensor,
+    p: CellForce3Params,
+    bound: Optional[int] = None,
+    with_energy: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of B4/B5 halo: ``(rows + 2, cap, ncy*ncz)``
+    grids with their halo x-rows (seam offsets included) in, the full
+    kernels' outputs on the ``rows`` local rows out."""
+    c, cap = p.cps, p.cap
+    bound = cap if bound is None else min(max(int(bound), 0), cap)
+    rows = xh.shape[0] - 2
+    h4 = [g.view(rows + 2, cap, c, c)[:, :bound] for g in (xh, yh, zh)]
+    return _pair_sums3(
+        *(g[1:-1] for g in h4), lambda dx: tuple(g[1 + dx : 1 + dx + rows] for g in h4), p, bound, with_energy
+    )
+
+
+def _pair_sums3(x4, y4, z4, partners, p: CellForce3Params, bound: int, with_energy: bool):
+    """The pair sums of the plain versions on ``(rows, bound, c, c)`` views:
+    ``partners(dx)`` gives the partner views of x offset ``dx`` (x seam
+    included); the (y, z) offsets roll with their seams. Returns full
+    ``(rows, cap, c * c)`` grids, zero at slots ``>= bound``."""
+    c, cap = p.cps, p.cap
+    rows = x4.shape[0]
+    dt, dev = x4.dtype, x4.device
+    idx = torch.arange(c, device=dev)
     xi, yi, zi = x4[:, :, None], y4[:, :, None], z4[:, :, None]
     zero = torch.zeros((), dtype=dt, device=dev)
     fscale = p.fscale
@@ -113,9 +163,7 @@ def grid_force3_reference(
         return ((idx + d >= c).to(dt) - (idx + d < 0).to(dt)) * p.box
 
     for dx in (-1, 0, 1):
-        xr = torch.roll(x4, -dx, 0) + seam(dx)[:, None, None, None]
-        yr = torch.roll(y4, -dx, 0)
-        zr = torch.roll(z4, -dx, 0)
+        xr, yr, zr = partners(dx)
         for dy in (-1, 0, 1):
             xr2 = torch.roll(xr, -dy, 2)
             yr2 = torch.roll(yr, -dy, 2) + seam(dy)[None, None, :, None]
@@ -143,9 +191,9 @@ def grid_force3_reference(
                 out[2] += (fmag * ddz).sum(2)
     full = []
     for o in out:
-        g = torch.zeros((c, cap, c, c), dtype=dt, device=dev)
+        g = torch.zeros((rows, cap, c, c), dtype=dt, device=dev)
         g[:, :bound] = o
-        full.append(g.view(c, cap, c * c))
+        full.append(g.view(rows, cap, c * c))
     return tuple(full)
 
 
@@ -156,22 +204,56 @@ def _launcher():
         [ctypes.c_void_p] * 9
         + [ctypes.c_int] * 5
         + [ctypes.c_float] * 7
-        + [ctypes.c_int] * 2
+        + [ctypes.c_int] * 3
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_grid(t: torch.Tensor, name: str, p: CellForce3Params, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != p.grid_shape:
-        raise ValueError(f"{name}: expected shape {p.grid_shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
+def _forces3(grids, p: CellForce3Params, max_occ, with_energy: bool, static_cov, halo: bool):
+    """Checks the arguments of :func:`grid_force3` (``halo=False``) or
+    :func:`grid_force3_halo` (``halo=True``: each grid carries one halo
+    x-row on each side) and runs the plain version on the CPU or the kernel
+    on the card. Returns the outputs and whether the kernel launched."""
+    dev = grids[0].device
+    rows = grids[0].shape[0] - 2 if halo else p.cps
+    if rows < 1:
+        raise ValueError(f"xg: expected at least one local x-row, got shape {tuple(grids[0].shape)}")
+    shape = (rows + 2 if halo else rows, p.cap, p.cps * p.cps)
+    for t, name in zip(grids, ("xg", "yg", "zg")):
+        check_grid(t, name, shape, dev)
+    if static_cov is not None and not 0 < static_cov <= p.cap:
+        raise ValueError(f"static_cov {static_cov} must lie in [1, capacity {p.cap}]")
+    if max_occ is not None and static_cov is None:
+        if max_occ.dtype != torch.int32 or max_occ.numel() != 1:
+            raise TypeError(f"max_occ: expected one int32, got {max_occ.dtype} {tuple(max_occ.shape)}")
+        if max_occ.device != dev:
+            raise ValueError(f"max_occ: on {max_occ.device}, expected {dev}")
+    if dev.type == "cpu":
+        bound = static_cov if static_cov is not None else max_occ
+        bound = None if bound is None else int(bound)
+        ref = grid_force3_halo_reference if halo else grid_force3_reference
+        return ref(*grids, p, bound, with_energy), False
+    if dev.type != "cuda":
+        raise ValueError(f"the 3D force kernels run on cpu or cuda tensors, not {dev}")
+    if static_cov is not None and static_cov not in STATIC_COVS:
+        raise ValueError(f"the B5 kernel is built for static_cov in {STATIC_COVS}, not {static_cov}")
+    outs = [torch.empty((rows, p.cap, p.cps * p.cps), dtype=grids[0].dtype, device=dev)
+            for _ in range(5 if with_energy else 3)]
+    ew = outs[3:] if with_energy else [None, None]
+    status = _launcher()(
+        *(g.data_ptr() for g in grids),
+        *(o.data_ptr() for o in outs[:3]),
+        *(None if o is None else o.data_ptr() for o in ew),
+        None if (max_occ is None or static_cov is not None) else max_occ.data_ptr(),
+        static_cov or 0, rows, p.cap, p.cps, p.cps,
+        p.box, p.sentinel, p.cutoff2, p.sigma2, p.fscale, p.epsilon, p.shift,
+        int(with_energy), int(halo), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "cell_force3 halo kernel" if halo else "cell_force3 kernel")
+    return tuple(outs), True
 
 
 def grid_force3(
@@ -189,43 +271,39 @@ def grid_force3(
     tensor on the grids' device (None: the full capacity); B5 covers slots
     below ``static_cov`` and ignores ``max_occ``."""
     global LAUNCHES, ENERGY_LAUNCHES, STATIC_LAUNCHES
-    dev = xg.device
-    for t, name in ((xg, "xg"), (yg, "yg"), (zg, "zg")):
-        _check_grid(t, name, p, dev)
-    if static_cov is not None and not 0 < static_cov <= p.cap:
-        raise ValueError(f"static_cov {static_cov} must lie in [1, capacity {p.cap}]")
-    if max_occ is not None and static_cov is None:
-        if max_occ.dtype != torch.int32 or max_occ.numel() != 1:
-            raise TypeError(f"max_occ: expected one int32, got {max_occ.dtype} {tuple(max_occ.shape)}")
-        if max_occ.device != dev:
-            raise ValueError(f"max_occ: on {max_occ.device}, expected {dev}")
-    if dev.type == "cpu":
-        bound = static_cov if static_cov is not None else max_occ
-        return grid_force3_reference(xg, yg, zg, p, None if bound is None else int(bound), with_energy)
-    if dev.type != "cuda":
-        raise ValueError(f"grid_force3 runs on cpu or cuda tensors, not {dev}")
-    if static_cov is not None and static_cov not in STATIC_COVS:
-        raise ValueError(f"the B5 kernel is built for static_cov in {STATIC_COVS}, not {static_cov}")
-    outs = [torch.empty_like(xg) for _ in range(5 if with_energy else 3)]
-    ew = outs[3:] if with_energy else [None, None]
-    status = _launcher()(
-        xg.data_ptr(), yg.data_ptr(), zg.data_ptr(),
-        *(o.data_ptr() for o in outs[:3]),
-        *(None if o is None else o.data_ptr() for o in ew),
-        None if (max_occ is None or static_cov is not None) else max_occ.data_ptr(),
-        static_cov or 0, p.cps, p.cap, p.cps, p.cps,
-        p.box, p.sentinel, p.cutoff2, p.sigma2, p.fscale, p.epsilon, p.shift,
-        int(with_energy), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(status, "cell_force3 kernel")
-    if static_cov is not None:
-        STATIC_LAUNCHES += 1
-    elif with_energy:
-        ENERGY_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    return tuple(outs)
+    outs, launched = _forces3((xg, yg, zg), p, max_occ, with_energy, static_cov, halo=False)
+    if launched:
+        if static_cov is not None:
+            STATIC_LAUNCHES += 1
+        elif with_energy:
+            ENERGY_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+    return outs
+
+
+def grid_force3_halo(
+    xh: torch.Tensor,
+    yh: torch.Tensor,
+    zh: torch.Tensor,
+    p: CellForce3Params,
+    max_occ: Optional[torch.Tensor] = None,
+    with_energy: bool = False,
+    static_cov: Optional[int] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """B4/B5 halo: :func:`grid_force3` on the local x-rows of
+    ``(rows + 2, cap, ncy * ncz)`` grids that carry one halo x-row on each
+    side; ``max_occ`` is the bound over all ranks."""
+    global HALO_LAUNCHES, HALO_ENERGY_LAUNCHES, HALO_STATIC_LAUNCHES
+    outs, launched = _forces3((xh, yh, zh), p, max_occ, with_energy, static_cov, halo=True)
+    if launched:
+        if static_cov is not None:
+            HALO_STATIC_LAUNCHES += 1
+        elif with_energy:
+            HALO_ENERGY_LAUNCHES += 1
+        else:
+            HALO_LAUNCHES += 1
+    return outs
 
 
 def make_grid_force_kernel3(

@@ -1,10 +1,13 @@
 // 2D Lennard-Jones 6-12 forces on the cell grid, for NVIDIA Hopper (sm_90a):
-// kernels B1 (the unpacked layout) and B3 (R cell rows packed per block).
+// kernels B1 (the unpacked layout), B1 halo (the unpacked layout on one
+// rank's rows of a row-sharded grid) and B3 (R cell rows packed per block).
 //
 // Replaces the TPU kernels jax_tpus_benchmark_physics_simulation_tpu/
 // ops/kernels/cell_pallas.py:_newton_kernel (B1, built by
-// make_grid_force_kernel) and cell_pallas_packed.py:_packed_kernel (B3,
-// built by make_grid_force_kernel_packed).
+// make_grid_force_kernel; B1 halo is its explicit-halo form, the `.raw` call
+// at cell_pallas.py:346 that parallel/grid_md_sharded.py runs on each
+// device's rows) and cell_pallas_packed.py:_packed_kernel (B3, built by
+// make_grid_force_kernel_packed).
 //
 // Layout: x, y and every output are (G, cap, R * cps) float32, row-major,
 // with G = cps / R blocks of R physical cell rows each. Slot (g, a, lane)
@@ -23,6 +26,17 @@
 // lane rolls, block-crossing row patches and 128-lane padding have no
 // counterpart here. With PACKED = false, R is the constant 1 and the index
 // arithmetic is B1's.
+//
+// B1 halo: x and y are (n_rows + 2, cap, cps), one rank's n_rows cell rows
+// with the previous rank's last row before them and the next rank's first
+// row after them; the outputs are (n_rows, cap, cps), the local rows only.
+// The caller has already put the x seam into the halo rows (-box on the
+// first rank's previous row, +box on the last rank's next row), so the
+// kernel neither wraps nor offsets rows; the column (y) seam is handled as
+// in B1. With no Newton halving there are no reaction rows to send back. A
+// slot visits its 9 cells in B1's order with the same float32 operations
+// (fl(x + box) made by the caller is the fl(x + box) B1 makes), so the halo
+// form over P row blocks is bit-equal to B1 on the whole grid.
 //
 // Periodic seams: positions are not wrapped between rebuilds, so a particle
 // may sit up to skin/2 outside [0, box). The seam is handled per neighbour
@@ -57,19 +71,21 @@ __global__ void cell_force_kernel(const float* __restrict__ x,
                                   float* __restrict__ e,
                                   float* __restrict__ w,
                                   int cps, int cap, int rows_per_block,
+                                  int n_rows, int halo,
                                   float box, float cutoff2, float sigma2,
                                   float fscale, float epsilon, float shift) {
   const int R = PACKED ? rows_per_block : 1;
   const int lanes = R * cps;
   const int row = cap * lanes;  // one block of R cell rows
-  const int n_slots = (cps / R) * row;
+  const int n_slots = PACKED ? (cps / R) * row : n_rows * row;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_slots) return;
   const int lane = i % lanes;
   const int cx = PACKED ? (i / row) * R + lane / cps : i / row;
   const int cy = PACKED ? lane % cps : lane;
-  const float xi = x[i];
-  const float yi = y[i];
+  // halo form: input row cx + 1 holds output row cx
+  const float xi = x[halo ? i + row : i];
+  const float yi = y[halo ? i + row : i];
   const float two_fscale = 2.0f * fscale;
   const float four_eps = 4.0f * epsilon;
   const float wscale = fscale * sigma2;  // 24 * epsilon
@@ -78,7 +94,9 @@ __global__ void cell_force_kernel(const float* __restrict__ x,
   for (int dx = -1; dx <= 1; ++dx) {
     int nx = cx + dx;
     float off_x = 0.0f;
-    if (nx < 0) {
+    if (halo) {
+      nx += 1;  // the halo rows carry their seam offset already
+    } else if (nx < 0) {
       nx += cps;
       off_x = -box;
     } else if (nx >= cps) {
@@ -140,25 +158,27 @@ __global__ void cell_force_kernel(const float* __restrict__ x,
   }
 }
 
+// n_rows: the output's cell rows (cps, or a rank's rows with halo != 0)
 template <bool PACKED>
 int launch(const float* x, const float* y, float* fx, float* fy, float* e,
-           float* w, int cps, int cap, int rows_per_block, float box,
-           float cutoff2, float sigma2, float fscale, float epsilon,
-           float shift, int with_energy, int device, void* stream) {
+           float* w, int cps, int cap, int rows_per_block, int n_rows,
+           int halo, float box, float cutoff2, float sigma2, float fscale,
+           float epsilon, float shift, int with_energy, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_slots = cps * cap * cps;
+  const int n_slots = n_rows * cap * cps;
   const int threads = 256;
   const int blocks = (n_slots + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (with_energy) {
     cell_force_kernel<true, PACKED><<<blocks, threads, 0, s>>>(
-        x, y, fx, fy, e, w, cps, cap, rows_per_block, box, cutoff2, sigma2,
-        fscale, epsilon, shift);
+        x, y, fx, fy, e, w, cps, cap, rows_per_block, n_rows, halo, box,
+        cutoff2, sigma2, fscale, epsilon, shift);
   } else {
     cell_force_kernel<false, PACKED><<<blocks, threads, 0, s>>>(
-        x, y, fx, fy, e, w, cps, cap, rows_per_block, box, cutoff2, sigma2,
-        fscale, epsilon, shift);
+        x, y, fx, fy, e, w, cps, cap, rows_per_block, n_rows, halo, box,
+        cutoff2, sigma2, fscale, epsilon, shift);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -172,8 +192,23 @@ extern "C" int jtps_cell_force(const float* x, const float* y, float* fx,
                                float box, float cutoff2, float sigma2,
                                float fscale, float epsilon, float shift,
                                int with_energy, int device, void* stream) {
-  return launch<false>(x, y, fx, fy, e, w, cps, cap, 1, box, cutoff2, sigma2,
-                       fscale, epsilon, shift, with_energy, device, stream);
+  return launch<false>(x, y, fx, fy, e, w, cps, cap, 1, cps, 0, box, cutoff2,
+                       sigma2, fscale, epsilon, shift, with_energy, device,
+                       stream);
+}
+
+// B1 halo: x and y are (n_rows + 2, cap, cps) with the halo rows attached
+// (seam offsets included), fx, fy, e and w are (n_rows, cap, cps).
+extern "C" int jtps_cell_force_halo(const float* x, const float* y, float* fx,
+                                    float* fy, float* e, float* w, int n_rows,
+                                    int cps, int cap, float box, float cutoff2,
+                                    float sigma2, float fscale, float epsilon,
+                                    float shift, int with_energy, int device,
+                                    void* stream) {
+  if (n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(x, y, fx, fy, e, w, cps, cap, 1, n_rows, 1, box,
+                       cutoff2, sigma2, fscale, epsilon, shift, with_energy,
+                       device, stream);
 }
 
 // B3: the same on the packed (cps / R, cap, R * cps) layout; R must divide
@@ -187,9 +222,9 @@ extern "C" int jtps_cell_force_packed(const float* x, const float* y,
                                       void* stream) {
   if (rows_per_block < 1 || cps % rows_per_block != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true>(x, y, fx, fy, e, w, cps, cap, rows_per_block, box,
-                      cutoff2, sigma2, fscale, epsilon, shift, with_energy,
-                      device, stream);
+  return launch<true>(x, y, fx, fy, e, w, cps, cap, rows_per_block, cps, 0,
+                      box, cutoff2, sigma2, fscale, epsilon, shift,
+                      with_energy, device, stream);
 }
 
 extern "C" const char* jtps_error_string(int code) {

@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel jax_tpus_benchmark_physics_simulation_tpu/
 // ops/kernels/migrate_pallas.py:_migrate_kernel (built by
-// make_migrate_kernel).
+// make_migrate_kernel), and as B2 halo its explicit-halo form (the `.raw`
+// call at migrate_pallas.py:226, R = 1) that parallel/grid_md_sharded.py
+// runs on each device's rows.
 //
 // The grid is (G, cap, R * cps) with G = cps / R blocks of R cell rows
 // (R = 1 is the unpacked (cps, cap, cps) layout; see cell_force.cu): slot
@@ -23,6 +25,14 @@
 // gives each target slot at most one source), so no two threads write the
 // same element and the output is bit-identical to the plain PyTorch
 // version: values are only moved.
+//
+// B2 halo (R = 1): scode and fields hold one rank's n_rows cell rows with
+// the previous rank's last row before them and the next rank's first row
+// after them, (n_rows + 2, cap, cps); out holds the local rows only. A source
+// slot in extended row r moving by dx lands in local row r + dx - 1; a write
+// outside [0, n_rows) is dropped, because the rank that owns that row
+// scatters the same source from its own halo copy. Rows do not wrap here
+// (the halo rows stand in for the periodic neighbours); columns do.
 //
 // What bounds it on an H100: at N=100k with Kahan fields, F = 11 planes of
 // 234k slots, 10.3 MB read and 20.6 MB written (fill plus scatter), a few
@@ -75,6 +85,30 @@ __global__ void migrate_scatter_kernel(const int* __restrict__ scode,
   }
 }
 
+__global__ void migrate_halo_scatter_kernel(const int* __restrict__ scode,
+                                            const float* __restrict__ fields,
+                                            float* __restrict__ out,
+                                            int n_fields, int n_rows, int cps,
+                                            int cap) {
+  const int row = cap * cps;
+  const int n_src = (n_rows + 2) * row;
+  const int n_out = n_rows * row;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n_src) return;
+  const int code = scode[s];
+  if (code < 0 || code >= 9 * cap) return;
+  const int dcode = code / cap;
+  const int a = code % cap;
+  const int tx = s / row + dcode / 3 - 2;  // extended row + dx - 1
+  if (tx < 0 || tx >= n_rows) return;
+  int ty = s % cps + dcode % 3 - 1;
+  ty += ty < 0 ? cps : (ty >= cps ? -cps : 0);
+  const int t = (tx * cap + a) * cps + ty;
+  for (int f = 0; f < n_fields; ++f) {
+    out[f * n_out + t] = fields[f * n_src + s];
+  }
+}
+
 }  // namespace
 
 // fields and out are (n_fields, G, cap, R * cps) float32; scode is
@@ -101,5 +135,34 @@ extern "C" int jtps_migrate(const int* scode, const float* fields, float* out,
   const int blocks = (n_slots + threads - 1) / threads;
   migrate_scatter_kernel<<<blocks, threads, 0, st>>>(
       scode, fields, out, n_fields, cps, cap, rows_per_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2 halo: scode is (n_rows + 2, cap, cps) int32 and fields
+// (n_fields, n_rows + 2, cap, cps) float32, each with its halo rows
+// attached; out is (n_fields, n_rows, cap, cps). Launches on `stream` and
+// returns cudaGetLastError().
+extern "C" int jtps_migrate_halo(const int* scode, const float* fields,
+                                 float* out, const float* fills, int n_fields,
+                                 int n_rows, int cps, int cap, int device,
+                                 void* stream) {
+  if (n_fields < 1 || n_fields > kMaxFields || n_rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Fills f{};
+  for (int k = 0; k < n_fields; ++k) f.v[k] = fills[k];
+  const int n_out = n_rows * cap * cps;
+  const int threads = 256;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long total = static_cast<long long>(n_fields) * n_out;
+  const int fill_blocks = static_cast<int>((total + threads - 1) / threads);
+  migrate_fill_kernel<<<fill_blocks, threads, 0, st>>>(out, f, n_fields, n_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_src = (n_rows + 2) * cap * cps;
+  const int blocks = (n_src + threads - 1) / threads;
+  migrate_halo_scatter_kernel<<<blocks, threads, 0, st>>>(
+      scode, fields, out, n_fields, n_rows, cps, cap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -171,6 +171,41 @@ class GridMD:
         self.force_kernel = mk()
         self.energy_kernel = mk(with_energy=True)
 
+    # -- hooks that the row-sharded engine (parallel/grid_md_sharded.py)
+    # overrides: here one engine holds every cell row ----------------------
+    _row0 = 0  # global index of the first cell row held
+
+    @property
+    def n_rows(self) -> int:
+        """Cell rows held (the unpacked view's)."""
+        return self.cps
+
+    def _held(self, slot: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(slots, ids)`` of the particles placed here, from their global
+        flat slots: all of them (``ids`` None)."""
+        return slot, None
+
+    @staticmethod
+    def _row_ext(t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t`` with one row more at each end along ``dim``: the periodic
+        neighbours of its first and last row."""
+        n = t.shape[dim]
+        return torch.cat([t.narrow(dim, n - 1, 1), t, t.narrow(dim, 0, 1)], dim)
+
+    @staticmethod
+    def _all_max(t: torch.Tensor) -> torch.Tensor:
+        """Max over the engine's ranks (one here)."""
+        return t
+
+    _all_sum = _all_max  # sum over the engine's ranks
+
+    _gather_rows = _all_max  # every rank's rows, concatenated
+
+    @staticmethod
+    def _noise_seed(s) -> int:
+        """The seed of a Langevin window's generator."""
+        return _stream_seed(s.rng_seed, s.rng_counter)
+
     # -- layout helpers ------------------------------------------------------
     def _slot2(self, position: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Flat grid slot for each particle + overflow flag. Particles of a
@@ -205,11 +240,12 @@ class GridMD:
         position = position.to(self.device)
         velocity = velocity.to(self.device)
         slot2, overflow = self._slot2(position)
+        slot2, ids = self._held(slot2)
         dtype = position.dtype
 
         def put(v, fill=0.0):
             z = torch.full((self.size,), fill, dtype=dtype, device=self.device)
-            z[slot2] = v
+            z[slot2] = v if ids is None else v[ids]
             return z.view(self.grid_shape)
 
         xg = put(position[:, 0], fill=self.sentinel)
@@ -217,7 +253,7 @@ class GridMD:
         vxg, vyg = put(velocity[:, 0]), put(velocity[:, 1])
         occ = put(torch.ones(self.n, dtype=dtype, device=self.device))
         pid = torch.full((self.size,), -1, dtype=torch.int32, device=self.device)
-        pid[slot2] = torch.arange(self.n, dtype=torch.int32, device=self.device)
+        pid[slot2] = torch.arange(self.n, dtype=torch.int32, device=self.device) if ids is None else ids.to(torch.int32)
         fxg, fyg = self.force_kernel(xg, yg)
         comp = {}
         if self.compensated:
@@ -241,8 +277,14 @@ class GridMD:
         The allocation depends only on physical cells and slot order, so it
         runs on the unpacked ``(cps, cap, cps)`` view of the grids (one copy
         each way where R > 1) and gives every particle the cell and slot
-        the JAX package's packed allocation gives it."""
+        the JAX package's packed allocation gives it.
+
+        The rolls of the per-cell counts and bases along the rows read one
+        row past each end through ``_row_ext``: the periodic neighbour rows
+        here, the neighbour ranks' rows in the row-sharded engine, whose
+        ``_row0`` also offsets the row index."""
         cps, cap, box, r = self.cps, self.cap, self.box, self.rows_per_block
+        rows = self.n_rows
         dev = s.xg.device
         i32 = torch.int32
 
@@ -252,7 +294,7 @@ class GridMD:
         yw = torch.remainder(s.yg, box)
         occ_b = unpack(s.occ, r) > 0.5
 
-        cx = torch.arange(cps, dtype=i32, device=dev).view(cps, 1, 1)
+        cx = torch.arange(self._row0, self._row0 + rows, dtype=i32, device=dev).view(rows, 1, 1)
         cy = torch.arange(cps, dtype=i32, device=dev).view(1, 1, cps)
         cell = box / cps
         txc = torch.div(unpack(xw, r), cell, rounding_mode="floor").to(i32).clamp(0, cps - 1)
@@ -276,12 +318,13 @@ class GridMD:
         dmi = dm.to(i32)
         inc = torch.cumsum(dmi, dim=2, dtype=i32)  # along the slot axis
         ranks = inc - dmi
-        counts = inc[:, :, cap - 1 : cap, :]  # (9, cps, 1, cps)
+        counts = self._row_ext(inc[:, :, cap - 1 : cap, :], 1)  # (9, rows + 2, 1, cps)
         # counts per class moved to the target frame: out[X, Y] = v[X-dx, Y-dy]
-        rc = torch.stack([torch.roll(counts[j], (dx, dy), (0, 2)) for j, (dx, dy) in enumerate(_DIRS)])
+        rc = torch.stack([torch.roll(counts[j, 1 - dx : 1 - dx + rows], dy, 2) for j, (dx, dy) in enumerate(_DIRS)])
         bases_t = torch.cumsum(rc, dim=0, dtype=i32) - rc
+        bases_ext = self._row_ext(bases_t, 1)
         base_src = torch.stack(
-            [torch.roll(bases_t[j], (-dx, -dy), (0, 2)) for j, (dx, dy) in enumerate(_DIRS)]
+            [torch.roll(bases_ext[j, 1 + dx : 1 + dx + rows], -dy, 2) for j, (dx, dy) in enumerate(_DIRS)]
         )
         picked = torch.where(dm, base_src + ranks, 0).sum(0, dtype=i32)
         target_a = torch.where(occ_b, picked, -1)
@@ -292,7 +335,7 @@ class GridMD:
         scode = torch.where(valid, dcode * cap + target_a, -1).to(i32)
 
         # post-rebuild occupancy: slots fill compactly from 0
-        tot = torch.clamp(rc.sum(0, dtype=i32), max=cap)  # (cps, 1, cps)
+        tot = torch.clamp(rc.sum(0, dtype=i32), max=cap)  # (rows, 1, cps)
         slot_i = torch.arange(cap, dtype=i32, device=dev).view(1, cap, 1)
         occ_new = (slot_i < tot).to(s.occ.dtype)
         return xw, yw, pack(scode, r), pack(occ_new, r), overflow
@@ -310,7 +353,7 @@ class GridMD:
         if s.crx is not None:
             fields += [s.crx, s.cry, s.cvx, s.cvy]
             fills += [0.0, 0.0, 0.0, 0.0]
-        out = migrate(scode, torch.stack(fields), fills, self.rows_per_block)
+        out = self._migrate(scode, torch.stack(fields), fills)
         comp = {}
         if s.crx is not None:
             comp = dict(crx=out[7], cry=out[8], cvx=out[9], cvy=out[10])
@@ -318,8 +361,12 @@ class GridMD:
             xg=out[0], yg=out[1], vxg=out[2], vyg=out[3], fxg=out[4], fyg=out[5],
             occ=occ, pid=out[6].to(torch.int32),
             dispx=torch.zeros_like(s.xg), dispy=torch.zeros_like(s.xg),
-            dmax2=torch.zeros_like(s.dmax2), overflow=overflow, **comp,
+            dmax2=torch.zeros_like(s.dmax2), overflow=self._all_max(overflow), **comp,
         )
+
+    def _migrate(self, scode: torch.Tensor, fields: torch.Tensor, fills) -> torch.Tensor:
+        """The rebuild's permutation of the stacked fields: kernel B2."""
+        return migrate(scode, fields, fills, self.rows_per_block)
 
     # -- rebuild (sort-based oracle) -------------------------------------------
     def _rebuild(self, s: GridMDState) -> GridMDState:
@@ -417,7 +464,7 @@ class GridMD:
                 if s.rng_seed is None:
                     raise ValueError("Langevin window needs a PRNG stream: init(..., seed=...)")
                 gen = torch.Generator(device=s.xg.device)
-                gen.manual_seed(_stream_seed(s.rng_seed, s.rng_counter))
+                gen.manual_seed(self._noise_seed(s))
                 noise_shape = (len(axes),) + tuple(s.xg.shape)
             extra = self._force_args(s)
             f = [getattr(s, f"f{a}g") for a in axes]
@@ -450,7 +497,7 @@ class GridMD:
                         vh[k], cv[k] = kadd(vh[k], cv[k], dt * f[k])
                     else:
                         vh[k] = vh[k] + dt * f[k]
-            dmax2 = torch.max(dm)
+            dmax2 = self._all_max(torch.max(dm))
             violation = ~(dmax2 <= (0.5 * self.skin) ** 2)
             out = dict(dmax2=dmax2, overflow=s.overflow | violation, time=s.time + n_inner * dt)
             for k, a in enumerate(axes):
@@ -577,29 +624,29 @@ class GridMD:
 
     # -- observables / export ---------------------------------------------------
     def kinetic_energy(self, s: GridMDState) -> torch.Tensor:
-        return 0.5 * torch.sum((s.vxg**2 + s.vyg**2) * s.occ)
+        return self._all_sum(0.5 * torch.sum((s.vxg**2 + s.vyg**2) * s.occ))
 
     def potential_energy(self, s: GridMDState) -> torch.Tensor:
         """One energy-kernel pass. Each pair's shifted LJ energy is counted
         on both partners, hence the 0.5."""
         _, _, e, _ = self.energy_kernel(s.xg, s.yg)
-        return 0.5 * torch.sum(e)
+        return self._all_sum(0.5 * torch.sum(e))
 
     def virial(self, s: GridMDState) -> torch.Tensor:
         """Pair virial ``W = sum_pairs 24*eps*(2(s/r)^12 - (s/r)^6)`` from
         the energy-kernel pass (each pair on both partners, hence 0.5)."""
         _, _, _, w = self.energy_kernel(s.xg, s.yg)
-        return 0.5 * torch.sum(w)
+        return self._all_sum(0.5 * torch.sum(w))
 
     def pressure(self, s: GridMDState) -> torch.Tensor:
         """Instantaneous virial pressure ``P = (2*KE + W) / (d * V)``, d = 2."""
         return (2.0 * self.kinetic_energy(s) + self.virial(s)) / (2.0 * self.box**2)
 
     def particle_order(self, s: GridMDState, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        pid = s.pid.reshape(-1)
+        pid = self._gather_rows(s.pid).reshape(-1)
         tgt = torch.where(pid >= 0, pid, self.n).long()
         out = torch.zeros((self.n + 1, 2), dtype=a.dtype, device=a.device)
-        out[tgt] = torch.stack((a.reshape(-1), b.reshape(-1)), dim=1)
+        out[tgt] = torch.stack((self._gather_rows(a).reshape(-1), self._gather_rows(b).reshape(-1)), dim=1)
         return out[: self.n]
 
     def positions(self, s: GridMDState) -> torch.Tensor:

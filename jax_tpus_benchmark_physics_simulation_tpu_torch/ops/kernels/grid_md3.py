@@ -25,8 +25,11 @@ are Python loops here. The gated driver reads ``dmax2`` once per window. In
 the hybrid mode (``static_cov="auto"``), the choice between B5 (while
 ``max_occ <= cov``) and B4 reads ``max_occ`` once per rebuild period.
 
-Not ported: ``_rebuild_migrate_rows`` and the ``.raw`` halo kernels of the
-JAX package's sharded engine.
+The row-sharded engine (``parallel/grid_md3_sharded.py``) overrides the
+hooks this engine shares with the 2D one (``GridMD._all_max`` and the
+rest): the sums and maxima over ranks, the rows past each end of the held
+x-rows and the row offset. The JAX package's ``_rebuild_migrate_rows`` (its
+plain-jnp rebuild oracle) is not ported: ``_rebuild`` is the port's.
 """
 
 from __future__ import annotations
@@ -167,6 +170,16 @@ class GridMD3:
     def _pure_static(self) -> bool:
         return self.static_cov is not None and not self._hybrid
 
+    # the row-sharding hooks, shared with the 2D engine
+    _row0 = GridMD._row0
+    n_rows = GridMD.n_rows
+    _held = GridMD._held
+    _row_ext = staticmethod(GridMD._row_ext)
+    _all_max = staticmethod(GridMD._all_max)
+    _all_sum = staticmethod(GridMD._all_sum)
+    _gather_rows = staticmethod(GridMD._gather_rows)
+    _noise_seed = staticmethod(GridMD._noise_seed)
+
     # -- layout helpers ------------------------------------------------------
     def _slot3(self, position: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Flat grid slot for each particle + overflow flag. Particles of a
@@ -194,10 +207,9 @@ class GridMD3:
         """Placement hook (parity with the JAX package's ``prepare``)."""
         return state
 
-    @staticmethod
-    def _max_occ(occ: torch.Tensor) -> torch.Tensor:
+    def _max_occ(self, occ: torch.Tensor) -> torch.Tensor:
         """Global max cell occupancy (the slot axis is 1), 0-d int32."""
-        return occ.sum(1).max().to(torch.int32)
+        return self._all_max(occ.sum(1).max().to(torch.int32))
 
     def init(self, position: torch.Tensor, velocity: torch.Tensor, seed: Optional[int] = None) -> GridMD3State:
         """``seed`` arms the state's noise stream, which Langevin windows
@@ -205,11 +217,12 @@ class GridMD3:
         position = position.to(self.device)
         velocity = velocity.to(self.device)
         slot, overflow = self._slot3(position)
+        slot, ids = self._held(slot)
         dtype = position.dtype
 
         def put(v, fill=0.0):
             z = torch.full((self.size,), fill, dtype=dtype, device=self.device)
-            z[slot] = v
+            z[slot] = v if ids is None else v[ids]
             return z.view(self.grid_shape)
 
         xg = put(position[:, 0], fill=self.sentinel)
@@ -217,7 +230,7 @@ class GridMD3:
         vxg, vyg, vzg = (put(velocity[:, k]) for k in range(3))
         occ = put(torch.ones(self.n, dtype=dtype, device=self.device))
         pid = torch.full((self.size,), -1, dtype=torch.int32, device=self.device)
-        pid[slot] = torch.arange(self.n, dtype=torch.int32, device=self.device)
+        pid[slot] = torch.arange(self.n, dtype=torch.int32, device=self.device) if ids is None else ids.to(torch.int32)
         max_occ = self._max_occ(occ)
         if self._pure_static:
             overflow = overflow | (max_occ > self.static_cov)
@@ -236,23 +249,26 @@ class GridMD3:
 
     # -- migration rebuild (sort-free) ----------------------------------------
     def _roll_cells_index(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Flat gather indices over a (27, ncx, ncy, ncz) per-cell array: the
-        first rolls class j's cells forward by its direction
-        (``out[j, X] = v[j, X - d_j]``), the second back
-        (``out[j, X] = v[j, X + d_j]``). One gather replaces the JAX
-        package's 27 rolls (``roll_cells``) and gives the same integers."""
+        """Flat gather indices from a (27, rows + 2, ncy, ncz) per-cell array
+        (the held x-rows with one row past each end, ``_row_ext``) into the
+        (27, rows, ncy, ncz) one: the first rolls class j's cells forward by
+        its direction (``out[j, X] = v[j, X - d_j]``), the second back
+        (``out[j, X] = v[j, X + d_j]``), y and z periodically. One gather
+        replaces the JAX package's 27 rolls (``roll_cells``) and gives the
+        same integers."""
         key = str(device)
         if key not in self._roll_index:
-            c = self.cps
+            c, rows = self.cps, self.n_rows
             ar = torch.arange(c, device=device)
             d = torch.tensor(_DIRS, device=device).view(27, 3, 1, 1, 1)
-            xyz = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"))[None]  # (1, 3, c, c, c)
-            j = torch.arange(27, device=device).view(27, 1, 1, 1) * c**3
+            xyz = torch.stack(torch.meshgrid(torch.arange(rows, device=device), ar, ar, indexing="ij"))[None]
+            j = torch.arange(27, device=device).view(27, 1, 1, 1) * ((rows + 2) * c * c)
 
             def flat(p):
-                return j + (p[:, 0] * c + p[:, 1]) * c + p[:, 2]
+                # x is row 1 + X -+ dx of the extended rows; y and z wrap
+                return j + ((1 + p[:, 0]) * c + p[:, 1] % c) * c + p[:, 2] % c
 
-            self._roll_index[key] = (flat((xyz - d) % c).reshape(-1), flat((xyz + d) % c).reshape(-1))
+            self._roll_index[key] = (flat(xyz - d).reshape(-1), flat(xyz + d).reshape(-1))
         return self._roll_index[key]
 
     def _migration_dest3(self, s: GridMD3State):
@@ -263,6 +279,7 @@ class GridMD3:
         package's, class by class in the same order, so the codes are
         bit-identical (see ``GridMD._migration_dest`` for the argument)."""
         cps, cap, box, plane = self.cps, self.cap, self.box, self.plane
+        rows = self.n_rows
         dev = s.xg.device
         i32 = torch.int32
         occ_b = s.occ > 0.5
@@ -273,7 +290,7 @@ class GridMD3:
         yw = torch.remainder(s.yg, box)
         zw = torch.remainder(s.zg, box)
 
-        cx = torch.arange(cps, dtype=i32, device=dev).view(cps, 1, 1)
+        cx = torch.arange(self._row0, self._row0 + rows, dtype=i32, device=dev).view(rows, 1, 1)
         col = torch.arange(plane, dtype=i32, device=dev).view(1, 1, plane)
         cy = torch.div(col, cps, rounding_mode="floor")
         cz = col % cps
@@ -297,13 +314,13 @@ class GridMD3:
         dmi = dm.to(i32)
         inc = torch.cumsum(dmi, dim=2, dtype=i32)  # along the slot axis
         ranks = inc - dmi  # exclusive in-cell rank within the class
-        counts = inc[:, :, cap - 1, :]  # (27, ncx, plane)
+        counts = self._row_ext(inc[:, :, cap - 1, :], 1)  # (27, rows + 2, plane)
         fwd, back = self._roll_cells_index(dev)
         # per-class counts at the TARGET cell, exclusive-prefixed in class
         # order: the first free slot before each class arrives
-        rc = counts.reshape(-1)[fwd].view(27, cps, 1, plane)
+        rc = counts.reshape(-1)[fwd].view(27, rows, 1, plane)
         bases_t = torch.cumsum(rc, dim=0, dtype=i32) - rc
-        base_src = bases_t.reshape(-1)[back].view(27, cps, 1, plane)
+        base_src = self._row_ext(bases_t, 1).reshape(-1)[back].view(27, rows, 1, plane)
         picked = torch.where(dm, base_src + ranks, 0).sum(0, dtype=i32)
         target_a = torch.where(occ_b, picked, -1)
 
@@ -313,7 +330,7 @@ class GridMD3:
         scode = torch.where(valid, dcode * cap + target_a, -1).to(i32)
 
         # post-rebuild occupancy: slots fill compactly from 0
-        tot = torch.clamp(rc.sum(0, dtype=i32), max=cap)  # (ncx, 1, plane)
+        tot = torch.clamp(rc.sum(0, dtype=i32), max=cap)  # (rows, 1, plane)
         slot_i = torch.arange(cap, dtype=i32, device=dev).view(1, cap, 1)
         occ_new = (slot_i < tot).to(s.occ.dtype)
         return xw, yw, zw, scode, occ_new, overflow
@@ -336,8 +353,7 @@ class GridMD3:
         new_mo = self._max_occ(occ_new)
         if self._pure_static:
             overflow = overflow | (new_mo > self.static_cov)
-        k_mov = self.migrate_k_mov if self.migrate_compact else None
-        out, mov_of = migrate3(scode, torch.stack(fields), fills, k_mov=k_mov)
+        out, mov_of = self._migrate(scode, torch.stack(fields), fills)
         comp = {}
         if s.crx is not None:
             comp = dict(crx=out[10], cry=out[11], crz=out[12], cvx=out[13], cvy=out[14], cvz=out[15])
@@ -348,8 +364,14 @@ class GridMD3:
             occ=occ_new, pid=out[9].to(torch.int32),
             dispx=zeros, dispy=zeros, dispz=zeros,
             dmax2=torch.zeros_like(s.dmax2),
-            overflow=overflow | mov_of, max_occ=new_mo, **comp,
+            overflow=self._all_max(overflow | mov_of), max_occ=new_mo, **comp,
         )
+
+    def _migrate(self, scode: torch.Tensor, fields: torch.Tensor, fills):
+        """The rebuild's permutation of the stacked fields and its mover
+        flag: B6, or B7 with ``migrate_compact=False``."""
+        k_mov = self.migrate_k_mov if self.migrate_compact else None
+        return migrate3(scode, fields, fills, k_mov=k_mov)
 
     # -- rebuild (sort-based oracle) -------------------------------------------
     def _rebuild(self, s: GridMD3State) -> GridMD3State:
@@ -434,19 +456,19 @@ class GridMD3:
 
     # -- observables / export ---------------------------------------------------
     def kinetic_energy(self, s: GridMD3State) -> torch.Tensor:
-        return 0.5 * torch.sum((s.vxg**2 + s.vyg**2 + s.vzg**2) * s.occ)
+        return self._all_sum(0.5 * torch.sum((s.vxg**2 + s.vyg**2 + s.vzg**2) * s.occ))
 
     def potential_energy(self, s: GridMD3State) -> torch.Tensor:
         """One energy-kernel pass. Each pair's shifted LJ energy is counted
         on both partners, hence the 0.5."""
         _, _, _, e, _ = self.energy_kernel(s.xg, s.yg, s.zg, s.max_occ)
-        return 0.5 * torch.sum(e)
+        return self._all_sum(0.5 * torch.sum(e))
 
     def virial(self, s: GridMD3State) -> torch.Tensor:
         """Pair virial ``W = sum_pairs 24*eps*(2(s/r)^12 - (s/r)^6)`` from
         the energy-kernel pass (each pair on both partners, hence 0.5)."""
         _, _, _, _, w = self.energy_kernel(s.xg, s.yg, s.zg, s.max_occ)
-        return 0.5 * torch.sum(w)
+        return self._all_sum(0.5 * torch.sum(w))
 
     def pressure(self, s: GridMD3State) -> torch.Tensor:
         """Instantaneous virial pressure ``P = (2*KE + W) / (3 * V)``."""
@@ -454,10 +476,10 @@ class GridMD3:
 
     def particle_order(self, s: GridMD3State, *grids: torch.Tensor) -> torch.Tensor:
         """(N, len(grids)) values of the grids in particle order."""
-        pid = s.pid.reshape(-1)
+        pid = self._gather_rows(s.pid).reshape(-1)
         tgt = torch.where(pid >= 0, pid, self.n).long()
         out = torch.zeros((self.n + 1, len(grids)), dtype=grids[0].dtype, device=grids[0].device)
-        out[tgt] = torch.stack([g.reshape(-1) for g in grids], dim=1)
+        out[tgt] = torch.stack([self._gather_rows(g).reshape(-1) for g in grids], dim=1)
         return out[: self.n]
 
     def positions(self, s: GridMD3State) -> torch.Tensor:

@@ -321,3 +321,86 @@ def test_copy_kernel_bit_equal(cuda_device, dtype):
     assert copy_cuda.COPY_LAUNCHES == before + 3
     with pytest.raises(ValueError, match="aligned"):
         copy_cuda.chunked_copy(src[1:])
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_halo_kernels_2d_bit_equal_to_whole_grid(cuda_device, p):
+    """B1 halo (both variants) and B2 halo over p row blocks (cps 24 at
+    R = 1) against B1 and B2 on the whole grid, and each launch counted."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import halo_blocks
+
+    md, gs = _advanced_state(cuda_device, rows_per_block=1)
+    params = cell_cuda.CellForceParams.from_grid(md.grid_fn)
+    before = (cell_cuda.HALO_LAUNCHES, cell_cuda.HALO_ENERGY_LAUNCHES, migrate_cuda.HALO_LAUNCHES)
+    for with_energy in (False, True):
+        full = cell_cuda.grid_force(gs.xg, gs.yg, params, with_energy)
+        parts = [cell_cuda.grid_force_halo(x, y, params, with_energy)
+                 for x, y in zip(halo_blocks(gs.xg, p, md.box), halo_blocks(gs.yg, p))]
+        assert all(torch.equal(torch.cat(q), f) for q, f in zip(zip(*parts), full))
+    _, _, scode, _, _ = md._migration_dest(gs)
+    fields = torch.stack([gs.xg, gs.yg, gs.vxg, gs.pid.float()])
+    fills = [md.sentinel, 0.0, 0.0, -1.0]
+    got = torch.cat([migrate_cuda.migrate_halo(c, f, fills)
+                     for c, f in zip(halo_blocks(scode, p), halo_blocks(fields, p, dim=1))], 1)
+    assert torch.equal(got, migrate_cuda.migrate(scode, fields, fills))
+    assert (cell_cuda.HALO_LAUNCHES, cell_cuda.HALO_ENERGY_LAUNCHES, migrate_cuda.HALO_LAUNCHES) == (
+        before[0] + p, before[1] + p, before[2] + p)
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_halo_kernels_3d_bit_equal_to_whole_grid(cuda_device, p):
+    """B4 halo (both variants), B5 halo and B6 halo over p x-row blocks (cps
+    8) against the whole-grid kernels, the mover flag included."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import halo_blocks
+
+    md, gs = _advanced_state3(cuda_device)
+    params = cell_cuda3.CellForce3Params.from_grid(md.grid_fn)
+    blocks = list(zip(halo_blocks(gs.xg, p, md.box), halo_blocks(gs.yg, p), halo_blocks(gs.zg, p)))
+    for kw in (dict(max_occ=gs.max_occ), dict(max_occ=gs.max_occ, with_energy=True), dict(static_cov=md.static_cov)):
+        full = cell_cuda3.grid_force3(gs.xg, gs.yg, gs.zg, params, **kw)
+        parts = [cell_cuda3.grid_force3_halo(*b, params, **kw) for b in blocks]
+        assert all(torch.equal(torch.cat(q), f) for q, f in zip(zip(*parts), full))
+    _, _, _, scode, _, _ = md._migration_dest3(gs)
+    fields = torch.stack([gs.xg, gs.yg, gs.zg, gs.pid.float()])
+    fills = [md.sentinel, 0.0, 0.0, -1.0]
+    fblocks = halo_blocks(fields, p, dim=1)
+    for k_mov in (1, md.migrate_k_mov):
+        full, flag = migrate_cuda3.migrate3(scode, fields, fills, k_mov=k_mov)
+        outs = [migrate_cuda3.migrate3_halo(c, f, fills, k_mov=k_mov) for c, f in zip(halo_blocks(scode, p), fblocks)]
+        assert torch.equal(torch.cat([o[0] for o in outs], 1), full)
+        assert any(bool(o[1]) for o in outs) is bool(flag)
+
+
+def test_sharded_engines_at_one_rank_match_unsharded(cuda_device):
+    """``ShardedGridMD`` and ``ShardedGridMD3`` on the card with a mesh of
+    one rank: 100 chunked steps (rebuilds included) launch the halo kernels
+    and no whole-grid one, and 50 match the one-device engine at ``scaling._check_parity``'s
+    tolerance."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel import scaling
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md3_sharded import ShardedGridMD3
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md_sharded import ShardedGridMD
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import make_mesh
+
+    def whole_grid():
+        return (cell_cuda.LAUNCHES, cell_cuda_packed.LAUNCHES, cell_cuda3.LAUNCHES, cell_cuda3.STATIC_LAUNCHES,
+                migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES, migrate_cuda3.LAUNCHES)
+
+    def halo():
+        return (cell_cuda.HALO_LAUNCHES + cell_cuda3.HALO_LAUNCHES + cell_cuda3.HALO_STATIC_LAUNCHES,
+                migrate_cuda.HALO_LAUNCHES + migrate_cuda3.HALO_LAUNCHES)
+
+    for cfg, engine in ((CFG, ShardedGridMD), (CFG3, ShardedGridMD3)):
+        plain = scaling._build_engine(cfg, 1, cuda_device)[0]
+        sharded = engine(plain.grid_fn, make_mesh(device=cuda_device), dt=cfg.dt, compensated=cfg.compensated)
+        k, gate = lj_fluid._grid_inner_steps(cfg, sharded)
+        state = lj_fluid.init_state(cfg, cuda_device)
+        before, halo_before = whole_grid(), halo()
+        gs = sharded.init(state.position, state.velocity)
+        chunk = sharded.make_chunk_step(k, gate_frac=gate)
+        for _ in range(100 // k):
+            gs = chunk(gs)
+        torch.cuda.synchronize()
+        assert whole_grid() == before
+        assert all(a > b for a, b in zip(halo(), halo_before))
+        ok, err = scaling.parity(cfg, sharded, state, 50, cuda_device)
+        assert ok, err

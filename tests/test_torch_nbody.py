@@ -159,16 +159,19 @@ def test_lyapunov_matches_jax(method, d0):
     3.8e-6 in float32): both packages return exactly 0. The estimator takes
     the difference of two trajectories d0 apart at coordinates ~50, so its
     float32 roundoff is ~ulp(50) / d0 relative: d0 = 1e-2 keeps that below
-    the rtol (at d0 = 1e-4 the packages differ by 4%)."""
+    the rtol (at d0 = 1e-4 the packages differ by 4%). The port refuses the
+    vanished perturbation where JAX returns its silent 0."""
     jc, tc = _configs(num_steps=300, sim_time=60.0, lyapunov_method=method)
     (yj, mj), (yt, mt) = _inputs(jc, tc)
-    lam_t = float(nb.lyapunov(tc, yt, mt, d0=d0))
     lam_j = float(jnb.lyapunov(jc, yj, mj, d0=d0))
-    assert np.isfinite(lam_t)
     if method == "two_trajectory" and d0 == 1e-6:
-        assert lam_t == lam_j == 0.0
-    else:
-        np.testing.assert_allclose(lam_t, lam_j, rtol=1e-4)
+        assert lam_j == 0.0
+        with pytest.raises(ValueError, match="rounds back"):
+            nb.lyapunov(tc, yt, mt, d0=d0)
+        return
+    lam_t = float(nb.lyapunov(tc, yt, mt, d0=d0))
+    assert np.isfinite(lam_t)
+    np.testing.assert_allclose(lam_t, lam_j, rtol=1e-4)
 
 
 def test_lyapunov_generator_start():
