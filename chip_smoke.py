@@ -60,19 +60,22 @@ Run from the repository root. It builds the CUDA kernels from
 15. 2D kernels at the packed shapes, on states 20 steps after a rebuild
     (coordinates unwrapped near the seams, block-crossing rows included):
     B3 at N=16,384 (cutoff 2.5: 49 cells per side, R=49, grid 1 x 16 x
-    2401) and at N=1M (385 cells per side, R=7, grid 55 x 16 x 2695)
-    against its plain version (forces <= 1e-4 over occupied slots, the
-    energy variant's e and w sums at rtol 1e-5, two launches bit-equal),
-    and B2 on the packed N=1M grid bit-equal to its plain version; timed
-    with CUDA events;
+    2401) and at N=1M (385 cells per side, R=7, grid 55 x 16 x 2695), with
+    the state's count grid: both variants torch.equal to B1 on the
+    unpacked grids (packed back) and over two launches, and within 1e-4 of
+    the plain version over occupied slots (the energy variant's e and w
+    sums at rtol 1e-5); B3 and B1 on the unpacked grids (the full-capacity
+    loop) timed in 7 interleaved repeats (median, min, max); B2 on the
+    packed N=1M grid bit-equal to its plain version; timed with CUDA
+    events;
 16. B3 forces on 1024 interior particles of the N=16,384 packed state
     against the dense oracle computed from all 16,384 (atol 1e-4);
 17. the packed main paths, ``lj_fluid.run`` at N=16,384 and at N=1M with
     cutoff 2.5 (rho 0.8, dt 1e-3, lattice init, Kahan on, 2000 + 2000
     steps), every counter set to 0 just before each: overflow False,
     finite histories, drift < 1e-4, B3, B3-energy and packed B2 launched
-    and B1 and unpacked B2 not; at N=1M also the card's busy share over 200
-    traced production steps;
+    and B1 and unpacked B2 not; at N=1M also its ms/step, the card's busy
+    share over 200 traced production steps and B3's share of device time;
 18. the grid engine at N=4096 (cutoff 2.5; phase 4 runs it at its default
     R=24) with ``rows_per_block`` 1 and 4 (G=6): 100 + 100 steps on the card
     against the same on the CPU, energies at rtol 1e-4;
@@ -89,10 +92,12 @@ Run from the repository root. It builds the CUDA kernels from
     .energy`` at rtol 1e-5; timed with CUDA events;
 21. B10 (the bandwidth op's copy) through ``make_bandwidth_op(mode=
     "pallas_copy")`` at 64Mi float32 and 128Mi bfloat16 elements (256 MiB
-    each): bit-equal to the source; kernel, plain (``clone``) and
-    ``dst.copy_(src)`` times; then B10 under ``runners._timed_loop`` (chain
-    ``direct``, 20 steps), with every counter set to 0 just before, and its
-    GiB/s;
+    each): bit-equal to the source, and on direct calls of odd sizes (3
+    blocks of 16 KB + 1001 vectors + 4 bytes, 3.5 blocks an SM + 4 bytes);
+    B10 and ``dst.copy_(src)`` timed in 7 interleaved repeats (median, min,
+    max), and the plain version
+    (``clone``); then B10 under ``runners._timed_loop`` (chain ``direct``,
+    20 steps), with every counter set to 0 just before, and its GiB/s;
 22. the op suite, ``run_sweep`` in this process at full widths (matrix
     4096, depth 6, conv 64x128x128x32 -> 64, bandwidth 256 MiB) at steps
     20, warmup 1, repeats 2, in float32 and bfloat16: six rows with no
@@ -124,19 +129,21 @@ Run from the repository root. It builds the CUDA kernels from
 26. the row-sharded engines on the card: an NCCL process group of world
     size 1 from an in-process store, then ``lj_fluid.run`` (2000 + 2000
     steps) on ``ShardedGridMD`` at the 2D N of phase 24 and on
-    ``ShardedGridMD3`` (hybrid B5/B4 halo windows, k_mov 16 as ``mdscale``
-    builds it) at the 3D N of phase 25, every counter set to 0 just before each: overflow False,
+    ``ShardedGridMD3`` (hybrid B5/B4 halo windows, lj_fluid's k_mov 16, as
+    ``mdscale`` builds it too) at the 3D N of phase 25, every counter set to 0 just before each: overflow False,
     finite histories and P*, drift < 1e-4, every halo kernel launched and
     no whole-grid kernel; then the unsharded engine at the same N (its
     ms/step printed beside the sharded one's) and 50 steps of trajectory
     parity at ``scaling._check_parity``'s rtol = atol = 2e-4, and what an
-    all-reduce on the group and one step's edge-row exchange cost each; at
-    the 3D geometry also lj_fluid's engine (k_mov 8), whose overflow flag
-    is printed (it rises at the first rebuild of the melt, an open fault); the group is destroyed at the end;
+    all-reduce on the group and one step's edge-row exchange cost each; the
+    3D engine's mover flag at 18 cells per side is printed (False); the
+    group is destroyed at the end;
 27. prints a JSON line with each kernel's launches on its main path,
     error, times, and bound (the larger of the operations over the card's
     float32 peak and the bytes over its memory rate, counted on this run's
-    inputs), and as the last line ``{"ok": true, "device": {...}}``.
+    inputs), B3's with ``full_capacity_ms`` (B1's loop on the unpacked
+    grids), and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 Without a CUDA device it stops before doing anything.
@@ -148,6 +155,7 @@ import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -162,11 +170,15 @@ PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 
 def _cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn()`` over ``reps`` back-to-back calls, from
-    CUDA events, after one warm call."""
+    CUDA events, after a warm call. A second untimed call is still running
+    when the start event is recorded, so the card does not sit idle while
+    the host prepares the first timed call (a wrapper's host time, up to
+    tens of us, would otherwise count once in every ``reps`` calls)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -175,6 +187,22 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _interleaved_ms(fns: dict, repeats: int = 7, reps: int = 20) -> dict:
+    """``{name: (median, min, max)}`` of each function's mean device ms over
+    ``reps`` calls (``_cuda_ms``), in ``repeats`` rounds that take the
+    functions in turn, so that a drift of the card's clock falls on all."""
+    runs = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            runs[name].append(_cuda_ms(fn, reps))
+    return {name: (statistics.median(v), min(v), max(v)) for name, v in runs.items()}
+
+
+def _spread(t) -> str:
+    """A ``(median, min, max)`` triple as text."""
+    return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
 
 
 def _host_us(fn, reps: int = 200) -> float:
@@ -252,17 +280,18 @@ def _bound(flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _force_bounds(work, dim: int, n_slots: int, n_in_slots=None):
+def _force_bounds(work, dim: int, n_slots: int, n_in_slots=None, extra_in_bytes: int = 0):
     """Bounds of the force kernel and its energy variant: a distance test
     costs 3d - 1 operations, an in-cutoff pair 7 + 2d more (one divide,
     s^6, the force magnitude, d products and d sums), 14 + 2d with the
     energy and virial; d coordinate grids in (``n_in_slots`` each, the halo
-    rows included; default ``n_slots``), d (or d + 2) out."""
+    rows included; default ``n_slots``) and ``extra_in_bytes`` (B3's count
+    grid), d (or d + 2) out."""
     candidates, in_cut = work
     tests = (3 * dim - 1) * candidates
     n_in = n_slots if n_in_slots is None else n_in_slots
-    return (_bound(tests + (7 + 2 * dim) * in_cut, 4 * dim * (n_in + n_slots)),
-            _bound(tests + (14 + 2 * dim) * in_cut, 4 * (dim * n_in + (dim + 2) * n_slots)))
+    return (_bound(tests + (7 + 2 * dim) * in_cut, 4 * dim * (n_in + n_slots) + extra_in_bytes),
+            _bound(tests + (14 + 2 * dim) * in_cut, 4 * (dim * n_in + (dim + 2) * n_slots) + extra_in_bytes))
 
 
 def _pairwise_bounds(n: int, dim: int):
@@ -369,6 +398,7 @@ def main() -> int:
           flush=True)
 
     times, errors, bounds, launches = {}, {}, {}, {}
+    extra = {}  # more keys of a kernel's entry in the kernels line
 
     # -- 2. 2D kernels vs plain versions at the N=100k shapes -----------------
     cfg = override(
@@ -399,7 +429,7 @@ def main() -> int:
     err_e = _sums_close(ek[2:], er[2:], "B1 energy variant", 1e-5)
     errors["cell_force_energy"] = max(err_ef, err_e)
 
-    _, _, scode, _, _ = md._migration_dest(gs)
+    _, _, scode, _, _, _ = md._migration_dest(gs)
     fields = torch.stack([torch.remainder(gs.xg, md.box), torch.remainder(gs.yg, md.box),
                           gs.vxg, gs.vyg, gs.fxg, gs.fyg, gs.pid.float(),
                           gs.crx, gs.cry, gs.cvx, gs.cvy])
@@ -735,8 +765,9 @@ def main() -> int:
 
     os.makedirs("chiprun_out", exist_ok=True)
     traced = override(dense, prod_steps=2 * dense.sample_every)
-    dev_s, table = profile_device(lambda: lj_fluid.production(traced, resd.state),
+    profiled_run = profile_device(lambda: lj_fluid.production(traced, resd.state),
                                   os.path.join("chiprun_out", "chip_smoke_dense_trace.json"))
+    dev_s, table = profiled_run[:2]
     busy_ms = 1e3 * dev_s / traced.prod_steps
     wall_ms = 1e3 * resd.time_prod_s / dense.prod_steps
     print(table)
@@ -791,38 +822,53 @@ def main() -> int:
         occ_p = g.occ > 0.5
         pk = cell_cuda.CellForceParams.from_grid(m.grid_fn)
         outside = int((occ_p & ((g.xg < 0) | (g.xg >= m.box) | (g.yg < 0) | (g.yg >= m.box))).sum())
-        f1 = cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r)
-        f2 = cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r)
+        cnt = g.counts
+        xu, yu = (cell_cuda_packed.unpack(t, r).contiguous() for t in (g.xg, g.yg))
+
+        def b3(energy=False):
+            return cell_cuda_packed.grid_force_packed(g.xg, g.yg, cnt, pk, r, with_energy=energy)
+
+        def b1_unpacked(energy=False):
+            return cell_cuda.grid_force(xu, yu, pk, with_energy=energy)
+
+        f1, f2, e1, e2 = b3(), b3(), b3(True), b3(True)
         fr = cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r)
-        e1 = cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r, with_energy=True)
-        e2 = cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r, with_energy=True)
         er = cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r, with_energy=True)
+        # the frozen yardstick: B1's full-capacity loop on the unpacked view
+        # sums the same pairs in the same order
+        yard = tuple(cell_cuda_packed.pack(t, r) for t in b1_unpacked() + b1_unpacked(True))
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(f1 + e1, f2 + e2)):
             raise AssertionError(f"B3 {label}: two launches on one input are not bit-equal")
+        if not all(torch.equal(a, b) for a, b in zip(f1 + e1, yard)):
+            raise AssertionError(f"B3 {label}: not bit-equal to B1 on the unpacked grids")
         err_f = _max_diff(f1, fr, occ_p, f"B3 {label} forces", 1e-4)
         err_ef3 = _max_diff(e1[:2], er[:2], occ_p, f"B3 {label} energy variant forces", 1e-4)
         err_e3 = _sums_close(e1[2:], er[2:], f"B3 {label} energy variant", 1e-5)
-        t_f = (_cuda_ms(lambda: cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r), 50),
-               _cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r), 5))
-        t_e = (_cuda_ms(lambda: cell_cuda_packed.grid_force_packed(g.xg, g.yg, pk, r, with_energy=True), 50),
+        t15 = _interleaved_ms({"b3": b3, "b1": b1_unpacked, "b3_e": lambda: b3(True),
+                               "b1_e": lambda: b1_unpacked(True)})
+        t_f = (t15["b3"][0], _cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r), 5))
+        t_e = (t15["b3_e"][0],
                _cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r, with_energy=True), 5))
-        work_p = _pair_work((cell_cuda_packed.unpack(g.xg, r), cell_cuda_packed.unpack(g.yg, r)),
-                            cell_cuda_packed.unpack(g.occ, r), m.cps, m.cap, m.box, pk.cutoff2)
-        b_f, b_e = _force_bounds(work_p, 2, g.xg.numel())
-        packed[label] = dict(md=m, gs=g, errors=(err_f, max(err_ef3, err_e3)), times=(t_f, t_e), bounds=(b_f, b_e))
+        work_p = _pair_work((xu, yu), cell_cuda_packed.unpack(g.occ, r), m.cps, m.cap, m.box, pk.cutoff2)
+        b_f, b_e = _force_bounds(work_p, 2, g.xg.numel(), extra_in_bytes=cnt.numel() * cnt.element_size())
+        packed[label] = dict(md=m, gs=g, errors=(err_f, max(err_ef3, err_e3)), times=(t_f, t_e), bounds=(b_f, b_e),
+                             full=(t15["b1"][0], t15["b1_e"][0]))
         print(f"phase 15 {label}: grid {tuple(g.xg.shape)} (R={r}, G={m.n_blocks}), {outside} particles "
-              f"outside [0, box); B3 forces max abs diff {err_f:.3e} (max |f| "
-              f"{float(torch.hypot(fr[0], fr[1])[occ_p].max()):.1f}); energy variant: forces {err_ef3:.3e}, "
-              f"e/w max abs diff {err_e3:.3e}, sums within rtol 1e-5; two launches bit-equal; pair work: "
-              f"{work_p[0]} distance tests, {work_p[1]} in the cutoff", flush=True)
-        for name, t, b in (("cell_force_packed", t_f, b_f), ("cell_force_packed_energy", t_e, b_e)):
-            print(f"phase 15 {label} time {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
-                  f"bound {b[0]:.5f} ms ({b[1]}) per call", flush=True)
-        del f1, f2, fr, e1, e2, er
+              f"outside [0, box), {int(cnt.sum())} particles, at most {int(cnt.max())} a cell; B3 (force and "
+              f"energy variants) torch.equal to B1 on the unpacked grids and over two launches; forces max abs "
+              f"diff {err_f:.3e} from the plain version (max |f| {float(torch.hypot(fr[0], fr[1])[occ_p].max()):.1f}); "
+              f"energy variant: forces {err_ef3:.3e}, e/w max abs diff {err_e3:.3e}, sums within rtol 1e-5; "
+              f"pair work: {work_p[0]} distance tests, {work_p[1]} in the cutoff", flush=True)
+        for name, t, b, kk, kb in (("cell_force_packed", t_f, b_f, "b3", "b1"),
+                                   ("cell_force_packed_energy", t_e, b_e, "b3_e", "b1_e")):
+            print(f"phase 15 {label} time {name}: kernel {_spread(t15[kk])}, B1's full-capacity loop on the "
+                  f"unpacked grids {_spread(t15[kb])} (medians of 7 interleaved repeats of 20 calls); plain "
+                  f"{t[1]:.4f} ms, bound {b[0]:.5f} ms ({b[1]}) per call", flush=True)
+        del f1, f2, fr, e1, e2, er, yard, xu, yu
 
     m1, g1 = packed["N=1M"]["md"], packed["N=1M"]["gs"]
-    _, _, scode_p, _, _ = m1._migration_dest(g1)
+    _, _, scode_p, _, _, _ = m1._migration_dest(g1)
     fields_p = torch.stack([torch.remainder(g1.xg, m1.box), torch.remainder(g1.yg, m1.box),
                             g1.vxg, g1.vyg, g1.fxg, g1.fyg, g1.pid.float(), g1.crx, g1.cry, g1.cvx, g1.cvy])
     r1 = m1.rows_per_block
@@ -840,6 +886,7 @@ def main() -> int:
         errors[name] = packed["N=1M"]["errors"][i]
         times[name] = packed["N=1M"]["times"][i]
         bounds[name] = packed["N=1M"]["bounds"][i]
+        extra[name] = {"full_capacity_ms": packed["N=1M"]["full"][i]}
     print(f"phase 15 B2 packed N=1M (R={r1}): bit-equal, {crossing} movers across a block seam; time "
           f"kernel {times['migrate_packed'][0]:.4f} ms, plain {times['migrate_packed'][1]:.4f} ms, bound "
           f"{bounds['migrate_packed'][0]:.5f} ms ({bounds['migrate_packed'][1]}) per call", flush=True)
@@ -847,7 +894,7 @@ def main() -> int:
 
     # -- 16. B3 against the dense oracle ----------------------------------------
     m16, g16 = packed["N=16,384"]["md"], packed["N=16,384"]["gs"]
-    fx16, fy16 = m16.force_kernel(g16.xg, g16.yg)
+    fx16, fy16 = m16.force_kernel(g16.xg, g16.yg, g16.counts)
     f16 = m16.particle_order(g16, fx16, fy16)
     pos16 = m16.positions(g16)
     margin16 = cfg.cutoff + m16.skin
@@ -883,14 +930,19 @@ def main() -> int:
             launches.update(path_p)
 
     traced1m = override(cfg1m, prod_steps=2 * cfg1m.sample_every)
-    dev_s1m, table1m = profile_device(lambda: lj_fluid.production(traced1m, resp.state),
+    traced_1m_result = profile_device(lambda: lj_fluid.production(traced1m, resp.state),
                                       os.path.join("chiprun_out", "chip_smoke_1m_trace.json"))
+    dev_s1m, table1m, by_name1m = traced_1m_result
     busy1m = 1e3 * dev_s1m / traced1m.prod_steps
     wall1m = 1e3 * resp.time_prod_s / cfg1m.prod_steps
+    b3_1m = 1e3 * sum(v for k, v in by_name1m.items() if "cell_force_counted_kernel" in k) / traced1m.prod_steps
+    if b3_1m <= 0:
+        raise AssertionError("phase 17 N=1M profile: no B3 kernel in the trace")
     print(table1m)
-    print(f"phase 17 N=1M profile (production, {traced1m.prod_steps} traced steps): device busy {busy1m:.4f} "
-          f"ms/step of {wall1m:.4f} ms/step untraced wall; busy share {busy1m / wall1m:.3f}, idle share "
-          f"{1 - busy1m / wall1m:.3f}", flush=True)
+    print(f"phase 17 N=1M: {1e3 * (resp.time_eq_s + resp.time_prod_s) / (cfg1m.eq_steps + cfg1m.prod_steps):.4f} "
+          f"ms/step over the run, {wall1m:.4f} ms/step in production; profile ({traced1m.prod_steps} traced "
+          f"production steps): device busy {busy1m:.4f} ms/step, busy share {busy1m / wall1m:.3f}, idle share "
+          f"{1 - busy1m / wall1m:.3f}; B3 {b3_1m:.4f} ms/step = {b3_1m / busy1m:.3f} of device time", flush=True)
     del resp
 
     # -- 18. the packed engine at N=4096 on the card against the CPU -----------
@@ -1000,6 +1052,8 @@ def main() -> int:
     from jax_tpus_benchmark_physics_simulation_tpu_torch.bench import runners
     from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import BenchConfig
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    block = 16 * 1024  # bytes a block of the kernel copies
     for dtype, n_el, name in ((torch.float32, 64 << 20, "copy"), (torch.bfloat16, 128 << 20, "copy_bf16")):
         gen = torch.Generator(device=dev).manual_seed(21)
         src = torch.randn(n_el, generator=gen, device=dev).to(dtype)
@@ -1008,10 +1062,16 @@ def main() -> int:
         if op.n_elems != n_el or not torch.equal(out, src):
             raise AssertionError(f"B10 {dtype}: the copy is not bit-equal to its source")
         errors[name] = float((out.float() - src.float()).abs().max())
+        # direct calls of odd sizes: 3 blocks, 1001 vectors and 4 bytes; 3.5
+        # blocks an SM and 4 bytes (a short last block, the byte tail)
+        odd = [(3 * block + 16 * 1001 + 4) // src.element_size(), (7 * n_sm * block // 2 + 4) // src.element_size()]
+        for part in [src[:k] for k in odd]:
+            if not torch.equal(copy_cuda.chunked_copy(part), part):
+                raise AssertionError(f"B10 {dtype}: {part.numel()} elements not bit-equal")
         dst = torch.empty_like(src)
-        times[name] = (_cuda_ms(lambda: copy_cuda.chunked_copy(src), 20),
-                       _cuda_ms(lambda: copy_cuda.copy_reference(src), 20))
-        library[name] = _cuda_ms(lambda: dst.copy_(src), 20)
+        t21 = _interleaved_ms({"b10": lambda: copy_cuda.chunked_copy(src), "copy_": lambda: dst.copy_(src)})
+        times[name] = (t21["b10"][0], _cuda_ms(lambda: copy_cuda.copy_reference(src), 20))
+        library[name] = t21["copy_"][0]
         bounds[name] = _bound(0.0, op.bytes_per_call)  # each byte read once and written once
         ctx = runners.BenchContext(BenchConfig(warmup=1, repeats=2, steps=20), print, dev)
         reset_counts()
@@ -1019,11 +1079,13 @@ def main() -> int:
         launches[name] = copy_cuda.COPY_LAUNCHES
         if launches[name] <= 0:
             raise AssertionError(f"B10 {dtype}: the timed loop did not launch the kernel")
-        print(f"phase 21 B10 {dtype} {n_el} elements ({op.bytes_per_call // 2 >> 20} MiB): bit-equal; "
-              f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, dst.copy_ "
-              f"{library[name]:.4f} ms, bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call; "
-              f"_timed_loop (direct, 20 steps): {avg * 1e3:.4f} ms a copy, "
-              f"{op.bytes_per_call / avg / 2**30:.1f} GiB/s, {launches[name]} launches", flush=True)
+        print(f"phase 21 B10 {dtype} {n_el} elements ({op.bytes_per_call // 2 >> 20} MiB): "
+              f"bit-equal on it and on {odd} elements; medians of 7 interleaved repeats of 20 calls: "
+              f"B10 {_spread(t21['b10'])}, dst.copy_ {_spread(t21['copy_'])}; "
+              f"B10 {t21['b10'][0] / t21['copy_'][0]:.4f}x dst.copy_'s time; plain {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call; _timed_loop (direct, 20 steps): "
+              f"{avg * 1e3:.4f} ms a copy, {op.bytes_per_call / avg / 2**30:.1f} GiB/s, {launches[name]} launches",
+              flush=True)
         del src, dst, out
     torch.cuda.empty_cache()
 
@@ -1145,7 +1207,7 @@ def main() -> int:
     occ2 = g2.occ > 0.5
     p2 = cell_cuda.CellForceParams.from_grid(md2s.grid_fn)
     full2 = {False: cell_cuda.grid_force(g2.xg, g2.yg, p2), True: cell_cuda.grid_force(g2.xg, g2.yg, p2, with_energy=True)}
-    _, _, scode2, _, _ = md2s._migration_dest(g2)
+    _, _, scode2, _, _, _ = md2s._migration_dest(g2)
     fields2 = torch.stack([torch.remainder(g2.xg, md2s.box), torch.remainder(g2.yg, md2s.box),
                            g2.vxg, g2.vyg, g2.fxg, g2.fyg, g2.pid.float(), g2.crx, g2.cry, g2.cvx, g2.cvy])
     full_m2 = migrate_cuda.migrate(scode2, fields2, fills)
@@ -1276,10 +1338,10 @@ def main() -> int:
     # run the halo kernels (the exchange a local swap, the reductions on
     # the group), then on the one-device engine mdscale compares them with
     # at the same N, and the trajectory parity of scaling._check_parity.
-    # The engines are mdscale's (scaling._build_engine): in 3D k_mov 16 (at
-    # 18 cells per side the first rebuild of the melt from the lattice has
-    # 14 movers in a cell, and lj_fluid's k_mov 8 raises B6's mover flag in
-    # both engines: tests/torch_kmov_witness.py)
+    # The engines are mdscale's (scaling._build_engine), in 3D with
+    # lj_fluid's k_mov, 16 (at 18 cells per side the first rebuild of the
+    # melt from the lattice has 14 movers in a cell: the JAX package's k_mov
+    # 8 raises B6's mover flag there, tests/torch_kmov_witness.py)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     mesh = make_mesh(device=dev)
     full_names = {"2D": ("cell_force", "cell_force_energy", "migrate", "cell_force_packed",
@@ -1324,12 +1386,10 @@ def main() -> int:
               f"{scaling.PARITY_TOL}); halo launches {[counts[n] for n in halo_names[label]]}, whole-grid "
               f"launches 0; an all-reduce MAX {us_reduce:.1f} us, one step's edge-row exchange "
               f"{us_halo:.1f} us", flush=True)
-    # lj_fluid's 3D engine (k_mov 8) at the same geometry: its mover flag
-    res8 = lj_fluid.run(cfg3s, device=dev, md=ShardedGridMD3(
-        plain_md.grid_fn, mesh, sigma=cfg3s.sigma, epsilon=cfg3s.epsilon, dt=cfg3s.dt,
-        compensated=cfg3s.compensated, static_cov="auto", migrate_k_mov=8))
-    print(f"phase 26 3D ShardedGridMD3 with lj_fluid's k_mov 8 at the same geometry: overflow "
-          f"{res8.overflow} (B6's mover flag at the first rebuild of the melt)", flush=True)
+    # lj_fluid's 3D engine at 18 cells per side: its mover flag at k_mov 16
+    print(f"phase 26 3D ShardedGridMD3 at {sharded.cps} cells per side with lj_fluid's k_mov "
+          f"{sharded.migrate_k_mov}: overflow {res_s.overflow} (B6's mover flag stays down through the melt's "
+          f"first rebuild)", flush=True)
     dist.destroy_process_group()
 
     # -- 27. result --------------------------------------------------------------
@@ -1368,7 +1428,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": root + src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errors[name],
          "ms": times[name][0], "plain_ms": times[name][1],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": library.get(name)}
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": library.get(name),
+         **extra.get(name, {})}
         for name, (src, tpu) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

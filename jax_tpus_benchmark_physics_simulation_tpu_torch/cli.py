@@ -185,7 +185,7 @@ def cmd_md(args) -> int:
         # two sample blocks keep the trace small; per step, they do the
         # production phase's work
         traced = override(cfg, prod_steps=min(cfg.prod_steps, 2 * cfg.sample_every))
-        dev_s, table = profile_device(lambda: lj_fluid.production(traced, res.state, res.cadence), trace)
+        dev_s, table, _ = profile_device(lambda: lj_fluid.production(traced, res.state, res.cadence), trace)
         dev_ms = 1e3 * dev_s / max(traced.prod_steps, 1)
         wall_ms = 1e3 * res.time_prod_s / max(cfg.prod_steps, 1)
         print(table)

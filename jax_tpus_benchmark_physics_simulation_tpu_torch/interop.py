@@ -52,15 +52,18 @@ def grid_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD) -> GridMDS
     """A :class:`GridMDState` from the leaves of a JAX ``GridMDState`` given
     as numpy arrays by field name, on the layout of ``md`` (the JAX engine
     must use the same ``rows_per_block`` R). The TPU's padding lanes
-    (``>= R * cps``) are dropped and ``pid`` is cast to int32. The PRNG key
-    of a Langevin state is not carried over: the port's state comes without
-    a noise stream (``rng_seed`` None), and a Langevin window needs one."""
+    (``>= R * cps``) are dropped, ``pid`` is cast to int32 and the count grid
+    is made from ``occ``. The PRNG key of a Langevin state is not carried
+    over: the port's state comes without a noise stream (``rng_seed``
+    None), and a Langevin window needs one."""
     dev = md.device
+    grids = _grids(arrays, _GRID_FIELDS, md.grid_shape[:2], md.lanes, dev)
     return GridMDState(
         dmax2=_scalar(arrays, "dmax2", torch.float32, dev),
         overflow=_scalar(arrays, "overflow", torch.bool, dev),
         time=_scalar(arrays, "time", torch.float32, dev),
-        **_grids(arrays, _GRID_FIELDS, md.grid_shape[:2], md.lanes, dev),
+        counts=md._counts(grids["occ"]),
+        **grids,
     )
 
 

@@ -209,9 +209,13 @@ def _make_grid_md(cfg: MDConfig, device):
         )
     if cfg.dim == 3:
         # the JAX package's 3D default: B5 windows at the estimated
-        # occupancy bound with the exact B4 fallback, and k_mov=8 with its
-        # loud mover flag
-        kw.update(static_cov="auto", migrate_k_mov=8)
+        # occupancy bound with the exact B4 fallback. k_mov is the engines'
+        # default 16, not the JAX package's 8: there 8 halves the TPU's
+        # mover-compaction planes, a speed choice; the port's B6 compacts
+        # nothing and drops no particle, so k_mov only sets the level of
+        # the loud mover flag, which 8 raised on a correct melt at 18 cells
+        # per side (14 movers in a cell, none lost)
+        kw.update(static_cov="auto")
         if sharded:
             return ShardedGridMD3(gf, make_mesh(device=device), **kw)
         return GridMD3(gf, device=device, **kw)

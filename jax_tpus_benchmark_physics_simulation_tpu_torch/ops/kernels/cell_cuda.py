@@ -167,11 +167,13 @@ def _launcher():
     return fn
 
 
-def check_grid(t: torch.Tensor, name: str, shape: tuple, device) -> None:
-    """Raise unless ``t`` is a contiguous float32 grid of ``shape`` on
+def check_grid(t: torch.Tensor, name: str, shape: tuple, device, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` grid of ``shape`` on
     ``device``."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():

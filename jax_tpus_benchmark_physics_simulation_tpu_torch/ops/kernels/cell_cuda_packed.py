@@ -6,16 +6,20 @@ B1's function (``cell_cuda``) on the layout where R consecutive cell rows
 share one block: grids are ``(cps / R, cap, R * cps)`` float32 and slot
 ``(g, a, lane)`` holds slot ``a`` of cell ``(g * R + lane // cps, lane %
 cps)``. The TPU's 128-lane padding is gone. The CUDA source is B1's,
-``csrc/cell_force.cu``, built with ``PACKED = true``; its header says what
-bounds it on an H100.
+``csrc/cell_force.cu`` (``cell_force_counted_kernel``); its header says what
+bounds it on an H100. B3 visits particle pairs only: it takes a ``(cps,
+cps)`` int32 grid of the occupied slots of each cell, which ``GridMD`` makes
+once per rebuild (a cell's particles fill slots ``0 .. count-1``), and the
+result is bit-equal to B1's full-capacity loop on the unpacked grids.
 
 - :func:`choose_rows_per_block`: the JAX package's packing rule, copied
   (its module imports jax), so both packages pick the same R;
 - :func:`grid_force_packed_reference`: the plain PyTorch version, used for
   CPU tensors and as the kernel's reference on the card: B1's plain version
   on the grids unpacked to ``(cps, cap, cps)``;
-- :func:`grid_force_packed`: the wrapper. A CPU tensor takes the plain
-  version, a CUDA tensor launches the kernel or raises;
+- :func:`grid_force_packed`: the wrapper. It checks the count grid, then a
+  CPU tensor takes the plain version, a CUDA tensor launches the kernel or
+  raises;
 - ``LAUNCHES`` / ``ENERGY_LAUNCHES``: kernel launches of the force-only and
   the energy variant, counted where the wrapper launches them.
 """
@@ -99,7 +103,7 @@ def grid_force_packed_reference(
 def _launcher():
     fn = _build.library().jtps_cell_force_packed
     fn.argtypes = (
-        [ctypes.c_void_p] * 6
+        [ctypes.c_void_p] * 7
         + [ctypes.c_int] * 3
         + [ctypes.c_float] * 6
         + [ctypes.c_int] * 2
@@ -110,10 +114,12 @@ def _launcher():
 
 
 def grid_force_packed(
-    xg: torch.Tensor, yg: torch.Tensor, p: CellForceParams, rows_per_block: int,
-    with_energy: bool = False,
+    xg: torch.Tensor, yg: torch.Tensor, counts: torch.Tensor, p: CellForceParams,
+    rows_per_block: int, with_energy: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
-    """``(fx, fy)`` (or ``(fx, fy, e, w)``) totals on the packed grid."""
+    """``(fx, fy)`` (or ``(fx, fy, e, w)``) totals on the packed grid.
+    ``counts[cx, cy]`` is the number of occupied slots of cell ``(cx, cy)``,
+    which must be its slots ``0 .. count-1`` (``GridMDState.counts``)."""
     global LAUNCHES, ENERGY_LAUNCHES
     r = rows_per_block
     if r < 1 or p.cps % r:
@@ -121,6 +127,8 @@ def grid_force_packed(
     shape = (p.cps // r, p.cap, r * p.cps)
     check_grid(xg, "xg", shape, xg.device)
     check_grid(yg, "yg", shape, xg.device)
+    # the kernel clamps the counts to [0, cap]; no host read of them here
+    check_grid(counts, "counts", (p.cps, p.cps), xg.device, torch.int32)
     if xg.device.type == "cpu":
         return grid_force_packed_reference(xg, yg, p, r, with_energy)
     if xg.device.type != "cuda":
@@ -130,7 +138,7 @@ def grid_force_packed(
     e = torch.empty_like(xg) if with_energy else None
     w = torch.empty_like(xg) if with_energy else None
     status = _launcher()(
-        xg.data_ptr(), yg.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+        xg.data_ptr(), yg.data_ptr(), counts.data_ptr(), fx.data_ptr(), fy.data_ptr(),
         e.data_ptr() if with_energy else None,
         w.data_ptr() if with_energy else None,
         p.cps, p.cap, r, p.box, p.cutoff2, p.sigma2, p.fscale, p.epsilon, p.shift,
@@ -149,8 +157,8 @@ def make_grid_force_kernel_packed(
     grid_fn: CellGridFn, rows_per_block: int, sigma: float = 1.0, epsilon: float = 1.0,
     with_energy: bool = False,
 ):
-    """``(xg, yg) -> (fx, fy)`` (or ``(fx, fy, e, w)``) on the packed
-    layout, the counterpart of the JAX package's
+    """``(xg, yg, counts) -> (fx, fy)`` (or ``(fx, fy, e, w)``) on the
+    packed layout, the counterpart of the JAX package's
     ``cell_pallas_packed.make_grid_force_kernel_packed``."""
     return functools.partial(
         grid_force_packed, p=CellForceParams.from_grid(grid_fn, sigma, epsilon),

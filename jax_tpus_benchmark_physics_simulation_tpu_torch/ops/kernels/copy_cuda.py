@@ -3,8 +3,8 @@
 Replaces the TPU kernel ``bench/ops.py:_copy_kernel`` of the JAX package
 (built by ``make_bandwidth_op(mode="pallas_copy")``). The CUDA source is
 ``csrc/copy.cu``; its header says what bounds it on an H100 (bytes: each
-read once and written once) and how it is laid out (16-byte vectors, a
-grid-stride loop, four loads in flight a thread).
+read once and written once) and how it is laid out (one 16-byte vector a
+thread, a grid of 16 KB blocks over the whole buffer).
 
 - :func:`copy_reference`: the plain version, ``src.clone()``;
 - :func:`chunked_copy`: a new copy of a 1-D float32 or bfloat16 tensor. A

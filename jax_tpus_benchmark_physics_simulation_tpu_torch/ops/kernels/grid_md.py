@@ -89,7 +89,10 @@ class GridMDState:
     displacement since the last rebuild (the Verlet-skin monitor).
     ``dmax2``, ``overflow`` and ``time`` are 0-d tensors. ``rng_seed`` and
     ``rng_counter`` are the Langevin noise stream (see the module
-    docstring); rebuilds carry them through.
+    docstring); rebuilds carry them through. ``counts`` is the ``(rows,
+    cps)`` int32 number of particles of each cell, made at ``init`` and at
+    each rebuild: a cell's particles hold its slots ``0 .. count-1`` until
+    the next rebuild. Kernel B3 (R > 1) takes it.
     """
 
     xg: torch.Tensor
@@ -112,6 +115,7 @@ class GridMDState:
     cvy: Optional[torch.Tensor] = None
     rng_seed: Optional[int] = None
     rng_counter: int = 0
+    counts: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "GridMDState":
         return dataclasses.replace(self, **changes)
@@ -234,6 +238,10 @@ class GridMD:
         """Placement hook (parity with the JAX package's ``prepare``)."""
         return state
 
+    def _counts(self, occ: torch.Tensor) -> torch.Tensor:
+        """The ``(rows, cps)`` int32 count grid of an occupancy grid."""
+        return (unpack(occ, self.rows_per_block) > 0.5).sum(1, dtype=torch.int32)
+
     def init(self, position: torch.Tensor, velocity: torch.Tensor, seed: Optional[int] = None) -> GridMDState:
         """``seed`` arms the state's noise stream, which Langevin windows
         need and NVE ones ignore."""
@@ -254,7 +262,8 @@ class GridMD:
         occ = put(torch.ones(self.n, dtype=dtype, device=self.device))
         pid = torch.full((self.size,), -1, dtype=torch.int32, device=self.device)
         pid[slot2] = torch.arange(self.n, dtype=torch.int32, device=self.device) if ids is None else ids.to(torch.int32)
-        fxg, fyg = self.force_kernel(xg, yg)
+        counts = self._counts(occ)
+        fxg, fyg = self.force_kernel(xg, yg, *self._count_args(counts))
         comp = {}
         if self.compensated:
             comp = {k: torch.zeros(self.grid_shape, dtype=dtype, device=self.device)
@@ -264,7 +273,7 @@ class GridMD:
             xg=xg, yg=yg, vxg=vxg, vyg=vyg, fxg=fxg, fyg=fyg,
             occ=occ, pid=pid.view(self.grid_shape),
             dispx=torch.zeros_like(xg), dispy=torch.zeros_like(xg),
-            dmax2=zero, overflow=overflow, time=zero.clone(), rng_seed=seed, **comp,
+            dmax2=zero, overflow=overflow, time=zero.clone(), rng_seed=seed, counts=counts, **comp,
         )
 
     # -- migration rebuild (sort-free) ----------------------------------------
@@ -272,7 +281,9 @@ class GridMD:
         """Allocation phase of the rebuild. Returns the wrapped coordinates,
         the source-frame code grid ``dcode * cap + target_a`` (-1 where
         empty or invalid) that kernel B2 consumes, the post-rebuild
-        occupancy grid and the overflow flag.
+        occupancy grid, the overflow flag and the post-rebuild count grid
+        (``(rows, cps)`` int32; the occupancy grid is 1 on exactly the slots
+        below the count of their cell).
 
         The allocation depends only on physical cells and slot order, so it
         runs on the unpacked ``(cps, cap, cps)`` view of the grids (one copy
@@ -338,7 +349,7 @@ class GridMD:
         tot = torch.clamp(rc.sum(0, dtype=i32), max=cap)  # (rows, 1, cps)
         slot_i = torch.arange(cap, dtype=i32, device=dev).view(1, cap, 1)
         occ_new = (slot_i < tot).to(s.occ.dtype)
-        return xw, yw, pack(scode, r), pack(occ_new, r), overflow
+        return xw, yw, pack(scode, r), pack(occ_new, r), overflow, tot.view(rows, cps)
 
     def _rebuild_migrate(self, s: GridMDState) -> GridMDState:
         """Sort-free re-binning: allocation in plain PyTorch, then one
@@ -346,7 +357,7 @@ class GridMD:
         further than one cell raises ``overflow`` and is kept in place.
         Coordinates are wrapped back into [0, box) here, the only place
         they ever are, and empty slots are re-filled with the sentinel."""
-        xw, yw, scode, occ, overflow = self._migration_dest(s)
+        xw, yw, scode, occ, overflow, counts = self._migration_dest(s)
         dtype = s.xg.dtype
         fields = [xw, yw, s.vxg, s.vyg, s.fxg, s.fyg, s.pid.to(dtype)]
         fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
@@ -359,7 +370,7 @@ class GridMD:
             comp = dict(crx=out[7], cry=out[8], cvx=out[9], cvy=out[10])
         return s.replace(
             xg=out[0], yg=out[1], vxg=out[2], vyg=out[3], fxg=out[4], fyg=out[5],
-            occ=occ, pid=out[6].to(torch.int32),
+            occ=occ, pid=out[6].to(torch.int32), counts=counts,
             dispx=torch.zeros_like(s.xg), dispy=torch.zeros_like(s.xg),
             dmax2=torch.zeros_like(s.dmax2), overflow=self._all_max(overflow), **comp,
         )
@@ -403,9 +414,11 @@ class GridMD:
         comp = {}
         if s.crx is not None:
             comp = dict(crx=scat(s.crx), cry=scat(s.cry), cvx=scat(s.cvx), cvy=scat(s.cvy))
+        occ_new = scat(s.occ)
         return s.replace(
             xg=scat(x, fill=self.sentinel), yg=scat(y), vxg=scat(s.vxg), vyg=scat(s.vyg),
-            fxg=scat(s.fxg), fyg=scat(s.fyg), occ=scat(s.occ), pid=scat(s.pid, fill=-1),
+            fxg=scat(s.fxg), fyg=scat(s.fyg), occ=occ_new, pid=scat(s.pid, fill=-1),
+            counts=self._counts(occ_new),
             dispx=torch.zeros_like(s.xg), dispy=torch.zeros_like(s.xg),
             dmax2=torch.zeros_like(s.dmax2), overflow=overflow, **comp,
         )
@@ -425,9 +438,13 @@ class GridMD:
         c = (t - x) - y
         return t, c
 
+    def _count_args(self, counts: torch.Tensor) -> tuple:
+        """The count grid where the force kernel takes it (B3, R > 1)."""
+        return (counts,) if self.rows_per_block > 1 else ()
+
     def _force_args(self, s: GridMDState) -> tuple:
         """Arguments the force kernel takes after the coordinates."""
-        return ()
+        return self._count_args(s.counts)
 
     def _make_window(self, force_fn, n_inner: int, thermostat=None):
         """Leapfrog window: ``window(s) -> s`` advancing ``n_inner``
@@ -629,13 +646,13 @@ class GridMD:
     def potential_energy(self, s: GridMDState) -> torch.Tensor:
         """One energy-kernel pass. Each pair's shifted LJ energy is counted
         on both partners, hence the 0.5."""
-        _, _, e, _ = self.energy_kernel(s.xg, s.yg)
+        _, _, e, _ = self.energy_kernel(s.xg, s.yg, *self._force_args(s))
         return self._all_sum(0.5 * torch.sum(e))
 
     def virial(self, s: GridMDState) -> torch.Tensor:
         """Pair virial ``W = sum_pairs 24*eps*(2(s/r)^12 - (s/r)^6)`` from
         the energy-kernel pass (each pair on both partners, hence 0.5)."""
-        _, _, _, w = self.energy_kernel(s.xg, s.yg)
+        _, _, _, w = self.energy_kernel(s.xg, s.yg, *self._force_args(s))
         return self._all_sum(0.5 * torch.sum(w))
 
     def pressure(self, s: GridMDState) -> torch.Tensor:

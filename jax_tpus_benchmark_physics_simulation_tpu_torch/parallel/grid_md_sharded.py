@@ -131,10 +131,11 @@ class RowSharded:
 
     def shard_state(self, state):
         """This rank's rows of a state over the whole grid (every rank
-        passes the same state; scalars and the noise stream are kept)."""
+        passes the same state; scalars and the noise stream are kept). The
+        grids and the 2D engine's count grid are cut along the rows."""
         out = {}
         for name, value in vars(state).items():
-            if isinstance(value, torch.Tensor) and value.dim() == 3:
+            if isinstance(value, torch.Tensor) and value.dim() >= 2:
                 if value.shape[0] != self.cps:
                     raise ValueError(f"{name}: expected {self.cps} cell rows, got {value.shape[0]}")
                 value = shard_along(self.mesh, value.to(self.device))

@@ -14,16 +14,17 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
 
-def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, str]:
-    """Runs ``fn()`` once under the profiler. Returns ``(device_s, table)``:
-    the summed device time of all work on the card, and the per-kernel
-    table sorted by device time. Writes a chrome trace to ``trace_path``.
-    Needs a CUDA device."""
+def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, str, Dict[str, float]]:
+    """Runs ``fn()`` once under the profiler. Returns ``(device_s, table,
+    by_name)``: the summed device time of all work on the card, the
+    per-kernel table sorted by device time, and the device seconds of each
+    kernel name. Writes a chrome trace to ``trace_path``. Needs a CUDA
+    device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -33,10 +34,13 @@ def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, st
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
+    by_name: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total * 1e-6
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
     prof.export_chrome_trace(trace_path)
-    return device_us * 1e-6, table
+    return sum(by_name.values()), table, by_name
 
 
 def _paired_medians(timed: Callable[[bool], float], repeats: int) -> Tuple[float, float]:

@@ -103,17 +103,17 @@ def test_wrapper_takes_plain_version_on_cpu_and_checks_inputs():
     p = cell_cuda.CellForceParams.from_grid(gf)
     before = (cell_cuda_packed.LAUNCHES, cell_cuda_packed.ENERGY_LAUNCHES)
     for with_energy in (False, True):
-        got = cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, p, 4, with_energy=with_energy)
+        got = cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, gs.counts, p, 4, with_energy=with_energy)
         want = cell_cuda_packed.grid_force_packed_reference(gs.xg, gs.yg, p, 4, with_energy=with_energy)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (cell_cuda_packed.LAUNCHES, cell_cuda_packed.ENERGY_LAUNCHES) == before
     with pytest.raises(ValueError, match="must divide"):
-        cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, p, 3)
+        cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, gs.counts, p, 3)
     with pytest.raises(ValueError, match="shape"):
-        cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, p, 8)
+        cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, gs.counts, p, 8)
     with pytest.raises(TypeError):
-        cell_cuda_packed.grid_force_packed(gs.xg.double(), gs.yg.double(), p, 4)
+        cell_cuda_packed.grid_force_packed(gs.xg.double(), gs.yg.double(), gs.counts, p, 4)
     with pytest.raises(ValueError, match="contiguous"):
-        cell_cuda_packed.grid_force_packed(gs.xg.transpose(0, 1).contiguous().transpose(0, 1), gs.yg, p, 4)
+        cell_cuda_packed.grid_force_packed(gs.xg.transpose(0, 1).contiguous().transpose(0, 1), gs.yg, gs.counts, p, 4)
     with pytest.raises(ValueError):
-        cell_cuda_packed.grid_force_packed(gs.xg.to("meta"), gs.yg.to("meta"), p, 4)
+        cell_cuda_packed.grid_force_packed(gs.xg.to("meta"), gs.yg.to("meta"), gs.counts.to("meta"), p, 4)

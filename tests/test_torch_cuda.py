@@ -81,7 +81,7 @@ def test_cell_force_kernel_matches_plain(cuda_device):
 
 def test_migrate_kernel_bit_equal(cuda_device):
     md, gs = _advanced_state(cuda_device)
-    _, _, scode, _, _ = md._migration_dest(gs)
+    _, _, scode, _, _, _ = md._migration_dest(gs)
     fields = torch.stack([gs.xg, gs.yg, gs.vxg, gs.vyg, gs.pid.float()])
     fills = [md.sentinel, 0.0, 0.0, 0.0, -1.0]
     before = migrate_cuda.LAUNCHES
@@ -94,18 +94,23 @@ def test_migrate_kernel_bit_equal(cuda_device):
 def test_cell_force_packed_kernel_matches_plain(cuda_device, rows_per_block):
     """B3 (both variants) against its plain version: forces at atol 1e-4 on
     occupied slots (summation order), exact zeros elsewhere, e and w sums
-    at rtol 1e-5; two launches bit-equal (no atomics)."""
+    at rtol 1e-5; two launches bit-equal (no atomics), and bit-equal to B1
+    on the unpacked grids (the same pairs in the same order)."""
     md, gs = _advanced_state(cuda_device, rows_per_block)
     assert tuple(gs.xg.shape) == (24 // rows_per_block, md.cap, 24 * rows_per_block)
     p = cell_cuda.CellForceParams.from_grid(md.grid_fn)
     occ = gs.occ > 0.5
+    r = rows_per_block
+    xu, yu = cell_cuda_packed.unpack(gs.xg, r).contiguous(), cell_cuda_packed.unpack(gs.yg, r).contiguous()
     before = (cell_cuda_packed.LAUNCHES, cell_cuda_packed.ENERGY_LAUNCHES)
     for with_energy in (False, True):
-        got = cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, p, rows_per_block, with_energy)
-        again = cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, p, rows_per_block, with_energy)
-        want = cell_cuda_packed.grid_force_packed_reference(gs.xg, gs.yg, p, rows_per_block, with_energy)
+        got = cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, gs.counts, p, r, with_energy)
+        again = cell_cuda_packed.grid_force_packed(gs.xg, gs.yg, gs.counts, p, r, with_energy)
+        want = cell_cuda_packed.grid_force_packed_reference(gs.xg, gs.yg, p, r, with_energy)
+        b1 = [cell_cuda_packed.pack(t, r) for t in cell_cuda.grid_force(xu, yu, p, with_energy)]
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert all(torch.equal(a, b) for a, b in zip(got, b1))
         for a, b in zip(got[:2], want[:2]):
             assert float((a - b)[occ].abs().max()) <= 1e-4
             assert bool((a[~occ] == 0).all())
@@ -117,7 +122,7 @@ def test_cell_force_packed_kernel_matches_plain(cuda_device, rows_per_block):
 @pytest.mark.parametrize("rows_per_block", [4, 24])
 def test_migrate_packed_kernel_bit_equal(cuda_device, rows_per_block):
     md, gs = _advanced_state(cuda_device, rows_per_block)
-    _, _, scode, _, _ = md._migration_dest(gs)
+    _, _, scode, _, _, _ = md._migration_dest(gs)
     fields = torch.stack([gs.xg, gs.yg, gs.vxg, gs.vyg, gs.pid.float()])
     fills = [md.sentinel, 0.0, 0.0, 0.0, -1.0]
     before = (migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES)
@@ -180,6 +185,10 @@ def test_wrappers_reject_bad_cuda_inputs(cuda_device):
         cell_cuda.grid_force(gs.xg.transpose(0, 2), gs.yg.transpose(0, 2), p)
     with pytest.raises(ValueError):
         cell_cuda.grid_force(gs.xg, gs.yg.cpu(), p)
+    mdp, gsp = _advanced_state(cuda_device, 4)
+    for bad in (None, gsp.counts.cpu(), gsp.counts.long(), gsp.counts[:-1]):
+        with pytest.raises((TypeError, ValueError)):
+            cell_cuda_packed.grid_force_packed(gsp.xg, gsp.yg, bad, p, 4)
     fields = torch.zeros((17,) + tuple(gs.xg.shape), device=cuda_device)
     scode = torch.full(tuple(gs.xg.shape), -1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="at most"):
@@ -321,6 +330,9 @@ def test_copy_kernel_bit_equal(cuda_device, dtype):
     assert copy_cuda.COPY_LAUNCHES == before + 3
     with pytest.raises(ValueError, match="aligned"):
         copy_cuda.chunked_copy(src[1:])
+    # past the kernel's 16 KB blocks: 3 blocks, 1001 vectors and 4 bytes
+    big = torch.randn((3 * 16384 + 16 * 1001 + 4) // src.element_size(), device=cuda_device).to(dtype)
+    assert torch.equal(copy_cuda.chunked_copy(big), big)
 
 
 @pytest.mark.parametrize("p", [1, 2, 4])
@@ -337,7 +349,7 @@ def test_halo_kernels_2d_bit_equal_to_whole_grid(cuda_device, p):
         parts = [cell_cuda.grid_force_halo(x, y, params, with_energy)
                  for x, y in zip(halo_blocks(gs.xg, p, md.box), halo_blocks(gs.yg, p))]
         assert all(torch.equal(torch.cat(q), f) for q, f in zip(zip(*parts), full))
-    _, _, scode, _, _ = md._migration_dest(gs)
+    _, _, scode, _, _, _ = md._migration_dest(gs)
     fields = torch.stack([gs.xg, gs.yg, gs.vxg, gs.pid.float()])
     fills = [md.sentinel, 0.0, 0.0, -1.0]
     got = torch.cat([migrate_cuda.migrate_halo(c, f, fills)

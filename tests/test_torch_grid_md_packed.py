@@ -82,7 +82,7 @@ def test_migration_dest_matches_jax(states):
     """The codes and the new occupancy, integer-exact on the packed layout."""
     md_t, gs_t, dest_j = states[1], states[5], states[6]
     xw_j, yw_j, scode_j, occ_j, _, ovf_j = dest_j
-    xw_t, yw_t, scode_t, occ_t, ovf_t = md_t._migration_dest(gs_t)
+    xw_t, yw_t, scode_t, occ_t, ovf_t, _ = md_t._migration_dest(gs_t)
     scode_j = _lanes(scode_j, md_t)
     np.testing.assert_array_equal(scode_t.numpy(), scode_j)
     np.testing.assert_array_equal(occ_t.numpy(), _lanes(occ_j, md_t))
@@ -143,7 +143,7 @@ def test_carried_packed_state_gives_jax_forces(states):
     forces on it match the JAX state's own within 1e-5 of the largest."""
     md_t, gs_j, gs_t = states[1], states[4], states[5]
     assert tuple(gs_t.xg.shape) == md_t.grid_shape and gs_t.rng_seed is None
-    fx, fy = md_t.force_kernel(gs_t.xg, gs_t.yg)
+    fx, fy = md_t.force_kernel(gs_t.xg, gs_t.yg, gs_t.counts)
     for got, name in ((fx, "fxg"), (fy, "fyg")):
         want = _lanes(getattr(gs_j, name), md_t)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())

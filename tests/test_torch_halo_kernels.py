@@ -66,7 +66,7 @@ def state():
 def _port_migration(md, s):
     """The port's allocation on the whole grid: the code grid and the
     stacked fields of a rebuild, and their fills."""
-    xw, yw, scode, _, _ = md._migration_dest(s)
+    xw, yw, scode, _, _, _ = md._migration_dest(s)
     fields = torch.stack([xw, yw, s.vxg, s.vyg, s.fxg, s.fyg, s.pid.to(torch.float32)])
     return scode, fields, [md.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
 

@@ -65,7 +65,7 @@ def test_geometry_matches_jax(n):
         assert round(skin, 4) == 0.1316
         assert (md_t.cps, md_t.cap, md_t.static_cov, md_t.grid_shape) == (19, 32, 24, (19, 32, 361))
         assert lj_fluid._grid_inner_steps(cfg_t, md_t) == (1, 0.4)
-        assert md_t.auto_cadence(1.0, 2000) == 9 and md_t.migrate_k_mov == 8
+        assert md_t.auto_cadence(1.0, 2000) == 9 and md_t.migrate_k_mov == 16
     assert lj_fluid.resolve_skin(override(cfg_t, dim=2)) == lj_fluid.SKIN_DEFAULT
 
 

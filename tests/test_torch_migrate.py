@@ -60,7 +60,7 @@ def test_migration_dest_matches_jax(advanced):
     md_j, md_t, gs_j, gs_t, dest_j, _ = advanced
     cps, cap = md_t.cps, md_t.cap
     xw_j, yw_j, scode_j, occ_j, _, ovf_j = dest_j
-    xw_t, yw_t, scode_t, occ_t, ovf_t = md_t._migration_dest(gs_t)
+    xw_t, yw_t, scode_t, occ_t, ovf_t, _ = md_t._migration_dest(gs_t)
     scode_j = np.asarray(scode_j)[:, :, :cps]
     assert scode_t.dtype == torch.int32
     np.testing.assert_array_equal(scode_t.numpy(), scode_j)
