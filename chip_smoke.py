@@ -25,13 +25,18 @@ Run from the repository root. It builds the CUDA kernels from
    configuration; skin 0.1316, 19 cells per side, fixed production
    cadence from the measured kT), with every counter set to 0 just before:
    overflow False, finite histories, drift < 1e-4, finite P*, and B4,
-   B4-energy, B5 and B6 launched;
+   B4-energy, B5 (the counted kernel) and B6 launched and B5's full loop
+   not; then the card's busy share over 200 traced production steps and
+   B5's share of device time;
 7. 3D kernels at the N=100k shapes (19 x 32 x 361 grid) on a state 90
    steps from the main path's final one, some coordinates outside
    [0, box): B4 and B5 forces against their plain versions and B5 against
    B4 (<= 1e-4 over occupied slots), B4's energy variant (forces <= 1e-4,
-   e and w sums at rtol 1e-5), B6 and B7 against the plain version and
-   each other (bit-equal); timed with CUDA events;
+   e and w sums at rtol 1e-5), B5 (the counted kernel) torch.equal to B5's
+   full loop in both variants and over two launches, B6 and B7 against the
+   plain version and each other (bit-equal); timed with CUDA events, B5
+   and its energy variant in 7 interleaved repeats beside B5's full loop
+   and at the strip widths ceil(19 / k), k = 1 to 4;
 8. B4 forces on 1024 interior particles against the dense oracle computed
    from all 100k particles (atol 1e-4);
 9. a 3D run at N=8192 (100 + 100 steps) on the card against the same run
@@ -44,14 +49,15 @@ Run from the repository root. It builds the CUDA kernels from
     version: forces within 1e-4 * max |f|, the energy variant's forces
     likewise and its energy sum at rtol 1e-5, two launches bit-equal; at
     N=4096 also the cutoff-2.5 variant in 2D and the 3D variant without a
-    box; timed with CUDA events;
+    box; timed with CUDA events at N=16,384 (its launch geometry printed);
 12. the dense main path, ``lj_fluid.run`` at N=16,384 with no cutoff
     (rho 0.8, dt 1e-3, lattice init, 2000 + 2000 steps, ``force_impl``
     auto, which resolves to ``dense_pallas``), with every counter set to 0
     just before: overflow False, finite histories and g(r), drift < 1e-4,
     pressure NaN (as in the JAX package), B8 and its energy variant
     launched; then the card's busy share over 200 traced production steps
-    (``torch.profiler``, trace in ``chiprun_out/``);
+    and B8's share of device time (``torch.profiler``, trace in
+    ``chiprun_out/``);
 13. a dense run at N=2048 with no cutoff (100 + 100 steps), auto on both
     sides (B8 on the card, ``dense_xla`` on the CPU): energies at rtol 1e-4;
 14. the list paths, ``neighbor`` and ``cell`` at N=4096 with cutoff 2.5
@@ -122,10 +128,13 @@ Run from the repository root. It builds the CUDA kernels from
     shape (world size 1: 122 rows in, 120 out) beside B1 and B2;
 25. the 3D halo kernels at N=100k rounded for devices [1, 2] (the skin
     rounded to 2 devices: 18 cells per side) on a state 90 steps into the
-    melt: over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 halo and
-    B6 halo bit-equal to the whole-grid kernels, B6 halo's mover flag
-    where B6 raises it, and within 1e-4 of their plain versions; timed at
-    one rank's shape beside the whole-grid kernels;
+    melt: over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 halo
+    (the counted kernel, both variants) and B6 halo bit-equal to the
+    whole-grid kernels, B5 halo also to B5 halo's full loop, B6 halo's
+    mover flag where B6 raises it, and within 1e-4 of their plain versions;
+    timed at one rank's shape beside the whole-grid kernels, B5 halo in 7
+    interleaved repeats beside its full loop and at the strip widths
+    ceil(18 / k), k = 1 to 4;
 26. the row-sharded engines on the card: an NCCL process group of world
     size 1 from an in-process store, then ``lj_fluid.run`` (2000 + 2000
     steps) on ``ShardedGridMD`` at the 2D N of phase 24 and on
@@ -142,7 +151,8 @@ Run from the repository root. It builds the CUDA kernels from
     error, times, and bound (the larger of the operations over the card's
     float32 peak and the bytes over its memory rate, counted on this run's
     inputs), B3's with ``full_capacity_ms`` (B1's loop on the unpacked
-    grids), and as the last line
+    grids), B5's and B5 halo's with ``loop_ms`` (B5's full loop, which no
+    path runs) and ``strip``, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
@@ -166,6 +176,11 @@ import numpy as np
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
+# B8 at N=16,384 (2D, PBC, no cutoff) before its redesign (one thread an
+# i-particle, two IEEE divides a pair, no FMA): this script's phase 11 on an
+# NVIDIA H100 80GB HBM3 at 700 W; tests/torch_pairwise_designs.py builds that
+# design and times it beside the kernel in one process
+PREVIOUS_B8_MS = 0.5691
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -324,6 +339,37 @@ def _migrate_bound(n_fields: int, n_slots: int, n_in_slots=None):
     return _bound(0.0, 4 * (n_in * (n_fields + 1) + n_slots * n_fields))
 
 
+def _counted_times(args, cov: int, halo: bool, repeats: int = 7):
+    """B5 (``halo``: B5 halo) on the grids of ``args`` in ``repeats``
+    interleaved rounds: the counted kernel at its default strip and with
+    the energy, B5's full loop likewise, and the counted kernel at the
+    strips ``ceil(ncz / k)``, k = 1 to 4. Returns the timings and the
+    default strip."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import cell_cuda3
+
+    p = args[-1]
+    run = cell_cuda3.grid_force3_halo if halo else cell_cuda3.grid_force3
+    fns = {
+        "counted": lambda: run(*args, static_cov=cov),
+        "loop": lambda: cell_cuda3.grid_force3_static_loop(*args, cov, halo=halo),
+        "counted_e": lambda: run(*args, with_energy=True, static_cov=cov),
+        "loop_e": lambda: cell_cuda3.grid_force3_static_loop(*args, cov, True, halo=halo),
+    }
+    for k in range(1, 5):
+        w = -(-p.cps // k)
+        fns.setdefault(f"strip {w}", lambda w=w: cell_cuda3._forces3(args[:3], p, None, False, cov, halo, strip=w))
+    rows = args[0].shape[0] - 2 if halo else p.cps
+    return _interleaved_ms(fns, repeats), cell_cuda3.strip_width(p, rows, cov, False, args[0].device)
+
+
+def _print_counted_times(label: str, t: dict, strip: int, bound, ncz: int) -> None:
+    print(f"{label} time (medians of 7 interleaved repeats of 20 calls): counted kernel (strip {strip} of "
+          f"{ncz} z-cells) {_spread(t['counted'])}, B5's full loop {_spread(t['loop'])}; energy variants: "
+          f"counted {_spread(t['counted_e'])}, full loop {_spread(t['loop_e'])}; bound {bound[0]:.5f} ms "
+          f"({bound[1]}); strips: " + ", ".join(f"{k.split()[1]}: {v[0]:.4f}" for k, v in t.items()
+                                                if k.startswith("strip")), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -364,11 +410,13 @@ def main() -> int:
             "migrate": migrate_cuda.LAUNCHES, "cell_force_packed": cell_cuda_packed.LAUNCHES,
             "cell_force_packed_energy": cell_cuda_packed.ENERGY_LAUNCHES,
             "migrate_packed": migrate_cuda.PACKED_LAUNCHES, "cell_force3": cell_cuda3.LAUNCHES,
-            "cell_force3_energy": cell_cuda3.ENERGY_LAUNCHES, "cell_force3_static": cell_cuda3.STATIC_LAUNCHES,
+            "cell_force3_energy": cell_cuda3.ENERGY_LAUNCHES, "cell_force3_counted": cell_cuda3.COUNTED_LAUNCHES,
+            "cell_force3_static": cell_cuda3.STATIC_LAUNCHES,
             "migrate3": migrate_cuda3.LAUNCHES, "migrate3_flat": migrate_cuda3.FLAT_LAUNCHES,
             "cell_force_halo": cell_cuda.HALO_LAUNCHES, "cell_force_halo_energy": cell_cuda.HALO_ENERGY_LAUNCHES,
             "migrate_halo": migrate_cuda.HALO_LAUNCHES, "cell_force3_halo": cell_cuda3.HALO_LAUNCHES,
             "cell_force3_halo_energy": cell_cuda3.HALO_ENERGY_LAUNCHES,
+            "cell_force3_counted_halo": cell_cuda3.HALO_COUNTED_LAUNCHES,
             "cell_force3_static_halo": cell_cuda3.HALO_STATIC_LAUNCHES, "migrate3_halo": migrate_cuda3.HALO_LAUNCHES,
         }
 
@@ -376,6 +424,7 @@ def main() -> int:
         cell_cuda.LAUNCHES = cell_cuda.ENERGY_LAUNCHES = migrate_cuda.LAUNCHES = 0
         cell_cuda_packed.LAUNCHES = cell_cuda_packed.ENERGY_LAUNCHES = migrate_cuda.PACKED_LAUNCHES = 0
         cell_cuda3.LAUNCHES = cell_cuda3.ENERGY_LAUNCHES = cell_cuda3.STATIC_LAUNCHES = 0
+        cell_cuda3.COUNTED_LAUNCHES = cell_cuda3.HALO_COUNTED_LAUNCHES = 0
         migrate_cuda3.LAUNCHES = migrate_cuda3.FLAT_LAUNCHES = 0
         pairwise_cuda.LAUNCHES = pairwise_cuda.ENERGY_LAUNCHES = 0
         pairwise_cuda.GRAVITY_LAUNCHES = pairwise_cuda.GRAVITY_POTENTIAL_LAUNCHES = 0
@@ -536,13 +585,41 @@ def main() -> int:
     cfg3 = override(cfg, dim=3)
     res3 = lj_fluid.run(cfg3, device="cuda")
     path3 = {"cell_force3": cell_cuda3.LAUNCHES, "cell_force3_energy": cell_cuda3.ENERGY_LAUNCHES,
-             "cell_force3_static": cell_cuda3.STATIC_LAUNCHES, "migrate3": migrate_cuda3.LAUNCHES}
+             "cell_force3_counted": cell_cuda3.COUNTED_LAUNCHES, "migrate3": migrate_cuda3.LAUNCHES}
     report_run(res3, "6 lj_fluid.run dim=3", path3, path3["migrate3"], cfg3)
     check_run(res3, "3D main path", cfg3)
     for name, count in path3.items():
         if count <= 0:
             raise AssertionError(f"3D main path never launched kernel {name}")
+    if cell_cuda3.STATIC_LAUNCHES:
+        raise AssertionError("3D main path launched B5's full loop")
     launches.update(path3)
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import profile_device
+
+    os.makedirs("chiprun_out", exist_ok=True)
+
+    def busy_line(label, res_run, c, traced_run, kernel_keys, kernel_label):
+        """The card's busy share over ``traced_run``'s steps (traced) against
+        the run's untraced production ms/step, and the named kernels' share
+        of device time; prints the profiler's table and the line."""
+        dev_s, table, by_name = traced_run
+        busy = 1e3 * dev_s / (2 * c.sample_every)
+        wall = 1e3 * res_run.time_prod_s / c.prod_steps
+        k_ms = 1e3 * sum(v for k, v in by_name.items() if any(n in k for n in kernel_keys)) / (2 * c.sample_every)
+        if k_ms <= 0:
+            raise AssertionError(f"{label} profile: no {kernel_label} kernel in the trace")
+        print(table)
+        print(f"{label} profile (production, {2 * c.sample_every} traced steps): device busy {busy:.4f} ms/step "
+              f"of {wall:.4f} ms/step untraced wall; busy share {busy / wall:.3f}, idle share "
+              f"{1 - busy / wall:.3f}; {kernel_label} {k_ms:.4f} ms/step = {k_ms / busy:.3f} of device time",
+              flush=True)
+
+    traced3 = override(cfg3, prod_steps=2 * cfg3.sample_every)
+    busy_line("phase 6 3D N=100k", res3, cfg3,
+              profile_device(lambda: lj_fluid.production(traced3, res3.state, res3.cadence),
+                             os.path.join("chiprun_out", "chip_smoke_3d_trace.json")),
+              ("cell_force3_counted_kernel",), "B5")
 
     # -- 7. 3D kernels vs plain versions at the N=100k shapes -----------------
     # 90 steps of the fixed driver from the main path's final state: the
@@ -572,9 +649,22 @@ def main() -> int:
     errors["cell_force3_energy"] = max(err4ef, err4e)
     b5 = cell_cuda3.grid_force3(*args3, static_cov=cov)
     r5 = cell_cuda3.grid_force3_reference(*args3, cov)
-    errors["cell_force3_static"] = _max_diff(b5, r5, occ3, "B5 forces", 1e-4)
+    errors["cell_force3_counted"] = _max_diff(b5, r5, occ3, "B5 forces", 1e-4)
     err54 = _max_diff(b5, b4, occ3, "B5 vs B4 forces", 1e-4)
     f3max = float(torch.stack(r4).norm(dim=0)[occ3].max())
+    # B5 as launched (the counted kernel) against B5's full loop, both
+    # variants: the same pairs in the same order, so the same bits
+    b5e = cell_cuda3.grid_force3(*args3, with_energy=True, static_cov=cov)
+    err5e = max(_max_diff(b5e[:3], r4e[:3], occ3, "B5 energy variant forces", 1e-4),
+                _sums_close(b5e[3:], r4e[3:], "B5 energy variant", 1e-5))
+    for energy, got in ((False, b5), (True, b5e)):
+        loop = cell_cuda3.grid_force3_static_loop(*args3, cov, energy)
+        again = cell_cuda3.grid_force3(*args3, with_energy=energy, static_cov=cov)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, loop)):
+            raise AssertionError(f"B5 (energy {energy}): the counted kernel is not torch.equal to B5's full loop")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"B5 (energy {energy}): two launches on one input are not bit-equal")
 
     _, _, _, scode3, _, _ = md3._migration_dest3(gs3)
     fields3 = torch.stack([torch.remainder(g, md3.box) for g in coords3]
@@ -599,26 +689,29 @@ def main() -> int:
     times["cell_force3_energy"] = (
         _cuda_ms(lambda: cell_cuda3.grid_force3(*args3, max_occ=mo_t, with_energy=True), 50),
         _cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, mo, with_energy=True), 5))
-    times["cell_force3_static"] = (_cuda_ms(lambda: cell_cuda3.grid_force3(*args3, static_cov=cov), 50),
-                                   _cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, cov), 5))
+    t7, strip7 = _counted_times(args3, cov, False)
+    times["cell_force3_counted"] = (t7["counted"][0], _cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, cov), 5))
+    extra["cell_force3_counted"] = {"loop_ms": t7["loop"][0], "strip": strip7}
     times["migrate3"] = (_cuda_ms(lambda: migrate_cuda3.migrate3(scode3, fields3, fills3, k_mov=k_mov), 50),
                          _cuda_ms(lambda: migrate_cuda3.migrate3_reference(scode3, fields3, fills3), 10))
     times["migrate3_flat"] = (_cuda_ms(lambda: migrate_cuda3.migrate3(scode3, fields3, fills3), 50),
                               _cuda_ms(lambda: migrate_cuda3.migrate3_reference(scode3, fields3, fills3), 10))
     work3 = _pair_work(coords3, gs3.occ, md3.cps, mo, md3.box, p3.cutoff2)
     bounds["cell_force3"], bounds["cell_force3_energy"] = _force_bounds(work3, 3, gs3.xg.numel())
-    bounds["cell_force3_static"] = bounds["cell_force3"]
+    bounds["cell_force3_counted"] = bounds["cell_force3"]
     bounds["migrate3"] = bounds["migrate3_flat"] = _migrate_bound(fields3.shape[0], gs3.xg.numel())
     print(f"phase 7 B4 forces: max abs diff {errors['cell_force3']:.3e} (max |f| {f3max:.1f}); "
           f"B4 energy variant: forces {err4ef:.3e}, e/w max abs diff {err4e:.3e}, sums within rtol "
-          f"1e-5; B5: vs plain {errors['cell_force3_static']:.3e}, vs B4 {err54:.3e}; B6, B7: "
+          f"1e-5; B5: vs plain {errors['cell_force3_counted']:.3e}, vs B4 {err54:.3e}, energy variant vs B4's "
+          f"{err5e:.3e}, both variants torch.equal to B5's full loop and over two launches; B6, B7: "
           f"bit-equal to the plain version and to each other, {movers3} movers, mov_of "
           f"{bool(mov_of)} (k_mov {k_mov}); pair work: {work3[0]} distance tests, {work3[1]} in "
           f"the cutoff", flush=True)
-    for name in ("cell_force3", "cell_force3_energy", "cell_force3_static", "migrate3", "migrate3_flat"):
+    for name in ("cell_force3", "cell_force3_energy", "cell_force3_counted", "migrate3", "migrate3_flat"):
         print(f"phase 7 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
-    del b4, r4, b4e, r4e, b5, r5, m6, m7, mr
+    _print_counted_times("phase 7 B5", t7, strip7, bounds["cell_force3"], md3.cps)
+    del b4, r4, b4e, r4e, b5, b5e, r5, m6, m7, mr
 
     # -- 8. B4 against the dense oracle ----------------------------------------
     f3 = md3.forces(gs3.replace(**dict(zip(("fxg", "fyg", "fzg"), md3.force_kernel(*coords3, gs3.max_occ)))))
@@ -722,12 +815,16 @@ def main() -> int:
         _cuda_ms(lambda: pairwise_cuda.lj_force_pairwise(pos_d, pp, True), 50),
         _cuda_ms(lambda: pairwise_cuda.lj_force_pairwise_reference(pos_d, pp, True), 5))
     bounds["pairwise_lj"], bounds["pairwise_lj_energy"] = _pairwise_bounds(dense.n, 2)
-    slices, slice_len = pairwise_cuda._slices(dense.n)
-    print(f"phase 11 B8 launch at N={dense.n}: {slices} j slices of {slice_len}, "
-          f"{pairwise_cuda.THREADS}-thread blocks", flush=True)
+    row_blocks, slices, slice_len = pairwise_cuda._lj_geometry(dense.n)
+    print(f"phase 11 B8 launch at N={dense.n}: {row_blocks} row blocks of {pairwise_cuda.LJ_ROWS} "
+          f"i-particles ({pairwise_cuda.LJ_THREADS} threads, 4 each) x {slices} j slices of {slice_len} = "
+          f"{row_blocks * slices} blocks, then the slice sum", flush=True)
     for name in ("pairwise_lj", "pairwise_lj_energy"):
         print(f"phase 11 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
-              f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+              f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call = "
+              f"{bounds[name][0] / times[name][0]:.3f} of the bound", flush=True)
+    print(f"phase 11 B8 N={dense.n}: {times['pairwise_lj'][0]:.4f} ms a call against the previous design's "
+          f"{PREVIOUS_B8_MS} ms and the bound {bounds['pairwise_lj'][0]:.5f} ms", flush=True)
 
     # -- 12. the dense main path -------------------------------------------------
     impl_d = lj_fluid.resolve_impl(dense, dev)
@@ -761,19 +858,11 @@ def main() -> int:
             raise AssertionError(f"dense main path never launched kernel {name}")
     launches.update(path_d)
 
-    from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import profile_device
-
-    os.makedirs("chiprun_out", exist_ok=True)
     traced = override(dense, prod_steps=2 * dense.sample_every)
-    profiled_run = profile_device(lambda: lj_fluid.production(traced, resd.state),
-                                  os.path.join("chiprun_out", "chip_smoke_dense_trace.json"))
-    dev_s, table = profiled_run[:2]
-    busy_ms = 1e3 * dev_s / traced.prod_steps
-    wall_ms = 1e3 * resd.time_prod_s / dense.prod_steps
-    print(table)
-    print(f"phase 12 profile (production, {traced.prod_steps} traced steps): device busy {busy_ms:.4f} "
-          f"ms/step of {wall_ms:.4f} ms/step untraced wall; busy share {busy_ms / wall_ms:.3f}, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+    busy_line("phase 12 all pairs N=16,384", resd, dense,
+              profile_device(lambda: lj_fluid.production(traced, resd.state),
+                             os.path.join("chiprun_out", "chip_smoke_dense_trace.json")),
+              ("pairwise_lj_kernel", "pairwise_reduce_kernel"), "B8 (pair kernel and slice sum)")
 
     # -- 13, 14. dense and list paths on the card against the CPU ---------------
     def card_vs_cpu(small, phase: str) -> None:
@@ -930,19 +1019,10 @@ def main() -> int:
             launches.update(path_p)
 
     traced1m = override(cfg1m, prod_steps=2 * cfg1m.sample_every)
-    traced_1m_result = profile_device(lambda: lj_fluid.production(traced1m, resp.state),
-                                      os.path.join("chiprun_out", "chip_smoke_1m_trace.json"))
-    dev_s1m, table1m, by_name1m = traced_1m_result
-    busy1m = 1e3 * dev_s1m / traced1m.prod_steps
-    wall1m = 1e3 * resp.time_prod_s / cfg1m.prod_steps
-    b3_1m = 1e3 * sum(v for k, v in by_name1m.items() if "cell_force_counted_kernel" in k) / traced1m.prod_steps
-    if b3_1m <= 0:
-        raise AssertionError("phase 17 N=1M profile: no B3 kernel in the trace")
-    print(table1m)
-    print(f"phase 17 N=1M: {1e3 * (resp.time_eq_s + resp.time_prod_s) / (cfg1m.eq_steps + cfg1m.prod_steps):.4f} "
-          f"ms/step over the run, {wall1m:.4f} ms/step in production; profile ({traced1m.prod_steps} traced "
-          f"production steps): device busy {busy1m:.4f} ms/step, busy share {busy1m / wall1m:.3f}, idle share "
-          f"{1 - busy1m / wall1m:.3f}; B3 {b3_1m:.4f} ms/step = {b3_1m / busy1m:.3f} of device time", flush=True)
+    busy_line("phase 17 N=1M", resp, cfg1m,
+              profile_device(lambda: lj_fluid.production(traced1m, resp.state),
+                             os.path.join("chiprun_out", "chip_smoke_1m_trace.json")),
+              ("cell_force_counted_kernel",), "B3")
     del resp
 
     # -- 18. the packed engine at N=4096 on the card against the CPU -----------
@@ -1270,8 +1350,15 @@ def main() -> int:
     p3s = cell_cuda3.CellForce3Params.from_grid(md3s.grid_fn)
     variants3 = (("cell_force3_halo", dict(max_occ=g3.max_occ), mo3),
                  ("cell_force3_halo_energy", dict(max_occ=g3.max_occ, with_energy=True), mo3),
-                 ("cell_force3_static_halo", dict(static_cov=cov3), cov3))
+                 ("cell_force3_counted_halo", dict(static_cov=cov3), cov3),
+                 ("cell_force3_counted_halo_energy", dict(static_cov=cov3, with_energy=True), cov3))
     full3 = {name: cell_cuda3.grid_force3(*c3s, p3s, **kw) for name, kw, _ in variants3}
+    # B5 halo's yardstick: B5's full loop on the whole grid, which the
+    # counted kernel (whole grid and halo form) must give bit for bit
+    for name, kw, _ in variants3[2:]:
+        loop3 = cell_cuda3.grid_force3_static_loop(*c3s, p3s, cov3, kw.get("with_energy", False))
+        if not all(torch.equal(a, b) for a, b in zip(full3[name], loop3)):
+            raise AssertionError(f"B5 at {md3s.cps} cells per side ({name}): not torch.equal to B5's full loop")
     _, _, _, scode3s, _, _ = md3s._migration_dest3(g3)
     fields3s = torch.stack([torch.remainder(g, md3s.box) for g in c3s]
                            + [g3.vxg, g3.vyg, g3.vzg, g3.fxg, g3.fyg, g3.fzg, g3.pid.float(),
@@ -1289,6 +1376,11 @@ def main() -> int:
                 *b, p3s, bound, kw.get("with_energy", False)) for b in blocks))]
             if not all(torch.equal(a, b) for a, b in zip(got, full3[name])):
                 raise AssertionError(f"{name} over {n_blocks} row blocks is not bit-equal to the whole-grid kernel")
+            if "counted" in name:
+                loop_h = [torch.cat(q) for q in zip(*(cell_cuda3.grid_force3_static_loop(
+                    *b, p3s, cov3, kw.get("with_energy", False), halo=True) for b in blocks))]
+                if not all(torch.equal(a, b) for a, b in zip(got, loop_h)):
+                    raise AssertionError(f"{name} over {n_blocks} row blocks is not bit-equal to B5 halo's full loop")
             err = _max_diff(got[:3], plain[:3], occ3s, f"{name} vs plain", 1e-4)
             if kw.get("with_energy"):
                 err = max(err, _sums_close(got[3:], plain[3:], name, 1e-5))
@@ -1303,7 +1395,7 @@ def main() -> int:
             raise AssertionError(f"B6 halo's mover flag over {n_blocks} row blocks differs from B6's")
     (xh3,), (yh3,), (zh3,) = (halo_blocks(g, 1, s) for g, s in zip(c3s, (md3s.box, 0.0, 0.0)))
     (ch3,), (fh3,) = halo_blocks(scode3s, 1), halo_blocks(fields3s, 1, dim=1)
-    for name, kw, bound in variants3:
+    for name, kw, bound in variants3[:3]:
         energy = kw.get("with_energy", False)
         times[name] = (
             _cuda_ms(lambda kw=kw: cell_cuda3.grid_force3_halo(xh3, yh3, zh3, p3s, **kw), 50),
@@ -1314,23 +1406,29 @@ def main() -> int:
     full_ms3 = (_cuda_ms(lambda: cell_cuda3.grid_force3(*c3s, p3s, max_occ=g3.max_occ), 50),
                 _cuda_ms(lambda: cell_cuda3.grid_force3(*c3s, p3s, static_cov=cov3), 50),
                 _cuda_ms(lambda: migrate_cuda3.migrate3(scode3s, fields3s, fills3, k_mov=md3s.migrate_k_mov), 50))
+    t25, strip25 = _counted_times((xh3, yh3, zh3, p3s), cov3, True)
+    times["cell_force3_counted_halo"] = (t25["counted"][0], times["cell_force3_counted_halo"][1])
+    extra["cell_force3_counted_halo"] = {"loop_ms": t25["loop"][0], "strip": strip25}
     n_out3, n_in3 = g3.xg.numel(), xh3.numel()
     b4h, b4he = _force_bounds(_pair_work(c3s, g3.occ, md3s.cps, mo3, md3s.box, p3s.cutoff2), 3, n_out3, n_in3)
     b5h, _ = _force_bounds(_pair_work(c3s, g3.occ, md3s.cps, cov3, md3s.box, p3s.cutoff2), 3, n_out3, n_in3)
-    bounds.update(cell_force3_halo=b4h, cell_force3_halo_energy=b4he, cell_force3_static_halo=b5h,
+    bounds.update(cell_force3_halo=b4h, cell_force3_halo_energy=b4he, cell_force3_counted_halo=b5h,
                   migrate3_halo=_migrate_bound(fields3s.shape[0], n_out3, ch3.numel()))
     print(f"phase 25 3D halo kernels, N={cfg3s.n} (grid {tuple(g3.xg.shape)}, skin {md3s.skin:.4f}, max "
-          f"occupancy {mo3}, B5 bound {cov3}): over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 "
-          f"halo and B6 halo bit-equal to the whole-grid kernels, the mover flag ({bool(mov_of3)}) "
-          f"where B6 raises it; against their plain versions: B4 halo {errors['cell_force3_halo']:.3e}, "
-          f"energy variant {errors['cell_force3_halo_energy']:.3e}, B5 halo "
-          f"{errors['cell_force3_static_halo']:.3e}, B6 halo bit-equal; at one rank's shape B4 halo "
+          f"occupancy {mo3}, B5 bound {cov3}): B5 (both variants) torch.equal to B5's full loop on the "
+          f"whole grid; over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 halo (both variants) and "
+          f"B6 halo bit-equal to the whole-grid kernels, B5 halo to B5 halo's full loop, the mover flag "
+          f"({bool(mov_of3)}) where B6 raises it; against their plain versions: B4 halo "
+          f"{errors['cell_force3_halo']:.3e}, energy variant {errors['cell_force3_halo_energy']:.3e}, B5 "
+          f"halo {errors['cell_force3_counted_halo']:.3e}, energy variant "
+          f"{errors['cell_force3_counted_halo_energy']:.3e}, B6 halo bit-equal; at one rank's shape B4 halo "
           f"{times['cell_force3_halo'][0]:.4f} ms against B4 {full_ms3[0]:.4f} ms, B5 halo "
-          f"{times['cell_force3_static_halo'][0]:.4f} ms against B5 {full_ms3[1]:.4f} ms, B6 halo "
+          f"{times['cell_force3_counted_halo'][0]:.4f} ms against B5 {full_ms3[1]:.4f} ms, B6 halo "
           f"{times['migrate3_halo'][0]:.4f} ms against B6 {full_ms3[2]:.4f} ms", flush=True)
-    for name in ("cell_force3_halo", "cell_force3_halo_energy", "cell_force3_static_halo", "migrate3_halo"):
+    for name in ("cell_force3_halo", "cell_force3_halo_energy", "cell_force3_counted_halo", "migrate3_halo"):
         print(f"phase 25 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+    _print_counted_times("phase 25 B5 halo at one rank's shape", t25, strip25, b5h, md3s.cps)
 
     # -- 26. the row-sharded engines on the card, world size 1 ---------------------
     # an NCCL process group of one rank from an in-process store (no
@@ -1346,9 +1444,10 @@ def main() -> int:
     mesh = make_mesh(device=dev)
     full_names = {"2D": ("cell_force", "cell_force_energy", "migrate", "cell_force_packed",
                          "cell_force_packed_energy", "migrate_packed"),
-                  "3D": ("cell_force3", "cell_force3_energy", "cell_force3_static", "migrate3", "migrate3_flat")}
+                  "3D": ("cell_force3", "cell_force3_energy", "cell_force3_counted", "cell_force3_static",
+                         "migrate3", "migrate3_flat")}
     halo_names = {"2D": ("cell_force_halo", "cell_force_halo_energy", "migrate_halo"),
-                  "3D": ("cell_force3_halo", "cell_force3_halo_energy", "cell_force3_static_halo", "migrate3_halo")}
+                  "3D": ("cell_force3_halo", "cell_force3_halo_energy", "cell_force3_counted_halo", "migrate3_halo")}
     for label, c, engine, kw in (("2D", cfg2s, ShardedGridMD, {}),
                                  ("3D", cfg3s, ShardedGridMD3, dict(static_cov="auto"))):
         plain_md = scaling._build_engine(c, 1, dev)[0]
@@ -1358,7 +1457,8 @@ def main() -> int:
         res_s = lj_fluid.run(c, device=dev, md=sharded)
         counts = launch_counts()
         check_run(res_s, f"{label} sharded engine", c)
-        if any(counts[n] for n in full_names[label]) or not all(counts[n] > 0 for n in halo_names[label]):
+        if (any(counts[n] for n in full_names[label]) or counts["cell_force3_static_halo"]
+                or not all(counts[n] > 0 for n in halo_names[label])):
             raise AssertionError(f"{label} sharded engine: launches {counts}; expected the halo kernels only")
         launches.update({n: counts[n] for n in halo_names[label]})
         res_u = lj_fluid.run(c, device=dev, md=plain_md)
@@ -1405,7 +1505,7 @@ def main() -> int:
         "migrate_packed": ("migrate.cu", kref + "migrate_pallas.py:80"),
         "cell_force3": ("cell_force3.cu", kref + "cell_pallas3.py:99"),
         "cell_force3_energy": ("cell_force3.cu", kref + "cell_pallas3.py:99"),
-        "cell_force3_static": ("cell_force3.cu", kref + "cell_pallas3.py:336"),
+        "cell_force3_counted": ("cell_force3.cu", kref + "cell_pallas3.py:336"),
         "migrate3": ("migrate3.cu", kref + "migrate_pallas3.py:158"),
         "migrate3_flat": ("migrate3.cu", kref + "migrate_pallas3.py:94"),
         "pairwise_lj": ("pairwise_lj.cu", kref + "pairwise_pallas.py:48"),
@@ -1420,7 +1520,7 @@ def main() -> int:
         "cell_force_halo_energy": ("cell_force.cu", kref + "cell_pallas.py:346"),
         "migrate_halo": ("migrate.cu", kref + "migrate_pallas.py:226"),
         "cell_force3_halo": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
-        "cell_force3_static_halo": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
+        "cell_force3_counted_halo": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
         "cell_force3_halo_energy": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
         "migrate3_halo": ("migrate3.cu", kref + "migrate_pallas3.py:471"),
     }

@@ -24,8 +24,9 @@ BUILD_DIR = Path(__file__).parent / "build"
 # No --use_fast_math: the pair math's division stays IEEE-exact. No FMA
 # contraction (--fmad=false): each pair term rounds as the plain PyTorch
 # version's separate eager ops do, so a kernel differs from its plain
-# version only in summation order. -Xptxas -v writes each kernel's
-# registers and spills into the build log.
+# version only in summation order, unless its source writes an FMA or an
+# approximate reciprocal itself, as B8's does (its header says so).
+# -Xptxas -v writes each kernel's registers and spills into the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

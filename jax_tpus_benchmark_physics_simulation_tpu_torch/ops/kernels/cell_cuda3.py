@@ -7,15 +7,23 @@ partner slots bounded at run time by the max cell occupancy) and
 JAX package, both built by ``make_grid_force_kernel3``, and, as B4/B5
 halo, their explicit-halo call ``.raw`` (``cell_pallas3.py:722``) that the
 row-sharded engine runs on each device's x-rows. The CUDA source is
-``csrc/cell_force3.cu``: one template, with the bound as the template
-parameter ``COV`` (0 for B4, which reads ``max_occ`` through a device
-pointer) and the energy/virial variant as a template flag. Its header says
-what bounds it on an H100 and how the design answers that.
+``csrc/cell_force3.cu``. B4 is one thread per slot over 27 cells x the
+bound's partner slots (``cell_force3_kernel<0, ...>``, reading ``max_occ``
+through a device pointer). B5 is the counted kernel
+(``cell_force3_counted_kernel<COV, ...>``): one block a strip of z-cells,
+the 3 x 3 neighbour lines staged in shared memory with occupied slots
+only, one thread per occupied target; bit-equal to B5's full loop over
+``cov`` slots (``cell_force3_kernel<COV, ...>``), which stays in the
+library as its yardstick. The source's header says what bounds each on an
+H100 and how the designs answer that.
 
 Grids are ``(ncx, cap, ncy * ncz)`` float32, the (y, z) cell plane flattened
 without the TPU's 128-lane padding. Empty slots hold the x sentinel
 ``2.5 * box`` (y = z = 0), which the validity test ``0 < r2 < cutoff^2``
 rejects, so no occupancy mask is read. Slots at or past the bound get zero.
+The counted kernel takes each cell's count as its number of non-sentinel
+slots below ``cov``: the engines fill a cell's slots from 0 at every
+(re)binning, and the x-rows the halo exchange attaches are such rows.
 
 - :func:`grid_force3_reference`: the plain PyTorch version, used for CPU
   tensors and as the kernels' reference on the card;
@@ -26,10 +34,16 @@ rejects, so no occupancy mask is read. Slots at or past the bound get zero.
   ``(rows + 2, cap, ncy * ncz)`` in and ``(rows, cap, ncy * ncz)`` out. The
   caller puts the x seam into the halo rows; x does not wrap. Over P row
   blocks the result is bit-equal to the full kernels;
-- ``LAUNCHES`` / ``ENERGY_LAUNCHES`` / ``STATIC_LAUNCHES``: launches of B4,
-  of B4's energy variant and of B5 (either variant), and ``HALO_LAUNCHES`` /
-  ``HALO_ENERGY_LAUNCHES`` / ``HALO_STATIC_LAUNCHES`` the same of the halo
-  forms, counted where the wrappers launch them.
+- :func:`grid_force3_static_loop`: B5's full loop on the card, which no
+  path runs: the counted kernel's bit-exact and timing yardstick;
+- :func:`strip_width`: the z-cells a block of the counted kernel takes (on
+  the card);
+- ``LAUNCHES`` / ``ENERGY_LAUNCHES``: launches of B4 and of its energy
+  variant, ``COUNTED_LAUNCHES``: of B5 (the counted kernel, either
+  variant), and ``HALO_LAUNCHES`` / ``HALO_ENERGY_LAUNCHES`` /
+  ``HALO_COUNTED_LAUNCHES`` the same of the halo forms;
+  ``STATIC_LAUNCHES`` / ``HALO_STATIC_LAUNCHES``: of B5's full loop; each
+  counted where a wrapper launches its kernel.
 """
 
 from __future__ import annotations
@@ -48,12 +62,15 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import 
 
 LAUNCHES = 0
 ENERGY_LAUNCHES = 0
-STATIC_LAUNCHES = 0
+COUNTED_LAUNCHES = 0
 HALO_LAUNCHES = 0
 HALO_ENERGY_LAUNCHES = 0
+HALO_COUNTED_LAUNCHES = 0
+STATIC_LAUNCHES = 0
 HALO_STATIC_LAUNCHES = 0
 # the compile-time bounds csrc/cell_force3.cu instantiates for B5
 STATIC_COVS = (8, 16, 24, 32, 40, 48, 56, 64)
+MAX_STRIP = 32  # z-cells of a counted block: one warp's prefix sum
 
 
 @dataclass(frozen=True)
@@ -197,6 +214,24 @@ def _pair_sums3(x4, y4, z4, partners, p: CellForce3Params, bound: int, with_ener
     return tuple(full)
 
 
+def strip_width(p: CellForce3Params, rows: int, cov: int, with_energy: bool, device) -> int:
+    """The z-cells a block of the counted kernel takes on ``rows`` output
+    x-rows at bound ``cov`` on CUDA ``device``: the widest ``ceil(ncz /
+    k)`` whose blocks are all resident on the card at once, from the
+    occupancy calculator (``pick_strip`` in ``csrc/cell_force3.cu``)."""
+    return _strip_width(cov, bool(with_energy), rows, p.cps, torch.device(device).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _strip_width(cov: int, with_energy: bool, rows: int, cps: int, index: int) -> int:
+    fn = _build.library().jtps_cell_force3_counted_strip
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    w = ctypes.c_int(0)
+    _build.check(fn(cov, int(with_energy), rows, cps, cps, index, ctypes.byref(w)), "cell_force3 strip choice")
+    return w.value
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library().jtps_cell_force3
@@ -211,11 +246,29 @@ def _launcher():
     return fn
 
 
-def _forces3(grids, p: CellForce3Params, max_occ, with_energy: bool, static_cov, halo: bool):
+@functools.lru_cache(maxsize=None)
+def _counted_launcher():
+    fn = _build.library().jtps_cell_force3_counted
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 5
+        + [ctypes.c_float] * 7
+        + [ctypes.c_int] * 4
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _forces3(grids, p: CellForce3Params, max_occ, with_energy: bool, static_cov, halo: bool,
+             loop: bool = False, strip: Optional[int] = None):
     """Checks the arguments of :func:`grid_force3` (``halo=False``) or
     :func:`grid_force3_halo` (``halo=True``: each grid carries one halo
-    x-row on each side) and runs the plain version on the CPU or the kernel
-    on the card. Returns the outputs and whether the kernel launched."""
+    x-row on each side) and runs the plain version on the CPU or a kernel
+    on the card: B4, or with ``static_cov`` the counted kernel in strips of
+    ``strip`` z-cells (default: :func:`strip_width`; another width is for
+    measuring the choice), or B5's full loop with ``loop``. Returns the
+    outputs and whether a kernel launched."""
     dev = grids[0].device
     rows = grids[0].shape[0] - 2 if halo else p.cps
     if rows < 1:
@@ -230,6 +283,9 @@ def _forces3(grids, p: CellForce3Params, max_occ, with_energy: bool, static_cov,
             raise TypeError(f"max_occ: expected one int32, got {max_occ.dtype} {tuple(max_occ.shape)}")
         if max_occ.device != dev:
             raise ValueError(f"max_occ: on {max_occ.device}, expected {dev}")
+    if strip is not None and (static_cov is None or loop or not 1 <= strip <= min(MAX_STRIP, p.cps)):
+        raise ValueError(f"strip {strip}: the counted kernel (static_cov) takes 1 to "
+                         f"{min(MAX_STRIP, p.cps)} z-cells")
     if dev.type == "cpu":
         bound = static_cov if static_cov is not None else max_occ
         bound = None if bound is None else int(bound)
@@ -241,17 +297,20 @@ def _forces3(grids, p: CellForce3Params, max_occ, with_energy: bool, static_cov,
         raise ValueError(f"the B5 kernel is built for static_cov in {STATIC_COVS}, not {static_cov}")
     outs = [torch.empty((rows, p.cap, p.cps * p.cps), dtype=grids[0].dtype, device=dev)
             for _ in range(5 if with_energy else 3)]
-    ew = outs[3:] if with_energy else [None, None]
-    status = _launcher()(
-        *(g.data_ptr() for g in grids),
-        *(o.data_ptr() for o in outs[:3]),
-        *(None if o is None else o.data_ptr() for o in ew),
-        None if (max_occ is None or static_cov is not None) else max_occ.data_ptr(),
-        static_cov or 0, rows, p.cap, p.cps, p.cps,
-        p.box, p.sentinel, p.cutoff2, p.sigma2, p.fscale, p.epsilon, p.shift,
-        int(with_energy), int(halo), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    ptrs = [g.data_ptr() for g in grids] + [o.data_ptr() for o in outs[:3]]
+    ptrs += [o.data_ptr() for o in outs[3:]] if with_energy else [None, None]
+    consts = (p.box, p.sentinel, p.cutoff2, p.sigma2, p.fscale, p.epsilon, p.shift)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if static_cov is None or loop:
+        status = _launcher()(
+            *ptrs, None if (max_occ is None or static_cov is not None) else max_occ.data_ptr(),
+            static_cov or 0, rows, p.cap, p.cps, p.cps, *consts, int(with_energy), int(halo), dev.index, stream,
+        )
+    else:
+        w = strip_width(p, rows, static_cov, with_energy, dev) if strip is None else strip
+        status = _counted_launcher()(
+            *ptrs, static_cov, rows, p.cap, p.cps, p.cps, *consts, int(with_energy), int(halo), w, dev.index, stream,
+        )
     _build.check(status, "cell_force3 halo kernel" if halo else "cell_force3 kernel")
     return tuple(outs), True
 
@@ -269,12 +328,13 @@ def grid_force3(
 
     B4 (``static_cov=None``) covers slots below ``max_occ``, a 0-d int32
     tensor on the grids' device (None: the full capacity); B5 covers slots
-    below ``static_cov`` and ignores ``max_occ``."""
-    global LAUNCHES, ENERGY_LAUNCHES, STATIC_LAUNCHES
+    below ``static_cov`` and ignores ``max_occ``. On the card B5 is the
+    counted kernel: the grids' cells must fill their slots from 0."""
+    global LAUNCHES, ENERGY_LAUNCHES, COUNTED_LAUNCHES
     outs, launched = _forces3((xg, yg, zg), p, max_occ, with_energy, static_cov, halo=False)
     if launched:
         if static_cov is not None:
-            STATIC_LAUNCHES += 1
+            COUNTED_LAUNCHES += 1
         elif with_energy:
             ENERGY_LAUNCHES += 1
         else:
@@ -294,15 +354,38 @@ def grid_force3_halo(
     """B4/B5 halo: :func:`grid_force3` on the local x-rows of
     ``(rows + 2, cap, ncy * ncz)`` grids that carry one halo x-row on each
     side; ``max_occ`` is the bound over all ranks."""
-    global HALO_LAUNCHES, HALO_ENERGY_LAUNCHES, HALO_STATIC_LAUNCHES
+    global HALO_LAUNCHES, HALO_ENERGY_LAUNCHES, HALO_COUNTED_LAUNCHES
     outs, launched = _forces3((xh, yh, zh), p, max_occ, with_energy, static_cov, halo=True)
     if launched:
         if static_cov is not None:
-            HALO_STATIC_LAUNCHES += 1
+            HALO_COUNTED_LAUNCHES += 1
         elif with_energy:
             HALO_ENERGY_LAUNCHES += 1
         else:
             HALO_LAUNCHES += 1
+    return outs
+
+
+def grid_force3_static_loop(
+    xg: torch.Tensor,
+    yg: torch.Tensor,
+    zg: torch.Tensor,
+    p: CellForce3Params,
+    static_cov: int,
+    with_energy: bool = False,
+    halo: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """B5 (``halo``: B5 halo) as its full loop: every slot's thread over 27
+    cells x ``static_cov`` partner slots. No path runs it; it is the counted
+    kernel's yardstick, bit-equal to it on grids whose cells fill their
+    slots from 0. A CPU tensor takes the plain version."""
+    global STATIC_LAUNCHES, HALO_STATIC_LAUNCHES
+    outs, launched = _forces3((xg, yg, zg), p, None, with_energy, static_cov, halo=halo, loop=True)
+    if launched:
+        if halo:
+            HALO_STATIC_LAUNCHES += 1
+        else:
+            STATIC_LAUNCHES += 1
     return outs
 
 

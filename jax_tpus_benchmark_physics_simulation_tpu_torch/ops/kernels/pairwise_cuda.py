@@ -5,9 +5,11 @@ JAX package's ``ops/kernels/pairwise_pallas.py`` holds both.
 B8 replaces the TPU kernel ``ops/kernels/pairwise_pallas.py:_lj_kernel`` of the
 JAX package (built by ``make_lj_force_pallas`` and ``make_lj_energy_pallas``).
 The CUDA source is ``csrc/pairwise_lj.cu``; its header says what bounds it
-on an H100 (N^2 (4d + 12) operations, two IEEE divides a pair) and how the
-design answers that (shared-memory j-tiles, j split into slices, a second
-launch that sums the slices in a fixed order).
+on an H100 (the instructions issued a pair, above all on the quarter-rate
+unit that runs reciprocals and rounding) and how the design answers that
+(one approximate reciprocal a pair, rounding by adding 1.5 * 2^23, explicit
+FMAs, four i-particles a thread over shared-memory j-tiles, j split into
+slices, a second launch that sums the slices in a fixed order).
 
 Positions are ``(N, D)`` float32 with D = 2 or 3, as the JAX function takes
 them: the TPU's 8-wide coordinate padding and its rounding of N up to a
@@ -55,7 +57,15 @@ ENERGY_LAUNCHES = 0
 GRAVITY_LAUNCHES = 0
 GRAVITY_POTENTIAL_LAUNCHES = 0
 
-THREADS = 256  # kThreads in csrc/pairwise_{lj,gravity}.cu: a block's rows and a j-tile
+# B8 (csrc/pairwise_lj.cu): blocks of LJ_THREADS threads take LJ_ROWS
+# i-particles (four a thread); j is cut into at most LJ_MAX_SLICES slices of
+# whole LJ_TILE tiles: 32 row blocks x 32 slices = 1024 blocks at N=16,384
+LJ_THREADS = 128
+LJ_ROWS = 4 * LJ_THREADS
+LJ_TILE = 512
+LJ_MAX_SLICES = 32
+# B9 (csrc/pairwise_gravity.cu): one i-particle a thread, 256-particle tiles
+THREADS = 256  # kThreads in csrc/pairwise_gravity.cu: a block's rows and a j-tile
 MAX_SLICES = 16  # j slices: 64 row blocks x 16 = 1024 blocks at N=16,384
 _REFERENCE_PAIRS = 1 << 27  # pair elements one chunk of the plain version holds
 
@@ -127,12 +137,26 @@ def lj_force_pairwise_reference(
     return (f, torch.cat(e_parts)) if with_energy else (f,)
 
 
+def _cut(n: int, tile: int, max_slices: int) -> Tuple[int, int]:
+    """``(S, slice_len)``: at most ``max_slices`` j slices of whole
+    ``tile``-particle tiles, none of them empty."""
+    tiles = -(-n // tile)
+    per_slice = -(-tiles // min(max_slices, tiles))
+    return -(-tiles // per_slice), per_slice * tile
+
+
 def _slices(n: int) -> Tuple[int, int]:
-    """``(S, slice_len)``: at most ``MAX_SLICES`` j slices of whole tiles,
-    none of them empty."""
-    tiles = -(-n // THREADS)
-    per_slice = -(-tiles // min(MAX_SLICES, tiles))
-    return -(-tiles // per_slice), per_slice * THREADS
+    """B9's ``(S, slice_len)``: at most ``MAX_SLICES`` slices of whole
+    ``THREADS``-particle tiles."""
+    return _cut(n, THREADS, MAX_SLICES)
+
+
+def _lj_geometry(n: int) -> Tuple[int, int, int]:
+    """B8's launch: ``(row_blocks, S, slice_len)``. Row block ``b`` takes
+    i-particles ``b * LJ_ROWS + k * LJ_THREADS + t`` (thread ``t``, ``k`` <
+    4) below ``n``; slice ``s`` takes j in ``[s * slice_len, (s + 1) *
+    slice_len)`` below ``n``, in tiles of ``LJ_TILE``."""
+    return (-(-n // LJ_ROWS),) + _cut(n, LJ_TILE, LJ_MAX_SLICES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,7 +190,7 @@ def lj_force_pairwise(
     if position.device.type != "cuda":
         raise ValueError(f"lj_force_pairwise runs on cpu or cuda tensors, not {position.device}")
     n, dim = position.shape
-    slices, slice_len = _slices(n)
+    _, slices, slice_len = _lj_geometry(n)
     partial = torch.empty((slices, n, dim + 1), dtype=torch.float32, device=position.device)
     f = torch.empty_like(position)
     e = torch.empty(n, dtype=torch.float32, device=position.device) if with_energy else None

@@ -141,7 +141,7 @@ def test_cell_force3_kernels_match_plain(cuda_device):
     p = cell_cuda3.CellForce3Params.from_grid(md.grid_fn)
     occ = gs.occ > 0.5
     mo = int(gs.max_occ)
-    before = (cell_cuda3.LAUNCHES, cell_cuda3.ENERGY_LAUNCHES, cell_cuda3.STATIC_LAUNCHES)
+    before = (cell_cuda3.LAUNCHES, cell_cuda3.ENERGY_LAUNCHES, cell_cuda3.COUNTED_LAUNCHES)
     args = (gs.xg, gs.yg, gs.zg, p)
     for with_energy in (False, True):
         got = cell_cuda3.grid_force3(*args, max_occ=gs.max_occ, with_energy=with_energy)
@@ -157,8 +157,53 @@ def test_cell_force3_kernels_match_plain(cuda_device):
     for a, b in zip(got, want):
         assert float((a - b)[occ].abs().max()) <= 1e-4
         assert bool((a[:, md.static_cov:] == 0).all())
-    assert (cell_cuda3.LAUNCHES, cell_cuda3.ENERGY_LAUNCHES, cell_cuda3.STATIC_LAUNCHES) == (
+    assert (cell_cuda3.LAUNCHES, cell_cuda3.ENERGY_LAUNCHES, cell_cuda3.COUNTED_LAUNCHES) == (
         before[0] + 1, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.parametrize("with_energy", [False, True])
+def test_counted_kernel3_bit_equal_to_static_loop(cuda_device, with_energy):
+    """B5 as launched (the counted kernel, at the default strip and, through
+    the wrappers' launcher, at every strip width of 1 to 8 z-cells)
+    torch.equal to B5's full loop on the same state, and over two launches;
+    the wrappers' launches counted."""
+    md, gs = _advanced_state3(cuda_device)
+    p = cell_cuda3.CellForce3Params.from_grid(md.grid_fn)
+    args, cov = (gs.xg, gs.yg, gs.zg, p), md.static_cov
+    before = (cell_cuda3.COUNTED_LAUNCHES, cell_cuda3.STATIC_LAUNCHES)
+    loop = cell_cuda3.grid_force3_static_loop(*args, cov, with_energy)
+    got = cell_cuda3.grid_force3(*args, with_energy=with_energy, static_cov=cov)
+    again = cell_cuda3.grid_force3(*args, with_energy=with_energy, static_cov=cov)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, loop))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert 1 <= cell_cuda3.strip_width(p, md.cps, cov, with_energy, cuda_device) <= md.cps
+    for strip in range(1, md.cps + 1):
+        out, _ = cell_cuda3._forces3(args[:3], p, None, with_energy, cov, halo=False, strip=strip)
+        assert all(torch.equal(a, b) for a, b in zip(out, loop)), strip
+    assert (cell_cuda3.COUNTED_LAUNCHES, cell_cuda3.STATIC_LAUNCHES) == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_counted_halo_kernel3_bit_equal_to_static_loops(cuda_device, p):
+    """B5 halo as launched (the counted kernel) over p x-row blocks, both
+    variants, torch.equal to B5 halo's full loop on the same blocks and to
+    B5's full loop on the whole grid: the seam-shifted sentinels of the
+    halo rows count as empty."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import halo_blocks
+
+    md, gs = _advanced_state3(cuda_device)
+    params = cell_cuda3.CellForce3Params.from_grid(md.grid_fn)
+    cov = md.static_cov
+    blocks = list(zip(halo_blocks(gs.xg, p, md.box), halo_blocks(gs.yg, p), halo_blocks(gs.zg, p)))
+    before = (cell_cuda3.HALO_COUNTED_LAUNCHES, cell_cuda3.HALO_STATIC_LAUNCHES)
+    for with_energy in (False, True):
+        whole = cell_cuda3.grid_force3_static_loop(gs.xg, gs.yg, gs.zg, params, cov, with_energy)
+        counted = [cell_cuda3.grid_force3_halo(*b, params, with_energy=with_energy, static_cov=cov) for b in blocks]
+        loop = [cell_cuda3.grid_force3_static_loop(*b, params, cov, with_energy, halo=True) for b in blocks]
+        for got in (counted, loop):
+            assert all(torch.equal(torch.cat(q), f) for q, f in zip(zip(*got), whole))
+    assert (cell_cuda3.HALO_COUNTED_LAUNCHES, cell_cuda3.HALO_STATIC_LAUNCHES) == (before[0] + 2 * p, before[1] + 2 * p)
 
 
 def test_migrate3_kernels_bit_equal(cuda_device):
@@ -241,6 +286,32 @@ def test_pairwise_kernel_matches_plain(cuda_device, n, dim, periodic, cutoff):
         if with_energy:
             np.testing.assert_allclose(float(got[1].double().sum()), float(want[1].double().sum()), rtol=1e-5)
     assert (pairwise_cuda.LAUNCHES, pairwise_cuda.ENERGY_LAUNCHES) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 257, 513, 1100])
+def test_pairwise_kernel_ragged_geometry(cuda_device, n):
+    """B8 where N is not a multiple of the 512-particle block and tile (a
+    block's own tile cut short, one particle alone): forces within 1e-4 *
+    max |f| of the plain version, the energy sum at rtol 1e-5, two launches
+    bit-equal; 2D with a box and 3D without one."""
+    rng = np.random.default_rng(n)
+    for dim, periodic in ((2, True), (3, False)):
+        # a jittered lattice of spacing 1.1, the first n sites
+        per_side = int(np.ceil(n ** (1.0 / dim) - 1e-9))
+        sites = np.stack(np.meshgrid(*([np.arange(per_side) * 1.1 + 0.55] * dim), indexing="ij"), -1)
+        pos_np = sites.reshape(-1, dim)[:n] + 0.05 * rng.standard_normal((n, dim))
+        pos = torch.from_numpy(pos_np.astype(np.float32)).to(cuda_device)
+        p = pairwise_cuda.PairwiseParams(box=1.1 * per_side if periodic else None)
+        for with_energy in (False, True):
+            got = pairwise_cuda.lj_force_pairwise(pos, p, with_energy)
+            again = pairwise_cuda.lj_force_pairwise(pos, p, with_energy)
+            want = pairwise_cuda.lj_force_pairwise_reference(pos, p, with_energy)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            fmax = float(want[0].abs().max())
+            assert float((got[0] - want[0]).abs().max()) <= 1e-4 * fmax
+            if with_energy:
+                np.testing.assert_allclose(float(got[1].double().sum()), float(want[1].double().sum()), rtol=1e-5)
 
 
 def test_pairwise_energy_gradient_on_card(cuda_device):
@@ -394,11 +465,12 @@ def test_sharded_engines_at_one_rank_match_unsharded(cuda_device):
     from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import make_mesh
 
     def whole_grid():
-        return (cell_cuda.LAUNCHES, cell_cuda_packed.LAUNCHES, cell_cuda3.LAUNCHES, cell_cuda3.STATIC_LAUNCHES,
-                migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES, migrate_cuda3.LAUNCHES)
+        return (cell_cuda.LAUNCHES, cell_cuda_packed.LAUNCHES, cell_cuda3.LAUNCHES, cell_cuda3.COUNTED_LAUNCHES,
+                cell_cuda3.STATIC_LAUNCHES, migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES,
+                migrate_cuda3.LAUNCHES)
 
     def halo():
-        return (cell_cuda.HALO_LAUNCHES + cell_cuda3.HALO_LAUNCHES + cell_cuda3.HALO_STATIC_LAUNCHES,
+        return (cell_cuda.HALO_LAUNCHES + cell_cuda3.HALO_LAUNCHES + cell_cuda3.HALO_COUNTED_LAUNCHES,
                 migrate_cuda.HALO_LAUNCHES + migrate_cuda3.HALO_LAUNCHES)
 
     for cfg, engine in ((CFG, ShardedGridMD), (CFG3, ShardedGridMD3)):

@@ -120,6 +120,27 @@ def test_slices_cover_every_tile():
     assert pairwise_cuda._slices(16384) == (16, 1024)
 
 
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4096, 16384])
+def test_lj_geometry_covers_every_i_once_and_every_tile_once(n):
+    """B8's launch: the row blocks' threads (four i-particles each, a
+    thread's rows LJ_THREADS apart) hold every i below N exactly once, and
+    the slices (none empty, at most LJ_MAX_SLICES) hold every j tile of
+    LJ_TILE exactly once, in order: each (i, j) pair is one block's."""
+    rows, slices, length = pairwise_cuda._lj_geometry(n)
+    threads, per_block, tile = pairwise_cuda.LJ_THREADS, pairwise_cuda.LJ_ROWS, pairwise_cuda.LJ_TILE
+    assert per_block == 4 * threads
+    i = (np.arange(rows)[:, None, None] * per_block + np.arange(4)[None, :, None] * threads
+         + np.arange(threads)[None, None, :]).ravel()
+    i = i[i < n]
+    assert i.size == n and np.array_equal(np.sort(i), np.arange(n))
+    assert length % tile == 0 and 1 <= slices <= pairwise_cuda.LJ_MAX_SLICES
+    assert all(s * length < n for s in range(slices))  # no empty slice
+    tiles = [j0 for s in range(slices) for j0 in range(s * length, min((s + 1) * length, n), tile)]
+    assert tiles == list(range(0, n, tile))
+    if n == 16384:
+        assert (rows, slices, length) == (32, 32, 512)  # 1024 blocks of 128 threads
+
+
 def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
     x = torch.zeros((10, 2))
     p = PairwiseParams()
