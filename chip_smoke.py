@@ -10,9 +10,12 @@ Run from the repository root. It builds the CUDA kernels from
    CUDA versions and the kernel build time;
 2. 2D kernels at the N=100k shapes (121 x 16 x 121 grid) on a state whose
    positions are unwrapped near the seams, each against its plain PyTorch
-   version: B1 forces (max abs diff <= 1e-4 over occupied slots), B1 energy
-   variant (e and w sums at rtol 1e-5), B2 (bit-equal); timed with CUDA
-   events;
+   version: B1 (the tile kernel) forces (max abs diff <= 1e-4 over occupied
+   slots), B1 energy variant (e and w sums at rtol 1e-5), B2 (bit-equal);
+   B1 in both variants torch.equal to B1's loop and over two launches;
+   timed with CUDA events, B1 and its energy variant in 7 interleaved
+   repeats beside B1's loop and at candidate tiles (the default tile and
+   block size printed);
 3. B1 forces on 1024 particles against the dense O(N^2) oracle computed
    from all 100k particles (atol 1e-4);
 4. a 2D run at N=4096 on the card against the same run on the CPU (the
@@ -20,7 +23,9 @@ Run from the repository root. It builds the CUDA kernels from
 5. the 2D main path, ``lj_fluid.run`` at N=100k (rho 0.8, cutoff 2.5,
    dt 1e-3, lattice init, Kahan on, 2000 + 2000 steps), with every launch
    counter set to 0 just before: overflow False, finite energies, energy
-   drift < 1e-4, and B1, B1-energy and B2 launched;
+   drift < 1e-4, and B1, B1-energy and B2 launched and B1's loop not; then
+   the card's busy share over 200 traced production steps and B1's share
+   of device time;
 6. the 3D main path, ``lj_fluid.run`` with ``dim=3`` at N=100k (the same
    configuration; skin 0.1316, 19 cells per side, fixed production
    cadence from the measured kT), with every counter set to 0 just before:
@@ -67,11 +72,11 @@ Run from the repository root. It builds the CUDA kernels from
     (coordinates unwrapped near the seams, block-crossing rows included):
     B3 at N=16,384 (cutoff 2.5: 49 cells per side, R=49, grid 1 x 16 x
     2401) and at N=1M (385 cells per side, R=7, grid 55 x 16 x 2695), with
-    the state's count grid: both variants torch.equal to B1 on the
+    the state's count grid: both variants torch.equal to B1's loop on the
     unpacked grids (packed back) and over two launches, and within 1e-4 of
     the plain version over occupied slots (the energy variant's e and w
-    sums at rtol 1e-5); B3 and B1 on the unpacked grids (the full-capacity
-    loop) timed in 7 interleaved repeats (median, min, max); B2 on the
+    sums at rtol 1e-5); B3 and B1's loop on the unpacked grids timed in 7
+    interleaved repeats (median, min, max); B2 on the
     packed N=1M grid bit-equal to its plain version; timed with CUDA
     events;
 16. B3 forces on 1024 interior particles of the N=16,384 packed state
@@ -83,8 +88,9 @@ Run from the repository root. It builds the CUDA kernels from
     and B1 and unpacked B2 not; at N=1M also its ms/step, the card's busy
     share over 200 traced production steps and B3's share of device time;
 18. the grid engine at N=4096 (cutoff 2.5; phase 4 runs it at its default
-    R=24) with ``rows_per_block`` 1 and 4 (G=6): 100 + 100 steps on the card
-    against the same on the CPU, energies at rtol 1e-4;
+    R=24) with ``rows_per_block`` 1 (B1, the tile kernel; its loop not
+    launched) and 4 (G=6): 100 + 100 steps on the card against the same on
+    the CPU, energies at rtol 1e-4;
 19. ``lj_fluid.run`` with the Langevin thermostat (gamma 1.0) at N=100k in
     2D and 3D (2000 + 2000 steps): overflow False, the mean kinetic
     temperature of the production samples within 5% of kT, and after 100
@@ -122,10 +128,13 @@ Run from the repository root. It builds the CUDA kernels from
 24. the 2D halo kernels at N=97,044 (``scaling._round_to_divisible_n``
     of 100k for devices [1, 2, 4]: 120 cells per side, R=1) on a state 20
     steps after a rebuild: over 1, 2 and 4 row blocks with the halo rows
-    (the x seam added as the exchange adds it), B1 halo (both variants) and
-    B2 halo bit-equal to B1 and B2 on the whole grid and within 1e-4 (B2
-    halo: bit-equal) of their plain halo versions; timed at one rank's
-    shape (world size 1: 122 rows in, 120 out) beside B1 and B2;
+    (the x seam added as the exchange adds it), B1 halo (the tile kernel,
+    both variants, on the ``(rows + 2)`` grids and on the local grids with
+    the edge rows) and B2 halo bit-equal to B1 and B2 on the whole grid, B1
+    halo also to B1 halo's loop, and within 1e-4 (B2 halo: bit-equal) of
+    their plain halo versions; timed at one rank's shape (world size 1: 122
+    rows in, 120 out) beside B1 and B2, B1 halo in 7 interleaved repeats
+    beside its loop;
 25. the 3D halo kernels at N=100k rounded for devices [1, 2] (the skin
     rounded to 2 devices: 18 cells per side) on a state 90 steps into the
     melt: over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 halo
@@ -144,15 +153,20 @@ Run from the repository root. It builds the CUDA kernels from
     no whole-grid kernel; then the unsharded engine at the same N (its
     ms/step printed beside the sharded one's) and 50 steps of trajectory
     parity at ``scaling._check_parity``'s rtol = atol = 2e-4, and what an
-    all-reduce on the group and one step's edge-row exchange cost each; the
-    3D engine's mover flag at 18 cells per side is printed (False); the
-    group is destroyed at the end;
+    all-reduce on the group and one step's edge-row exchange cost each (in
+    2D with the ``(rows + 2)`` copies the 3D engine makes and without them,
+    as the 2D engine's force takes the edge rows); the 2D engine's busy
+    share over 200 traced production steps and B1 halo's share of device
+    time; the 3D engine's mover flag at 18 cells per side is printed
+    (False); the group is destroyed at the end;
 27. prints a JSON line with each kernel's launches on its main path,
     error, times, and bound (the larger of the operations over the card's
     float32 peak and the bytes over its memory rate, counted on this run's
     inputs), B3's with ``full_capacity_ms`` (B1's loop on the unpacked
-    grids), B5's and B5 halo's with ``loop_ms`` (B5's full loop, which no
-    path runs) and ``strip``, and as the last line
+    grids), B1's and B1 halo's four rows with ``loop_ms`` (B1's loop, which
+    no path runs, its launches in ``loop_launches``) and ``tile``, B5's and
+    B5 halo's with ``loop_ms`` (B5's full loop, which no path runs) and
+    ``strip``, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
@@ -183,16 +197,21 @@ PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 PREVIOUS_B8_MS = 0.5691
 
 
-def _cuda_ms(fn, reps: int) -> float:
+def _cuda_ms(fn, reps: int, lead: bool = False) -> float:
     """Mean device time of ``fn()`` over ``reps`` back-to-back calls, from
     CUDA events, after a warm call. A second untimed call is still running
     when the start event is recorded, so the card does not sit idle while
     the host prepares the first timed call (a wrapper's host time, up to
-    tens of us, would otherwise count once in every ``reps`` calls)."""
+    tens of us, would otherwise count once in every ``reps`` calls). With
+    ``lead``, the card first spins for about 5 ms, long enough for the host
+    to queue every timed call: a kernel shorter than its wrapper's host time
+    then runs back to back and is timed alone, not the host."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    if lead:
+        torch.cuda._sleep(10_000_000)  # clock cycles: ~5 ms at the H100's ~1.98 GHz
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -204,14 +223,15 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _interleaved_ms(fns: dict, repeats: int = 7, reps: int = 20) -> dict:
+def _interleaved_ms(fns: dict, repeats: int = 7, reps: int = 20, lead: bool = False) -> dict:
     """``{name: (median, min, max)}`` of each function's mean device ms over
-    ``reps`` calls (``_cuda_ms``), in ``repeats`` rounds that take the
-    functions in turn, so that a drift of the card's clock falls on all."""
+    ``reps`` calls (``_cuda_ms``, ``lead`` passed on), in ``repeats`` rounds
+    that take the functions in turn, so that a drift of the card's clock
+    falls on all."""
     runs = {name: [] for name in fns}
     for _ in range(repeats):
         for name, fn in fns.items():
-            runs[name].append(_cuda_ms(fn, reps))
+            runs[name].append(_cuda_ms(fn, reps, lead))
     return {name: (statistics.median(v), min(v), max(v)) for name, v in runs.items()}
 
 
@@ -370,6 +390,61 @@ def _print_counted_times(label: str, t: dict, strip: int, bound, ncz: int) -> No
                                                 if k.startswith("strip")), flush=True)
 
 
+# tile candidates (rows x columns, each balanced to the grid as the default
+# is) timed beside the default tile of B1 and B1 halo
+TILE_CANDIDATES = ((1, 32), (2, 32), (4, 32), (8, 32), (2, 16), (4, 16), (8, 16), (2, 64))
+
+
+def _balanced(n: int, target: int) -> int:
+    """``ceil(n / ceil(n / target))``, as ``csrc/cell_force.cu`` balances a
+    tile's rows and columns."""
+    return -(-n // -(-n // target))
+
+
+def _tile_times(cell_cuda, args, rows: int, halo: bool, repeats: int = 7):
+    """B1 (``halo``: B1 halo) on ``args`` = ``(x, y, p)`` in ``repeats``
+    interleaved rounds: the tile kernel at its default tile and B1's loop,
+    each in both variants, and the tile kernel at the candidate tiles, each
+    queued behind a spin of the card (``_cuda_ms``'s ``lead``: the tile
+    kernel takes less device time than its wrapper takes on the host).
+    Returns the timings and each variant's default ``(H, W, threads)``."""
+    x, y, p = args
+    run = cell_cuda.grid_force_halo if halo else cell_cuda.grid_force
+    loop = cell_cuda.grid_force_halo_loop if halo else cell_cuda.grid_force_loop
+    fns = {"tile": lambda: run(x, y, p), "loop": lambda: loop(x, y, p),
+           "tile_e": lambda: run(x, y, p, True), "loop_e": lambda: loop(x, y, p, True)}
+    for h, w in TILE_CANDIDATES:
+        t = (_balanced(rows, h), _balanced(p.cps, w))
+        fns.setdefault(f"tile {t[0]}x{t[1]}", lambda t=t: run(x, y, p, tile=t))
+        fns.setdefault(f"tile_e {t[0]}x{t[1]}", lambda t=t: run(x, y, p, True, tile=t))
+    tiles = tuple(cell_cuda.tile_shape(p, rows, e, x.device) for e in (False, True))
+    return _interleaved_ms(fns, repeats, lead=True), tiles
+
+
+def _print_tile_times(label: str, t: dict, tiles, bound) -> None:
+    (h, w, th), (he, we, the) = tiles
+    cands = [k.split()[1] for k in t if k.startswith("tile ")]
+    print(f"{label} time (medians of 7 interleaved repeats of 20 calls): tile kernel (tile {h}x{w}, {th} threads) "
+          f"{_spread(t['tile'])}, B1's loop {_spread(t['loop'])}; energy variants: tile kernel (tile {he}x{we}, "
+          f"{the} threads) {_spread(t['tile_e'])}, loop {_spread(t['loop_e'])}; bound {bound[0]:.5f} ms "
+          f"({bound[1]}); tiles (force, energy): " + ", ".join(
+              f"{c}: {t['tile ' + c][0]:.4f}, {t['tile_e ' + c][0]:.4f}" for c in cands), flush=True)
+
+
+def _kernel_alone_ms(fn, kernel_key: str, path: str, reps: int = 20) -> float:
+    """The device ms a call of the kernels whose name holds ``kernel_key``
+    over ``reps`` calls of ``fn()`` under the profiler: the kernel alone,
+    whatever the host's time between two launches."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import profile_device
+
+    fn()
+    _, _, by_name = profile_device(lambda: [fn() for _ in range(reps)], path)
+    dev_s = sum(v for k, v in by_name.items() if kernel_key in k)
+    if dev_s <= 0:
+        raise AssertionError(f"no {kernel_key} in the profile")
+    return 1e3 * dev_s / reps
+
+
 def main() -> int:
     import torch
 
@@ -418,6 +493,9 @@ def main() -> int:
             "cell_force3_halo_energy": cell_cuda3.HALO_ENERGY_LAUNCHES,
             "cell_force3_counted_halo": cell_cuda3.HALO_COUNTED_LAUNCHES,
             "cell_force3_static_halo": cell_cuda3.HALO_STATIC_LAUNCHES, "migrate3_halo": migrate_cuda3.HALO_LAUNCHES,
+            "cell_force_loop": cell_cuda.LOOP_LAUNCHES, "cell_force_loop_energy": cell_cuda.LOOP_ENERGY_LAUNCHES,
+            "cell_force_halo_loop": cell_cuda.HALO_LOOP_LAUNCHES,
+            "cell_force_halo_loop_energy": cell_cuda.HALO_LOOP_ENERGY_LAUNCHES,
         }
 
     def reset_counts():
@@ -432,6 +510,12 @@ def main() -> int:
         cell_cuda.HALO_LAUNCHES = cell_cuda.HALO_ENERGY_LAUNCHES = migrate_cuda.HALO_LAUNCHES = 0
         cell_cuda3.HALO_LAUNCHES = cell_cuda3.HALO_ENERGY_LAUNCHES = cell_cuda3.HALO_STATIC_LAUNCHES = 0
         migrate_cuda3.HALO_LAUNCHES = 0
+        cell_cuda.LOOP_LAUNCHES = cell_cuda.LOOP_ENERGY_LAUNCHES = 0
+        cell_cuda.HALO_LOOP_LAUNCHES = cell_cuda.HALO_LOOP_ENERGY_LAUNCHES = 0
+
+    def loop_launches() -> dict:
+        """B1's loop launches, which no path may make."""
+        return {k: v for k, v in launch_counts().items() if "_loop" in k}
 
     # -- 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -439,6 +523,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi, flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
@@ -477,6 +562,16 @@ def main() -> int:
     err_ef = _max_diff(ek[:2], er[:2], occ, "B1 energy variant forces", 1e-4)
     err_e = _sums_close(ek[2:], er[2:], "B1 energy variant", 1e-5)
     errors["cell_force_energy"] = max(err_ef, err_e)
+    # the tile kernel against B1's loop, which sums the same pairs in the
+    # same order: the same bits, in both variants and over two launches
+    again = cell_cuda.grid_force(gs.xg, gs.yg, p) + cell_cuda.grid_force(gs.xg, gs.yg, p, with_energy=True)
+    loop2 = cell_cuda.grid_force_loop(gs.xg, gs.yg, p) + cell_cuda.grid_force_loop(gs.xg, gs.yg, p, with_energy=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(fk + ek, again)):
+        raise AssertionError("B1: two launches on one input are not bit-equal")
+    if not all(torch.equal(a, b) for a, b in zip(fk + ek, loop2)):
+        raise AssertionError("B1: the tile kernel is not torch.equal to B1's loop")
+    del again, loop2
 
     _, _, scode, _, _, _ = md._migration_dest(gs)
     fields = torch.stack([torch.remainder(gs.xg, md.box), torch.remainder(gs.yg, md.box),
@@ -488,11 +583,12 @@ def main() -> int:
         raise AssertionError("B2: kernel output is not bit-equal to the plain version")
     errors["migrate"] = 0.0
 
-    times["cell_force"] = (_cuda_ms(lambda: cell_cuda.grid_force(gs.xg, gs.yg, p), 50),
-                           _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p), 10))
+    t2, tile2 = _tile_times(cell_cuda, (gs.xg, gs.yg, p), md.cps, halo=False)
+    times["cell_force"] = (t2["tile"][0], _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p), 10))
     times["cell_force_energy"] = (
-        _cuda_ms(lambda: cell_cuda.grid_force(gs.xg, gs.yg, p, with_energy=True), 50),
-        _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p, with_energy=True), 10))
+        t2["tile_e"][0], _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p, with_energy=True), 10))
+    extra["cell_force"] = {"loop_ms": t2["loop"][0], "tile": list(tile2[0])}
+    extra["cell_force_energy"] = {"loop_ms": t2["loop_e"][0], "tile": list(tile2[1])}
     times["migrate"] = (_cuda_ms(lambda: migrate_cuda.migrate(scode, fields, fills), 50),
                         _cuda_ms(lambda: migrate_cuda.migrate_reference(scode, fields, fills), 10))
     work2 = _pair_work((gs.xg, gs.yg), gs.occ, md.cps, md.cap, md.box, p.cutoff2)
@@ -500,11 +596,19 @@ def main() -> int:
     bounds["migrate"] = _migrate_bound(fields.shape[0], gs.xg.numel())
     print(f"phase 2 B1 forces: max abs diff {errors['cell_force']:.3e} (max |f| {fmax:.1f}); "
           f"energy variant: forces {err_ef:.3e}, e/w max abs diff {err_e:.3e}, sums within rtol 1e-5; "
+          f"B1 (the tile kernel, both variants) torch.equal to B1's loop and over two launches; "
           f"B2: bit-equal, {movers} movers; pair work: {work2[0]} distance tests, "
           f"{work2[1]} in the cutoff", flush=True)
     for name in ("cell_force", "cell_force_energy", "migrate"):
         print(f"phase 2 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+    _print_tile_times(f"{smi}: phase 2 B1", t2, tile2, bounds["cell_force"])
+    alone2 = {name: _kernel_alone_ms(fn, key, os.path.join("chiprun_out", "chip_smoke_b1_alone.json"))
+              for name, fn, key in (("tile kernel", lambda: cell_cuda.grid_force(gs.xg, gs.yg, p),
+                                     "cell_force_tile_kernel"),
+                                    ("loop", lambda: cell_cuda.grid_force_loop(gs.xg, gs.yg, p), "cell_force_kernel"))}
+    print(f"{smi}: phase 2 B1 alone on the card (profiler, 20 calls): " +
+          ", ".join(f"{k} {v:.4f} ms" for k, v in alone2.items()), flush=True)
 
     # -- 3. B1 against the dense oracle ----------------------------------------
     # particles at least cutoff + skin from the seams: neither they nor their
@@ -526,6 +630,7 @@ def main() -> int:
     # -- 4. a small 2D run on the card against the same run on the CPU --------
     small = override(cfg, n=4096, eq_steps=100, prod_steps=100, sample_every=50)
     hist = {}
+    reset_counts()
     for where in ("cuda", "cpu"):
         s0 = lj_fluid.init_state(small, where)
         s_eq, ovf_eq = lj_fluid.equilibrate(small, s0)
@@ -537,6 +642,8 @@ def main() -> int:
         rel = float(((a - b).abs() / b.abs()).max())
         if not rel <= 1e-4:
             raise AssertionError(f"N=4096 {name} history, card vs CPU: rel diff {rel:.3e} > 1e-4")
+    if any(loop_launches().values()):
+        raise AssertionError(f"N=4096 run launched B1's loop: {loop_launches()}")
     print(f"phase 4 N=4096 (R={lj_fluid._make_grid_md(small, dev).rows_per_block}), 200 steps: card and "
           "CPU energy histories agree within rtol 1e-4", flush=True)
 
@@ -578,7 +685,10 @@ def main() -> int:
     for name, count in path2.items():
         if count <= 0:
             raise AssertionError(f"2D main path never launched kernel {name}")
+    if any(loop_launches().values()):
+        raise AssertionError(f"2D main path launched B1's loop: {loop_launches()}")
     launches.update(path2)
+    loop_main = dict(loop_launches())  # B1's loop on the main paths: 0
 
     # -- 6. the 3D main path -----------------------------------------------------
     reset_counts()
@@ -597,8 +707,6 @@ def main() -> int:
 
     from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import profile_device
 
-    os.makedirs("chiprun_out", exist_ok=True)
-
     def busy_line(label, res_run, c, traced_run, kernel_keys, kernel_label):
         """The card's busy share over ``traced_run``'s steps (traced) against
         the run's untraced production ms/step, and the named kernels' share
@@ -614,6 +722,12 @@ def main() -> int:
               f"of {wall:.4f} ms/step untraced wall; busy share {busy / wall:.3f}, idle share "
               f"{1 - busy / wall:.3f}; {kernel_label} {k_ms:.4f} ms/step = {k_ms / busy:.3f} of device time",
               flush=True)
+
+    traced2 = override(cfg, prod_steps=2 * cfg.sample_every)
+    busy_line(f"{smi}: phase 5 2D N=100k", res, cfg,
+              profile_device(lambda: lj_fluid.production(traced2, res.state, res.cadence),
+                             os.path.join("chiprun_out", "chip_smoke_2d_trace.json")),
+              ("cell_force_tile_kernel",), "B1")
 
     traced3 = override(cfg3, prod_steps=2 * cfg3.sample_every)
     busy_line("phase 6 3D N=100k", res3, cfg3,
@@ -918,7 +1032,7 @@ def main() -> int:
             return cell_cuda_packed.grid_force_packed(g.xg, g.yg, cnt, pk, r, with_energy=energy)
 
         def b1_unpacked(energy=False):
-            return cell_cuda.grid_force(xu, yu, pk, with_energy=energy)
+            return cell_cuda.grid_force_loop(xu, yu, pk, with_energy=energy)
 
         f1, f2, e1, e2 = b3(), b3(), b3(True), b3(True)
         fr = cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r)
@@ -930,7 +1044,7 @@ def main() -> int:
         if not all(torch.equal(a, b) for a, b in zip(f1 + e1, f2 + e2)):
             raise AssertionError(f"B3 {label}: two launches on one input are not bit-equal")
         if not all(torch.equal(a, b) for a, b in zip(f1 + e1, yard)):
-            raise AssertionError(f"B3 {label}: not bit-equal to B1 on the unpacked grids")
+            raise AssertionError(f"B3 {label}: not bit-equal to B1's loop on the unpacked grids")
         err_f = _max_diff(f1, fr, occ_p, f"B3 {label} forces", 1e-4)
         err_ef3 = _max_diff(e1[:2], er[:2], occ_p, f"B3 {label} energy variant forces", 1e-4)
         err_e3 = _sums_close(e1[2:], er[2:], f"B3 {label} energy variant", 1e-5)
@@ -945,7 +1059,7 @@ def main() -> int:
                              full=(t15["b1"][0], t15["b1_e"][0]))
         print(f"phase 15 {label}: grid {tuple(g.xg.shape)} (R={r}, G={m.n_blocks}), {outside} particles "
               f"outside [0, box), {int(cnt.sum())} particles, at most {int(cnt.max())} a cell; B3 (force and "
-              f"energy variants) torch.equal to B1 on the unpacked grids and over two launches; forces max abs "
+              f"energy variants) torch.equal to B1's loop on the unpacked grids and over two launches; forces max abs "
               f"diff {err_f:.3e} from the plain version (max |f| {float(torch.hypot(fr[0], fr[1])[occ_p].max()):.1f}); "
               f"energy variant: forces {err_ef3:.3e}, e/w max abs diff {err_e3:.3e}, sums within rtol 1e-5; "
               f"pair work: {work_p[0]} distance tests, {work_p[1]} in the cutoff", flush=True)
@@ -1005,7 +1119,7 @@ def main() -> int:
         path_p = {"cell_force_packed": cell_cuda_packed.LAUNCHES,
                   "cell_force_packed_energy": cell_cuda_packed.ENERGY_LAUNCHES,
                   "migrate_packed": migrate_cuda.PACKED_LAUNCHES}
-        unpacked = (cell_cuda.LAUNCHES, cell_cuda.ENERGY_LAUNCHES, migrate_cuda.LAUNCHES)
+        unpacked = (cell_cuda.LAUNCHES, cell_cuda.ENERGY_LAUNCHES, migrate_cuda.LAUNCHES, *loop_launches().values())
         print(f"phase 17 N={c.n}: R={mp.rows_per_block}, G={mp.n_blocks}, grid {mp.grid_shape}, "
               f"{kp}-step windows at gate {gp}", flush=True)
         report_run(resp, "17 lj_fluid.run packed", path_p, path_p["migrate_packed"], c)
@@ -1014,7 +1128,7 @@ def main() -> int:
             if count <= 0:
                 raise AssertionError(f"packed main path N={c.n} never launched kernel {name}")
         if any(unpacked):
-            raise AssertionError(f"packed main path N={c.n} launched B1 / unpacked B2: {unpacked}")
+            raise AssertionError(f"packed main path N={c.n} launched B1, its loop or unpacked B2: {unpacked}")
         if c is cfg1m:
             launches.update(path_p)
 
@@ -1032,6 +1146,7 @@ def main() -> int:
     k18, gate18 = lj_fluid._grid_inner_steps(small18, GridMD(gf18, device="cpu"))
     for r18 in (1, 4):
         ens = {}
+        reset_counts()
         for where in ("cuda", "cpu"):
             m18 = GridMD(gf18, dt=small18.dt, compensated=True, rows_per_block=r18, device=where)
             g18 = m18.init(st18.position, st18.velocity)
@@ -1047,6 +1162,8 @@ def main() -> int:
         rel18 = float(((ens["cuda"] - ens["cpu"]).abs() / ens["cpu"].abs()).max())
         if not rel18 <= 1e-4:
             raise AssertionError(f"phase 18 R={r18}: card vs CPU energies rel diff {rel18:.3e} > 1e-4")
+        if r18 == 1 and (cell_cuda.LAUNCHES <= 0 or any(loop_launches().values())):
+            raise AssertionError(f"phase 18 R=1: B1 launches {cell_cuda.LAUNCHES}, its loop's {loop_launches()}")
         print(f"phase 18 N=4096 engine with rows_per_block={r18} (grid {m18.grid_shape}), 200 steps: card and "
               f"CPU energies agree within rtol 1e-4 (max rel diff {rel18:.2e})", flush=True)
 
@@ -1287,6 +1404,9 @@ def main() -> int:
     occ2 = g2.occ > 0.5
     p2 = cell_cuda.CellForceParams.from_grid(md2s.grid_fn)
     full2 = {False: cell_cuda.grid_force(g2.xg, g2.yg, p2), True: cell_cuda.grid_force(g2.xg, g2.yg, p2, with_energy=True)}
+    for energy in (False, True):
+        if not all(torch.equal(a, b) for a, b in zip(full2[energy], cell_cuda.grid_force_loop(g2.xg, g2.yg, p2, energy))):
+            raise AssertionError(f"B1 at N={cfg2s.n} (energy {energy}): not torch.equal to B1's loop")
     _, _, scode2, _, _, _ = md2s._migration_dest(g2)
     fields2 = torch.stack([torch.remainder(g2.xg, md2s.box), torch.remainder(g2.yg, md2s.box),
                            g2.vxg, g2.vyg, g2.fxg, g2.fyg, g2.pid.float(), g2.crx, g2.cry, g2.cvx, g2.cvy])
@@ -1297,11 +1417,15 @@ def main() -> int:
         xb, yb = halo_blocks(g2.xg, n_blocks, md2s.box), halo_blocks(g2.yg, n_blocks)
         for name, energy in (("cell_force_halo", False), ("cell_force_halo_energy", True)):
             got = [cell_cuda.grid_force_halo(x, y, p2, energy) for x, y in zip(xb, yb)]
+            # the edge-row form, the engine's: local rows and four edge rows
+            edges = [cell_cuda.grid_force_halo_edges(x[1:-1], y[1:-1], x[0], y[0], x[-1], y[-1], p2, energy)
+                     for x, y in zip(xb, yb)]
+            loop_h = [cell_cuda.grid_force_halo_loop(x, y, p2, energy) for x, y in zip(xb, yb)]
             plain = [cell_cuda.grid_force_halo_reference(x, y, p2, energy) for x, y in zip(xb, yb)]
-            got = [torch.cat(q) for q in zip(*got)]
-            plain = [torch.cat(q) for q in zip(*plain)]
-            if not all(torch.equal(a, b) for a, b in zip(got, full2[energy])):
-                raise AssertionError(f"{name} over {n_blocks} row blocks is not bit-equal to B1")
+            got, edges, loop_h, plain = ([torch.cat(q) for q in zip(*t)] for t in (got, edges, loop_h, plain))
+            for form, t in (("(rows + 2) form", got), ("edge-row form", edges), ("loop", loop_h)):
+                if not all(torch.equal(a, b) for a, b in zip(t, full2[energy])):
+                    raise AssertionError(f"{name} ({form}) over {n_blocks} row blocks is not bit-equal to B1")
             err = _max_diff(got[:2], plain[:2], occ2, f"{name} vs plain", 1e-4)
             if energy:
                 err = max(err, _sums_close(got[2:], plain[2:], name, 1e-5))
@@ -1314,20 +1438,22 @@ def main() -> int:
     # one rank's shapes at world size 1: all 120 rows and the two halo rows
     (xh,), (yh,) = halo_blocks(g2.xg, 1, md2s.box), halo_blocks(g2.yg, 1)
     (ch,), (fh,) = halo_blocks(scode2, 1), halo_blocks(fields2, 1, dim=1)
-    times["cell_force_halo"] = (_cuda_ms(lambda: cell_cuda.grid_force_halo(xh, yh, p2), 50),
-                                _cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2), 10))
+    t24, tile24 = _tile_times(cell_cuda, (xh, yh, p2), md2s.cps, halo=True)
+    times["cell_force_halo"] = (t24["tile"][0], _cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2), 10))
     times["cell_force_halo_energy"] = (
-        _cuda_ms(lambda: cell_cuda.grid_force_halo(xh, yh, p2, True), 50),
-        _cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2, True), 10))
+        t24["tile_e"][0], _cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2, True), 10))
+    extra["cell_force_halo"] = {"loop_ms": t24["loop"][0], "tile": list(tile24[0])}
+    extra["cell_force_halo_energy"] = {"loop_ms": t24["loop_e"][0], "tile": list(tile24[1])}
     times["migrate_halo"] = (_cuda_ms(lambda: migrate_cuda.migrate_halo(ch, fh, fills), 50),
                              _cuda_ms(lambda: migrate_cuda.migrate_halo_reference(ch, fh, fills), 10))
-    full_ms2 = (_cuda_ms(lambda: cell_cuda.grid_force(g2.xg, g2.yg, p2), 50),
+    full_ms2 = (_cuda_ms(lambda: cell_cuda.grid_force(g2.xg, g2.yg, p2), 50, lead=True),
                 _cuda_ms(lambda: migrate_cuda.migrate(scode2, fields2, fills), 50))
     work2s = _pair_work((g2.xg, g2.yg), g2.occ, md2s.cps, md2s.cap, md2s.box, p2.cutoff2)
     bounds["cell_force_halo"], bounds["cell_force_halo_energy"] = _force_bounds(work2s, 2, g2.xg.numel(), xh.numel())
     bounds["migrate_halo"] = _migrate_bound(fields2.shape[0], g2.xg.numel(), ch.numel())
-    print(f"phase 24 2D halo kernels, N={cfg2s.n} (grid {tuple(g2.xg.shape)}): over 1, 2 and 4 row blocks "
-          f"B1 halo (both variants) and B2 halo bit-equal to B1 and B2 on the whole grid; against their "
+    print(f"{smi}: phase 24 2D halo kernels, N={cfg2s.n} (grid {tuple(g2.xg.shape)}): B1 (both variants) "
+          f"torch.equal to B1's loop; over 1, 2 and 4 row blocks B1 halo (both variants, the (rows + 2) and the "
+          f"edge-row forms, and B1 halo's loop) and B2 halo bit-equal to B1 and B2 on the whole grid; against their "
           f"plain versions: forces {errors['cell_force_halo']:.3e}, energy variant "
           f"{errors['cell_force_halo_energy']:.3e}, B2 halo bit-equal; at one rank's shape B1 halo "
           f"{times['cell_force_halo'][0]:.4f} ms against B1 {full_ms2[0]:.4f} ms, B2 halo "
@@ -1335,6 +1461,7 @@ def main() -> int:
     for name in ("cell_force_halo", "cell_force_halo_energy", "migrate_halo"):
         print(f"phase 24 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+    _print_tile_times(f"{smi}: phase 24 B1 halo at one rank's shape", t24, tile24, bounds["cell_force_halo"])
 
     # -- 25. 3D halo kernels against the whole-grid kernels ----------------------
     # N rounded for devices [1, 2] with the skin rounded to 2 devices: 18
@@ -1443,7 +1570,8 @@ def main() -> int:
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     mesh = make_mesh(device=dev)
     full_names = {"2D": ("cell_force", "cell_force_energy", "migrate", "cell_force_packed",
-                         "cell_force_packed_energy", "migrate_packed"),
+                         "cell_force_packed_energy", "migrate_packed", "cell_force_loop", "cell_force_loop_energy",
+                         "cell_force_halo_loop", "cell_force_halo_loop_energy"),
                   "3D": ("cell_force3", "cell_force3_energy", "cell_force3_counted", "cell_force3_static",
                          "migrate3", "migrate3_flat")}
     halo_names = {"2D": ("cell_force_halo", "cell_force_halo_energy", "migrate_halo"),
@@ -1461,6 +1589,8 @@ def main() -> int:
                 or not all(counts[n] > 0 for n in halo_names[label])):
             raise AssertionError(f"{label} sharded engine: launches {counts}; expected the halo kernels only")
         launches.update({n: counts[n] for n in halo_names[label]})
+        if label == "2D":
+            loop_main.update({k: counts[k] for k in ("cell_force_halo_loop", "cell_force_halo_loop_energy")})
         res_u = lj_fluid.run(c, device=dev, md=plain_md)
         check_run(res_u, f"{label} unsharded engine at N={c.n}", c)
         ok, err = scaling.parity(c, sharded, lj_fluid.init_state(c, dev), 50, dev)
@@ -1474,6 +1604,8 @@ def main() -> int:
         coords = [torch.zeros(sharded.grid_shape, device=dev) for _ in range(c.dim)]
         us_reduce = _host_us(lambda: sharded._all_max(probe))
         us_halo = _host_us(lambda: sharded._with_halo(*coords))
+        # the 2D force reads the edge rows where the exchange leaves them
+        us_edges = _host_us(lambda: sharded._edge_rows(*coords)) if label == "2D" else None
         steps = c.eq_steps + c.prod_steps
         ms_s = 1e3 * (res_s.time_eq_s + res_s.time_prod_s) / steps
         ms_u = 1e3 * (res_u.time_eq_s + res_u.time_prod_s) / steps
@@ -1485,7 +1617,14 @@ def main() -> int:
               f"production cadence {res_s.cadence}; 50-step parity max abs diff {err:.3e} (tolerance "
               f"{scaling.PARITY_TOL}); halo launches {[counts[n] for n in halo_names[label]]}, whole-grid "
               f"launches 0; an all-reduce MAX {us_reduce:.1f} us, one step's edge-row exchange "
-              f"{us_halo:.1f} us", flush=True)
+              + (f"{us_halo:.1f} us with the (rows + 2) copies, {us_edges:.1f} us without them (the force's)"
+                 if us_edges is not None else f"{us_halo:.1f} us"), flush=True)
+        if label == "2D":
+            traced2s = override(c, prod_steps=2 * c.sample_every)
+            busy_line(f"{smi}: phase 26 sharded 2D N={c.n}", res_s, c,
+                      profile_device(lambda: lj_fluid.production(traced2s, res_s.state, res_s.cadence, md=sharded),
+                                     os.path.join("chiprun_out", "chip_smoke_sharded_2d_trace.json")),
+                      ("cell_force_tile_kernel",), "B1 halo")
     # lj_fluid's 3D engine at 18 cells per side: its mover flag at k_mov 16
     print(f"phase 26 3D ShardedGridMD3 at {sharded.cps} cells per side with lj_fluid's k_mov "
           f"{sharded.migrate_k_mov}: overflow {res_s.overflow} (B6's mover flag stays down through the melt's "
@@ -1524,6 +1663,10 @@ def main() -> int:
         "cell_force3_halo_energy": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
         "migrate3_halo": ("migrate3.cu", kref + "migrate_pallas3.py:471"),
     }
+    for name in ("cell_force", "cell_force_energy", "cell_force_halo", "cell_force_halo_energy"):
+        loop_key = name.replace("cell_force", "cell_force_loop") if "halo" not in name else name.replace(
+            "cell_force_halo", "cell_force_halo_loop")
+        extra[name]["loop_launches"] = loop_main[loop_key]
     kernels = [
         {"name": name, "route": "cuda", "source": root + src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errors[name],

@@ -1,10 +1,11 @@
 """Builds ``csrc/*.cu`` with ``nvcc`` at first use and loads the result with
 ``ctypes``.
 
-The sources have a plain C interface and include no PyTorch header. One
+The sources have a plain C interface and include no PyTorch header (the
+shared ``csrc/*.cuh`` headers are found beside them). One
 ``nvcc`` process per source compiles them all at once, then one more links
 the objects into a shared library, in seconds. The library is named by a
-hash of the sources and flags and lands in ``build/`` beside this file
+hash of the sources, headers and flags and lands in ``build/`` beside this file
 (git-ignored), so an edited source is rebuilt and an unchanged one is loaded
 again. A failed build raises; nothing falls back and nothing is downloaded.
 """
@@ -48,7 +49,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call in a process."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         digest.update(src.name.encode() + src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     lib_path = BUILD_DIR / f"libjtps_kernels_{digest.hexdigest()[:16]}.so"

@@ -49,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import (
+    SENTINEL_FACTOR,
     make_grid_force_kernel,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packed import (
@@ -59,11 +60,6 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packe
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda import migrate
-
-# Empty grid slots store x = SENTINEL_FACTOR * box (y = 0). With the
-# kernel's ``0 < r2 < cutoff^2`` validity test this excludes every pair
-# that touches an empty slot, without occupancy masks.
-SENTINEL_FACTOR = 2.5
 
 # the 9 migration directions, in the class order of the allocation
 _DIRS = tuple((dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1))

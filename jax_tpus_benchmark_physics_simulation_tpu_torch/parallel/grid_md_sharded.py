@@ -10,8 +10,9 @@ sharding hooks (``GridMD._all_max`` and the rest) become collectives:
 
 - **Force.** One exchange a step brings the previous rank's last row and
   the next rank's first row of x and y (with -box / +box on x across the
-  periodic seam), and kernel B1 halo (``cell_cuda.grid_force_halo``) sums
-  every local slot's 9 cells. The port's B1 does no Newton halving, so
+  periodic seam), and kernel B1 halo (``cell_cuda.grid_force_halo_edges``)
+  sums every local slot's 9 cells, reading the edge rows where the
+  exchange left them (no ``(rows + 2)`` copy of the grids). The port's B1 does no Newton halving, so
   there are no reaction rows to send back (JAX's ``_shift_reaction``).
 - **Window.** ``GridMD._make_window`` with the halo force; its ``dmax2``
   is reduced with an all-reduce MAX, then read on the host once a window
@@ -44,7 +45,7 @@ import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import (
     CellForceParams,
-    grid_force_halo,
+    grid_force_halo_edges,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import (
@@ -104,17 +105,23 @@ class RowSharded:
     def _noise_seed(self, s) -> int:
         return _stream_seed(GridMD._noise_seed(s), self.mesh.rank)
 
-    def _with_halo(self, *grids: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """Each grid with the neighbours' edge rows attached, ``(rows + 2,
-        ...)``, from one exchange. The first grid is x: its previous row
-        on rank 0 and its next row on the last rank lie across the periodic
-        seam and get -box / +box, the offsets B1 and B4 add themselves on
-        one device."""
+    def _edge_rows(self, *grids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(prev, nxt)``: the previous rank's last row and the next rank's
+        first row of each grid, stacked, from one exchange. The first grid
+        is x: its previous row on rank 0 and its next row on the last rank
+        lie across the periodic seam and get -box / +box, the offsets B1
+        and B4 add themselves on one device."""
         prev, nxt = self.mesh.exchange(torch.stack([g[0] for g in grids]), torch.stack([g[-1] for g in grids]))
         if self.mesh.rank == 0:
             prev[0] -= self.box
         if self.mesh.rank == self.n_shards - 1:
             nxt[0] += self.box
+        return prev, nxt
+
+    def _with_halo(self, *grids: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Each grid with the neighbours' edge rows attached, ``(rows + 2,
+        ...)``, from one exchange (:meth:`_edge_rows`)."""
+        prev, nxt = self._edge_rows(*grids)
         return tuple(torch.cat([prev[k : k + 1], g, nxt[k : k + 1]]) for k, g in enumerate(grids))
 
     def _halo_planes(self, scode: torch.Tensor, fields: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -179,13 +186,15 @@ class ShardedGridMD(RowSharded, GridMD):
         self.force_kernel = self._halo_force
         self.energy_kernel = self._halo_energy
 
-    def _halo_force(self, xg: torch.Tensor, yg: torch.Tensor):
-        """B1 halo on this rank's rows: ``(fx, fy)``."""
-        return grid_force_halo(*self._with_halo(xg, yg), self._params)
+    def _halo_force(self, xg: torch.Tensor, yg: torch.Tensor, with_energy: bool = False):
+        """B1 halo on this rank's rows, ``(fx, fy)``: the kernel reads the
+        exchanged edge rows where they lie, no grid is copied."""
+        prev, nxt = self._edge_rows(xg, yg)
+        return grid_force_halo_edges(xg, yg, prev[0], prev[1], nxt[0], nxt[1], self._params, with_energy)
 
     def _halo_energy(self, xg: torch.Tensor, yg: torch.Tensor):
         """B1 halo's energy variant: ``(fx, fy, e, w)`` on this rank's rows."""
-        return grid_force_halo(*self._with_halo(xg, yg), self._params, with_energy=True)
+        return self._halo_force(xg, yg, with_energy=True)
 
     def _migrate(self, scode: torch.Tensor, fields: torch.Tensor, fills) -> torch.Tensor:
         return migrate_halo(*self._halo_planes(scode, fields), fills)

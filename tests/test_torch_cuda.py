@@ -79,6 +79,56 @@ def test_cell_force_kernel_matches_plain(cuda_device):
     assert (cell_cuda.LAUNCHES, cell_cuda.ENERGY_LAUNCHES) == (before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("with_energy", [False, True])
+def test_tile_kernel_bit_equal_to_loop(cuda_device, with_energy):
+    """B1 as launched (the tile kernel, at its default tile and at tiles of
+    1 to 24 rows x 1 to 24 columns) torch.equal to B1's loop on the same
+    state, and over two launches; the wrappers' launches counted."""
+    md, gs = _advanced_state(cuda_device, rows_per_block=1)
+    p = cell_cuda.CellForceParams.from_grid(md.grid_fn)
+    before = (cell_cuda.LAUNCHES + cell_cuda.ENERGY_LAUNCHES, cell_cuda.LOOP_LAUNCHES + cell_cuda.LOOP_ENERGY_LAUNCHES)
+    loop = cell_cuda.grid_force_loop(gs.xg, gs.yg, p, with_energy)
+    got = cell_cuda.grid_force(gs.xg, gs.yg, p, with_energy)
+    again = cell_cuda.grid_force(gs.xg, gs.yg, p, with_energy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, loop))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    h, w, threads = cell_cuda.tile_shape(p, md.cps, with_energy, cuda_device)
+    assert 1 <= h <= md.cps and 1 <= w <= md.cps and threads % 32 == 0 and threads >= h * w
+    for tile in ((1, 1), (1, 24), (2, 7), (3, 13), (5, 24), (24, 5)):
+        out = cell_cuda.grid_force(gs.xg, gs.yg, p, with_energy, tile=tile)
+        assert all(torch.equal(a, b) for a, b in zip(out, loop)), tile
+    after = (cell_cuda.LAUNCHES + cell_cuda.ENERGY_LAUNCHES, cell_cuda.LOOP_LAUNCHES + cell_cuda.LOOP_ENERGY_LAUNCHES)
+    assert after == (before[0] + 8, before[1] + 1)
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_tile_halo_kernel_bit_equal_to_whole_grid(cuda_device, p):
+    """B1 halo as launched (the tile kernel) over p row blocks, both variants
+    and both input forms (the ``(rows + 2)`` grids, and the local grids with
+    the four edge rows), torch.equal to the whole-grid tile kernel and to
+    B1 halo's loop on the same blocks."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import halo_blocks
+
+    md, gs = _advanced_state(cuda_device, rows_per_block=1)
+    params = cell_cuda.CellForceParams.from_grid(md.grid_fn)
+    blocks = list(zip(halo_blocks(gs.xg, p, md.box), halo_blocks(gs.yg, p)))
+    before = (cell_cuda.HALO_LAUNCHES + cell_cuda.HALO_ENERGY_LAUNCHES,
+              cell_cuda.HALO_LOOP_LAUNCHES + cell_cuda.HALO_LOOP_ENERGY_LAUNCHES)
+    for with_energy in (False, True):
+        whole = cell_cuda.grid_force(gs.xg, gs.yg, params, with_energy)
+        stacked = [cell_cuda.grid_force_halo(x, y, params, with_energy) for x, y in blocks]
+        edges = [cell_cuda.grid_force_halo_edges(x[1:-1].contiguous(), y[1:-1].contiguous(), x[0].clone(),
+                                                 y[0].clone(), x[-1].clone(), y[-1].clone(), params, with_energy)
+                 for x, y in blocks]
+        loop = [cell_cuda.grid_force_halo_loop(x, y, params, with_energy) for x, y in blocks]
+        for got in (stacked, edges, loop):
+            assert all(torch.equal(torch.cat(q), f) for q, f in zip(zip(*got), whole))
+    after = (cell_cuda.HALO_LAUNCHES + cell_cuda.HALO_ENERGY_LAUNCHES,
+             cell_cuda.HALO_LOOP_LAUNCHES + cell_cuda.HALO_LOOP_ENERGY_LAUNCHES)
+    assert after == (before[0] + 4 * p, before[1] + 2 * p)
+
+
 def test_migrate_kernel_bit_equal(cuda_device):
     md, gs = _advanced_state(cuda_device)
     _, _, scode, _, _, _ = md._migration_dest(gs)
@@ -465,9 +515,9 @@ def test_sharded_engines_at_one_rank_match_unsharded(cuda_device):
     from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import make_mesh
 
     def whole_grid():
-        return (cell_cuda.LAUNCHES, cell_cuda_packed.LAUNCHES, cell_cuda3.LAUNCHES, cell_cuda3.COUNTED_LAUNCHES,
-                cell_cuda3.STATIC_LAUNCHES, migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES,
-                migrate_cuda3.LAUNCHES)
+        return (cell_cuda.LAUNCHES, cell_cuda.LOOP_LAUNCHES, cell_cuda.HALO_LOOP_LAUNCHES, cell_cuda_packed.LAUNCHES,
+                cell_cuda3.LAUNCHES, cell_cuda3.COUNTED_LAUNCHES, cell_cuda3.STATIC_LAUNCHES, migrate_cuda.LAUNCHES,
+                migrate_cuda.PACKED_LAUNCHES, migrate_cuda3.LAUNCHES)
 
     def halo():
         return (cell_cuda.HALO_LAUNCHES + cell_cuda3.HALO_LAUNCHES + cell_cuda3.HALO_COUNTED_LAUNCHES,

@@ -1,15 +1,16 @@
-"""The counted 3D kernel's division (``div_rn_normal`` in
-``ops/kernels/csrc/cell_force3.cu``) against IEEE division ``a / b``
-(div.rn.f32, as B5's full loop divides), bit for bit, on the card, for
-every float32 ``b`` in ``[a * 2^-46, 64)`` and ``a`` = sigma^2 for sigma
-in 1.0 (every configuration of the repository), 0.9, 1.1 and 2.0. Below
-``a * 2^-46`` both divisions give an s6 that overflows to inf, so the
-kernel clamps ``r2`` there; 64 is past every cutoff^2 in use (2.5^2, and
-(2.5 sigma)^2 at sigma 2 is 25).
+"""The counted kernels' division (``div_rn_normal`` in
+``ops/kernels/csrc/pair_math.cuh``, which the counted 3D kernel and the 2D
+tile kernel share) against IEEE division ``a / b`` (div.rn.f32, as B5's
+and B1's loops divide), bit for bit, on the card, for every float32 ``b``
+in ``[a * 2^-46, 64)`` and ``a`` = sigma^2 for sigma in 1.0 (every
+configuration of the repository), 0.9, 1.1 and 2.0. Below ``a * 2^-46``
+both divisions give an s6 that overflows to inf, so the kernels clamp
+``r2`` there; 64 is past every cutoff^2 in use (2.5^2, and (2.5 sigma)^2
+at sigma 2 is 25).
 
     python tests/torch_division_check.py OUT_DIR
 
-Builds a checker that includes ``cell_force3.cu`` with the port's nvcc
+Builds a checker that includes ``pair_math.cuh`` with the port's nvcc
 flags into ``OUT_DIR`` (the port does not ship it), prints the card and,
 for each ``a``, the number of ``b`` tested and of mismatches, and exits 1
 if any ``b`` differs."""
@@ -25,7 +26,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 SOURCE = r"""
-#include "cell_force3.cu"
+#include "pair_math.cuh"
 
 namespace {
 
