@@ -30,18 +30,33 @@ Run from the repository root. It builds the CUDA kernels from
    configuration; skin 0.1316, 19 cells per side, fixed production
    cadence from the measured kT), with every counter set to 0 just before:
    overflow False, finite histories, drift < 1e-4, finite P*, and B4,
-   B4-energy, B5 (the counted kernel) and B6 launched and B5's full loop
-   not; then the card's busy share over 200 traced production steps and
-   B5's share of device time;
+   B4-energy, B5 (the counted kernel) and B6 launched and B4's and B5's
+   full loops not; then the card's busy share over 200 traced production
+   steps and the counted kernel's (B5 and B4) share of device time; then
+   one rebuild under the profiler: its device ops by name and count, one
+   B6 launch (``migrate3_kernel``) and no call of the plain mover flag;
 7. 3D kernels at the N=100k shapes (19 x 32 x 361 grid) on a state 90
    steps from the main path's final one, some coordinates outside
-   [0, box): B4 and B5 forces against their plain versions and B5 against
-   B4 (<= 1e-4 over occupied slots), B4's energy variant (forces <= 1e-4,
-   e and w sums at rtol 1e-5), B5 (the counted kernel) torch.equal to B5's
-   full loop in both variants and over two launches, B6 and B7 against the
-   plain version and each other (bit-equal); timed with CUDA events, B5
-   and its energy variant in 7 interleaved repeats beside B5's full loop
-   and at the strip widths ceil(19 / k), k = 1 to 4;
+   [0, box), max occupancy within B5's bound: B4 and B5 forces against
+   their plain versions (<= 1e-4 over occupied slots), B4's energy variant
+   (forces <= 1e-4, e and w sums at rtol 1e-5), B5 (the counted kernel)
+   torch.equal to B5's full loop and B4 (the counted kernel at the
+   capacity's shared memory, bound ``max_occ`` read on the card)
+   torch.equal to B4's loop, both variants and over two launches, and B4
+   torch.equal to B5 there; on the melt 90 steps from the lattice at the
+   same N (fullest cell above B5's bound: the hybrid windows run B4), B4
+   in both variants torch.equal to B4's loop, over two launches and at the
+   full capacity, within 1e-4 of the plain version; B6 and B7 (one launch
+   each: fill, scatter, flag) on the planes where they lie, and the
+   previous design (fill + scatter + plain flag,
+   ``tests/torch_migrate3_designs.py``), bit-equal to the plain version
+   with the plain flag, and B6 on the N=8192 lattice start at k_mov 8,
+   where the flag trips; timed with CUDA events in 7 interleaved repeats,
+   each call queued behind a spin of the card: B4 and its energy variant
+   beside B4's loop and B5 on both states (B4 also at the full capacity on
+   the melt), B6 and B7 beside the previous design, B5 and its energy
+   variant beside B5's full loop and at the strip widths ceil(19 / k),
+   k = 1 to 4;
 8. B4 forces on 1024 interior particles against the dense oracle computed
    from all 100k particles (atol 1e-4);
 9. a 3D run at N=8192 (100 + 100 steps) on the card against the same run
@@ -138,11 +153,14 @@ Run from the repository root. It builds the CUDA kernels from
 25. the 3D halo kernels at N=100k rounded for devices [1, 2] (the skin
     rounded to 2 devices: 18 cells per side) on a state 90 steps into the
     melt: over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 halo
-    (the counted kernel, both variants) and B6 halo bit-equal to the
-    whole-grid kernels, B5 halo also to B5 halo's full loop, B6 halo's
-    mover flag where B6 raises it, and within 1e-4 of their plain versions;
-    timed at one rank's shape beside the whole-grid kernels, B5 halo in 7
-    interleaved repeats beside its full loop and at the strip widths
+    (the counted kernel, both variants) and B6 halo (and the previous
+    design) bit-equal
+    to the whole-grid kernels, B4 halo and B5 halo also to their loops'
+    halo forms, B6 halo's mover flag where B6 raises it, and within 1e-4
+    of their plain versions; timed at one rank's shape in 7 interleaved
+    repeats behind a spin of the card: B4 halo (both variants) beside its
+    loop, B6 halo beside the previous design, beside the whole-grid B4, B5
+    and B6, and B5 halo beside its full loop and at the strip widths
     ceil(18 / k), k = 1 to 4;
 26. the row-sharded engines on the card: an NCCL process group of world
     size 1 from an in-process store, then ``lj_fluid.run`` (2000 + 2000
@@ -157,7 +175,11 @@ Run from the repository root. It builds the CUDA kernels from
     2D with the ``(rows + 2)`` copies the 3D engine makes and without them,
     as the 2D engine's force takes the edge rows); the 2D engine's busy
     share over 200 traced production steps and B1 halo's share of device
-    time; the 3D engine's mover flag at 18 cells per side is printed
+    time; for the 3D engine one rebuild under the profiler (one B6 halo
+    launch, no plain mover flag), a rebuild's exchange of the code and
+    field edge rows with the stack and the ``(rows + 2)`` copies that B6
+    halo reads, its busy share and the counted
+    kernel's share of device time, and its mover flag at 18 cells per side
     (False); the group is destroyed at the end;
 27. prints a JSON line with each kernel's launches on its main path,
     error, times, and bound (the larger of the operations over the card's
@@ -179,12 +201,14 @@ import itertools
 import json
 import math
 import os
-import statistics
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import cuda_ms, interleaved_ms, spread
 
 # H100 SXM data sheet: float32 outside the tensor cores, and HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -195,49 +219,6 @@ PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 # NVIDIA H100 80GB HBM3 at 700 W; tests/torch_pairwise_designs.py builds that
 # design and times it beside the kernel in one process
 PREVIOUS_B8_MS = 0.5691
-
-
-def _cuda_ms(fn, reps: int, lead: bool = False) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls, from
-    CUDA events, after a warm call. A second untimed call is still running
-    when the start event is recorded, so the card does not sit idle while
-    the host prepares the first timed call (a wrapper's host time, up to
-    tens of us, would otherwise count once in every ``reps`` calls). With
-    ``lead``, the card first spins for about 5 ms, long enough for the host
-    to queue every timed call: a kernel shorter than its wrapper's host time
-    then runs back to back and is timed alone, not the host."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    if lead:
-        torch.cuda._sleep(10_000_000)  # clock cycles: ~5 ms at the H100's ~1.98 GHz
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _interleaved_ms(fns: dict, repeats: int = 7, reps: int = 20, lead: bool = False) -> dict:
-    """``{name: (median, min, max)}`` of each function's mean device ms over
-    ``reps`` calls (``_cuda_ms``, ``lead`` passed on), in ``repeats`` rounds
-    that take the functions in turn, so that a drift of the card's clock
-    falls on all."""
-    runs = {name: [] for name in fns}
-    for _ in range(repeats):
-        for name, fn in fns.items():
-            runs[name].append(_cuda_ms(fn, reps, lead))
-    return {name: (statistics.median(v), min(v), max(v)) for name, v in runs.items()}
-
-
-def _spread(t) -> str:
-    """A ``(median, min, max)`` triple as text."""
-    return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
 
 
 def _host_us(fn, reps: int = 200) -> float:
@@ -352,19 +333,24 @@ def _gravity_bounds(n: int, dim: int):
             _bound(pairs * (5 * dim + 6), 4 * n * (2 * dim + 2)))
 
 
-def _migrate_bound(n_fields: int, n_slots: int, n_in_slots=None):
-    """A permutation: the code grid and F fields read once (``n_in_slots``
-    each, the halo rows included; default ``n_slots``), F written."""
-    n_in = n_slots if n_in_slots is None else n_in_slots
-    return _bound(0.0, 4 * (n_in * (n_fields + 1) + n_slots * n_fields))
+def _migrate_bound(n_fields: int, n_out: int, n_moved: int, n_in=None, extra_planes: int = 0):
+    """A permutation: the code grid read (``n_in`` slots, the halo rows
+    included; default ``n_out``), the F fields of the ``n_moved`` sources
+    that land in the output read (an empty slot's fields need no read), F
+    planes of ``n_out`` written, and ``extra_planes`` more planes of
+    ``n_out`` read (B6: the allocation's occupancy, which tells the kernel
+    the slots to fill)."""
+    n_in = n_out if n_in is None else n_in
+    return _bound(0.0, 4 * (n_in + n_moved * n_fields + n_out * (n_fields + extra_planes)))
 
 
 def _counted_times(args, cov: int, halo: bool, repeats: int = 7):
     """B5 (``halo``: B5 halo) on the grids of ``args`` in ``repeats``
     interleaved rounds: the counted kernel at its default strip and with
     the energy, B5's full loop likewise, and the counted kernel at the
-    strips ``ceil(ncz / k)``, k = 1 to 4. Returns the timings and the
-    default strip."""
+    strips ``ceil(ncz / k)``, k = 1 to 4, each queued behind a spin of the
+    card (``cuda_ms``'s ``lead``). Returns the timings and the default
+    strip."""
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import cell_cuda3
 
     p = args[-1]
@@ -379,13 +365,13 @@ def _counted_times(args, cov: int, halo: bool, repeats: int = 7):
         w = -(-p.cps // k)
         fns.setdefault(f"strip {w}", lambda w=w: cell_cuda3._forces3(args[:3], p, None, False, cov, halo, strip=w))
     rows = args[0].shape[0] - 2 if halo else p.cps
-    return _interleaved_ms(fns, repeats), cell_cuda3.strip_width(p, rows, cov, False, args[0].device)
+    return interleaved_ms(fns, repeats, lead=True), cell_cuda3.strip_width(p, rows, cov, False, args[0].device)
 
 
 def _print_counted_times(label: str, t: dict, strip: int, bound, ncz: int) -> None:
-    print(f"{label} time (medians of 7 interleaved repeats of 20 calls): counted kernel (strip {strip} of "
-          f"{ncz} z-cells) {_spread(t['counted'])}, B5's full loop {_spread(t['loop'])}; energy variants: "
-          f"counted {_spread(t['counted_e'])}, full loop {_spread(t['loop_e'])}; bound {bound[0]:.5f} ms "
+    print(f"{label} time (medians of 7 interleaved repeats of 20 calls, lead): counted kernel (strip {strip} of "
+          f"{ncz} z-cells) {spread(t['counted'])}, B5's full loop {spread(t['loop'])}; energy variants: "
+          f"counted {spread(t['counted_e'])}, full loop {spread(t['loop_e'])}; bound {bound[0]:.5f} ms "
           f"({bound[1]}); strips: " + ", ".join(f"{k.split()[1]}: {v[0]:.4f}" for k, v in t.items()
                                                 if k.startswith("strip")), flush=True)
 
@@ -405,7 +391,7 @@ def _tile_times(cell_cuda, args, rows: int, halo: bool, repeats: int = 7):
     """B1 (``halo``: B1 halo) on ``args`` = ``(x, y, p)`` in ``repeats``
     interleaved rounds: the tile kernel at its default tile and B1's loop,
     each in both variants, and the tile kernel at the candidate tiles, each
-    queued behind a spin of the card (``_cuda_ms``'s ``lead``: the tile
+    queued behind a spin of the card (``cuda_ms``'s ``lead``: the tile
     kernel takes less device time than its wrapper takes on the host).
     Returns the timings and each variant's default ``(H, W, threads)``."""
     x, y, p = args
@@ -418,15 +404,15 @@ def _tile_times(cell_cuda, args, rows: int, halo: bool, repeats: int = 7):
         fns.setdefault(f"tile {t[0]}x{t[1]}", lambda t=t: run(x, y, p, tile=t))
         fns.setdefault(f"tile_e {t[0]}x{t[1]}", lambda t=t: run(x, y, p, True, tile=t))
     tiles = tuple(cell_cuda.tile_shape(p, rows, e, x.device) for e in (False, True))
-    return _interleaved_ms(fns, repeats, lead=True), tiles
+    return interleaved_ms(fns, repeats, lead=True), tiles
 
 
 def _print_tile_times(label: str, t: dict, tiles, bound) -> None:
     (h, w, th), (he, we, the) = tiles
     cands = [k.split()[1] for k in t if k.startswith("tile ")]
     print(f"{label} time (medians of 7 interleaved repeats of 20 calls): tile kernel (tile {h}x{w}, {th} threads) "
-          f"{_spread(t['tile'])}, B1's loop {_spread(t['loop'])}; energy variants: tile kernel (tile {he}x{we}, "
-          f"{the} threads) {_spread(t['tile_e'])}, loop {_spread(t['loop_e'])}; bound {bound[0]:.5f} ms "
+          f"{spread(t['tile'])}, B1's loop {spread(t['loop'])}; energy variants: tile kernel (tile {he}x{we}, "
+          f"{the} threads) {spread(t['tile_e'])}, loop {spread(t['loop_e'])}; bound {bound[0]:.5f} ms "
           f"({bound[1]}); tiles (force, energy): " + ", ".join(
               f"{c}: {t['tile ' + c][0]:.4f}, {t['tile_e ' + c][0]:.4f}" for c in cands), flush=True)
 
@@ -443,6 +429,63 @@ def _kernel_alone_ms(fn, kernel_key: str, path: str, reps: int = 20) -> float:
     if dev_s <= 0:
         raise AssertionError(f"no {kernel_key} in the profile")
     return 1e3 * dev_s / reps
+
+
+def _migrate3_designs():
+    """``tests/torch_migrate3_designs.py``: the previous B6 design's source,
+    build function and wrapper, imported from this script's ``tests/``."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_migrate3_designs
+
+    return torch_migrate3_designs
+
+
+def _device_ops(fn) -> dict:
+    """``{name: count}`` of the work ``fn()`` puts on the card (kernels,
+    memcpys, memsets), from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def _rebuild_ops(md, gs, label: str) -> None:
+    """One rebuild of the 3D engine ``md`` from ``gs`` under the profiler:
+    prints the device ops by name and count, and checks that B6 (or B6
+    halo) launched once, as one ``migrate3_kernel``, and that the plain
+    mover flag (``migrate_cuda3.mover_overflow``) was not called."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import migrate_cuda3
+
+    calls = []
+    plain = migrate_cuda3.mover_overflow
+    migrate_cuda3.mover_overflow = lambda *a, **k: calls.append(1) or plain(*a, **k)
+    try:
+        before = migrate_cuda3.LAUNCHES + migrate_cuda3.HALO_LAUNCHES
+        ops = _device_ops(lambda: md._rebuild_migrate(gs))
+        launched = migrate_cuda3.LAUNCHES + migrate_cuda3.HALO_LAUNCHES - before
+    finally:
+        migrate_cuda3.mover_overflow = plain
+    b6 = sum(v for k, v in ops.items() if "migrate3_kernel" in k)
+    if b6 != 1 or launched != 1 or calls:
+        raise AssertionError(f"{label} rebuild: {b6} migrate3_kernel on the card, {launched} B6 launches, "
+                             f"mover_overflow called {len(calls)} times; ops {ops}")
+    short = {}
+    for k, v in ops.items():
+        bare = k.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = re.split(r"[<(]", bare, maxsplit=1)[0].split("::")[-1][:48] or k[:48]
+        short[name] = short.get(name, 0) + v
+    print(f"{label} one rebuild: {sum(ops.values())} device ops, {b6} B6 launch (migrate3_kernel), "
+          f"mover_overflow called 0 times; ops by name: " + ", ".join(f"{k} x{v}" for k, v in sorted(short.items())),
+          flush=True)
 
 
 def main() -> int:
@@ -496,6 +539,7 @@ def main() -> int:
             "cell_force_loop": cell_cuda.LOOP_LAUNCHES, "cell_force_loop_energy": cell_cuda.LOOP_ENERGY_LAUNCHES,
             "cell_force_halo_loop": cell_cuda.HALO_LOOP_LAUNCHES,
             "cell_force_halo_loop_energy": cell_cuda.HALO_LOOP_ENERGY_LAUNCHES,
+            "cell_force3_loop": cell_cuda3.LOOP_LAUNCHES, "cell_force3_halo_loop": cell_cuda3.HALO_LOOP_LAUNCHES,
         }
 
     def reset_counts():
@@ -512,9 +556,10 @@ def main() -> int:
         migrate_cuda3.HALO_LAUNCHES = 0
         cell_cuda.LOOP_LAUNCHES = cell_cuda.LOOP_ENERGY_LAUNCHES = 0
         cell_cuda.HALO_LOOP_LAUNCHES = cell_cuda.HALO_LOOP_ENERGY_LAUNCHES = 0
+        cell_cuda3.LOOP_LAUNCHES = cell_cuda3.HALO_LOOP_LAUNCHES = 0
 
     def loop_launches() -> dict:
-        """B1's loop launches, which no path may make."""
+        """B1's and B4's loop launches, which no path may make."""
         return {k: v for k, v in launch_counts().items() if "_loop" in k}
 
     # -- 1. device ------------------------------------------------------------
@@ -584,16 +629,16 @@ def main() -> int:
     errors["migrate"] = 0.0
 
     t2, tile2 = _tile_times(cell_cuda, (gs.xg, gs.yg, p), md.cps, halo=False)
-    times["cell_force"] = (t2["tile"][0], _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p), 10))
+    times["cell_force"] = (t2["tile"][0], cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p), 10))
     times["cell_force_energy"] = (
-        t2["tile_e"][0], _cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p, with_energy=True), 10))
+        t2["tile_e"][0], cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p, with_energy=True), 10))
     extra["cell_force"] = {"loop_ms": t2["loop"][0], "tile": list(tile2[0])}
     extra["cell_force_energy"] = {"loop_ms": t2["loop_e"][0], "tile": list(tile2[1])}
-    times["migrate"] = (_cuda_ms(lambda: migrate_cuda.migrate(scode, fields, fills), 50),
-                        _cuda_ms(lambda: migrate_cuda.migrate_reference(scode, fields, fills), 10))
+    times["migrate"] = (cuda_ms(lambda: migrate_cuda.migrate(scode, fields, fills), 50),
+                        cuda_ms(lambda: migrate_cuda.migrate_reference(scode, fields, fills), 10))
     work2 = _pair_work((gs.xg, gs.yg), gs.occ, md.cps, md.cap, md.box, p.cutoff2)
     bounds["cell_force"], bounds["cell_force_energy"] = _force_bounds(work2, 2, gs.xg.numel())
-    bounds["migrate"] = _migrate_bound(fields.shape[0], gs.xg.numel())
+    bounds["migrate"] = _migrate_bound(fields.shape[0], gs.xg.numel(), int((scode >= 0).sum()))
     print(f"phase 2 B1 forces: max abs diff {errors['cell_force']:.3e} (max |f| {fmax:.1f}); "
           f"energy variant: forces {err_ef:.3e}, e/w max abs diff {err_e:.3e}, sums within rtol 1e-5; "
           f"B1 (the tile kernel, both variants) torch.equal to B1's loop and over two launches; "
@@ -701,9 +746,10 @@ def main() -> int:
     for name, count in path3.items():
         if count <= 0:
             raise AssertionError(f"3D main path never launched kernel {name}")
-    if cell_cuda3.STATIC_LAUNCHES:
-        raise AssertionError("3D main path launched B5's full loop")
+    if cell_cuda3.STATIC_LAUNCHES or cell_cuda3.LOOP_LAUNCHES:
+        raise AssertionError("3D main path launched B5's full loop or B4's loop")
     launches.update(path3)
+    loop_main3 = cell_cuda3.LOOP_LAUNCHES  # B4's loop on the 3D main path: 0
 
     from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import profile_device
 
@@ -733,7 +779,10 @@ def main() -> int:
     busy_line("phase 6 3D N=100k", res3, cfg3,
               profile_device(lambda: lj_fluid.production(traced3, res3.state, res3.cadence),
                              os.path.join("chiprun_out", "chip_smoke_3d_trace.json")),
-              ("cell_force3_counted_kernel",), "B5")
+              ("cell_force3_counted_kernel",), "B5 and B4 (the counted kernel)")
+    md6 = lj_fluid._make_grid_md(cfg3, dev)
+    g6 = md6.init(res3.state.position, res3.state.velocity)
+    _rebuild_ops(md6, md6._window_for(g6, res3.cadence or 9)(g6), "phase 6 3D N=100k")
 
     # -- 7. 3D kernels vs plain versions at the N=100k shapes -----------------
     # 90 steps of the fixed driver from the main path's final state: the
@@ -752,6 +801,10 @@ def main() -> int:
     if mo > cov:
         raise AssertionError(f"3D state: max occupancy {mo} > B5 bound {cov}; B5 and B4 differ here")
 
+    def same(got, want) -> bool:
+        torch.cuda.synchronize()
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+
     args3 = (*coords3, p3)
     b4 = cell_cuda3.grid_force3(*args3, max_occ=gs3.max_occ)
     r4 = cell_cuda3.grid_force3_reference(*args3, mo)
@@ -764,68 +817,170 @@ def main() -> int:
     b5 = cell_cuda3.grid_force3(*args3, static_cov=cov)
     r5 = cell_cuda3.grid_force3_reference(*args3, cov)
     errors["cell_force3_counted"] = _max_diff(b5, r5, occ3, "B5 forces", 1e-4)
-    err54 = _max_diff(b5, b4, occ3, "B5 vs B4 forces", 1e-4)
     f3max = float(torch.stack(r4).norm(dim=0)[occ3].max())
-    # B5 as launched (the counted kernel) against B5's full loop, both
-    # variants: the same pairs in the same order, so the same bits
+    # B5 as launched (the counted kernel) against B5's full loop, B4 as
+    # launched (the counted kernel at the capacity's shared memory) against
+    # B4's loop, both variants: the same pairs in the same order, so the same
+    # bits; and B4 and B5 agree bit for bit where max_occ <= cov
     b5e = cell_cuda3.grid_force3(*args3, with_energy=True, static_cov=cov)
     err5e = max(_max_diff(b5e[:3], r4e[:3], occ3, "B5 energy variant forces", 1e-4),
                 _sums_close(b5e[3:], r4e[3:], "B5 energy variant", 1e-5))
-    for energy, got in ((False, b5), (True, b5e)):
-        loop = cell_cuda3.grid_force3_static_loop(*args3, cov, energy)
-        again = cell_cuda3.grid_force3(*args3, with_energy=energy, static_cov=cov)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, loop)):
+    for energy, got, got4 in ((False, b5, b4), (True, b5e, b4e)):
+        if not same(got, cell_cuda3.grid_force3_static_loop(*args3, cov, energy)):
             raise AssertionError(f"B5 (energy {energy}): the counted kernel is not torch.equal to B5's full loop")
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        if not same(got, cell_cuda3.grid_force3(*args3, with_energy=energy, static_cov=cov)):
             raise AssertionError(f"B5 (energy {energy}): two launches on one input are not bit-equal")
+        if not same(got4, cell_cuda3.grid_force3_loop(*args3, max_occ=gs3.max_occ, with_energy=energy)):
+            raise AssertionError(f"B4 (energy {energy}): the counted kernel is not torch.equal to B4's loop")
+        if not same(got4, cell_cuda3.grid_force3(*args3, max_occ=gs3.max_occ, with_energy=energy)):
+            raise AssertionError(f"B4 (energy {energy}): two launches on one input are not bit-equal")
+        if not same(got4, got):
+            raise AssertionError(f"B4 and B5 (energy {energy}) differ at max occupancy {mo} <= cov {cov}")
+    strip4 = cell_cuda3.strip_width(p3, md3.cps, None, False, dev)
 
-    _, _, _, scode3, _, _ = md3._migration_dest3(gs3)
-    fields3 = torch.stack([torch.remainder(g, md3.box) for g in coords3]
-                          + [gs3.vxg, gs3.vyg, gs3.vzg, gs3.fxg, gs3.fyg, gs3.fzg, gs3.pid.float(),
-                             gs3.crx, gs3.cry, gs3.crz, gs3.cvx, gs3.cvy, gs3.cvz])
-    fills3 = [md3.sentinel] + [0.0] * 8 + [-1.0] + [0.0] * 6
+    # the hybrid windows' other state: the melt 90 steps from the lattice at
+    # the same N, its fullest cell above cov, where the windows run B4 (the
+    # main path's equilibration ran B4 there); B4 in both variants, with its
+    # run-time bound and at the full capacity, torch.equal to B4's loop
+    st7 = lj_fluid.init_state(cfg3, dev)
+    gm = md3.make_production_run_fixed(90, 9)(md3.init(st7.position, st7.velocity))
+    mo_m, occm = int(gm.max_occ), gm.occ > 0.5
+    if mo_m <= cov:
+        raise AssertionError(f"phase 7 melt state: max occupancy {mo_m} <= B5 bound {cov}")
+    argm = (gm.xg, gm.yg, gm.zg, p3)
+    for energy in (False, True):
+        got = cell_cuda3.grid_force3(*argm, max_occ=gm.max_occ, with_energy=energy)
+        for other in (cell_cuda3.grid_force3_loop(*argm, max_occ=gm.max_occ, with_energy=energy),
+                      cell_cuda3.grid_force3(*argm, max_occ=gm.max_occ, with_energy=energy),
+                      cell_cuda3.grid_force3(*argm, with_energy=energy)):
+            if not same(got, other):
+                raise AssertionError(f"B4 (energy {energy}) at max occupancy {mo_m} > cov {cov}: not torch.equal "
+                                     "to B4's loop, to a second launch or to B4 at the full capacity")
+        ref = cell_cuda3.grid_force3_reference(*argm, mo_m, with_energy=energy)
+        err = _max_diff(got[:3], ref[:3], occm, "B4 forces above cov", 1e-4)
+        if energy:
+            err = max(err, _sums_close(got[3:], ref[3:], "B4 energy variant above cov", 1e-5))
+        errors["cell_force3_energy" if energy else "cell_force3"] = max(
+            errors["cell_force3_energy" if energy else "cell_force3"], err)
+        del got, ref
+
+    # B6 and B7 (one launch each) on the rebuild's inputs as the engine
+    # passes them (the planes where they lie, the allocation's occupancy),
+    # against the plain version, the plain flag and the previous design
+    # (fill + scatter + plain flag, tests/torch_migrate3_designs.py)
+    designs = _migrate3_designs()
+    prev_b6 = designs.build(_build.BUILD_DIR / "designs")
+    scode3, occ_new3, planes3, fills3 = designs.rebuild_inputs(md3, gs3)
+    fields3 = torch.stack(planes3)
     k_mov = md3.migrate_k_mov
     movers3 = int(((scode3 >= 0) & (torch.div(scode3, md3.cap, rounding_mode="floor") != migrate_cuda3.STAY)).sum())
-    m6, mov_of = migrate_cuda3.migrate3(scode3, fields3, fills3, k_mov=k_mov)
-    m7, _ = migrate_cuda3.migrate3(scode3, fields3, fills3)
+    m6, mov_of = migrate_cuda3.migrate3(scode3, planes3, fills3, k_mov=k_mov, occ=occ_new3)
+    m7, _ = migrate_cuda3.migrate3(scode3, planes3, fills3, occ=occ_new3)
     mr = migrate_cuda3.migrate3_reference(scode3, fields3, fills3)
-    for name, got in (("B6", m6), ("B7", m7)):
+    mp, mov_p = designs.previous(prev_b6, scode3, planes3, fills3, k_mov)
+    for name, got in (("B6", m6), ("B7", m7), ("the previous B6 design", mp)):
         if not torch.equal(got, mr):
             raise AssertionError(f"{name}: kernel output is not bit-equal to the plain version")
-    if not torch.equal(m6, m7):
-        raise AssertionError("B6 and B7 outputs differ")
+    if not bool(mov_of) is bool(mov_p) is bool(migrate_cuda3.mover_overflow(scode3, k_mov)):
+        raise AssertionError("B6's mover flag differs from mover_overflow's")
     errors["migrate3"] = errors["migrate3_flat"] = 0.0
+    # a state that trips the flag: the 3D lattice start at N=8192 with k_mov
+    # 8 (the JAX package's lj_fluid value), at its first rebuild whose codes
+    # have more than 8 movers in a cell
+    cfg8 = override(cfg3, n=8192)
+    md8 = GridMD3(lj_fluid._make_grid_md(cfg8, dev).grid_fn, dt=cfg.dt, compensated=True, static_cov="auto",
+                  migrate_k_mov=8, device=dev)
+    s8 = lj_fluid.init_state(cfg8, dev)
+    g8 = md8.init(s8.position, s8.velocity)
+    k8, gate8 = lj_fluid._grid_inner_steps(cfg8, md8)
+    for window8 in range(1, 101):  # gated windows, until the codes have > 8 movers in a cell
+        g8 = md8._window_for(g8, k8)(g8)
+        sc8, oc8, pl8, fl8 = designs.rebuild_inputs(md8, g8)
+        if bool(migrate_cuda3.mover_overflow(sc8, 8)):
+            break
+        if bool(md8._needs_rebuild(g8, gate8)):
+            g8 = md8._rebuild_migrate(g8)
+    else:
+        raise AssertionError(f"N=8192 lattice start: no window in {100 * k8} steps with > 8 movers in a cell")
+    got8, flag8 = migrate_cuda3.migrate3(sc8, pl8, fl8, k_mov=8, occ=oc8)
+    if not (torch.equal(got8, migrate_cuda3.migrate3_reference(sc8, torch.stack(pl8), fl8)) and bool(flag8)):
+        raise AssertionError("B6 at N=8192, k_mov 8: output or mover flag differs from the plain version's")
 
-    mo_t = gs3.max_occ
-    times["cell_force3"] = (_cuda_ms(lambda: cell_cuda3.grid_force3(*args3, max_occ=mo_t), 50),
-                            _cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, mo), 5))
+    t7 = interleaved_ms({
+        "B4": lambda: cell_cuda3.grid_force3(*args3, max_occ=gs3.max_occ),
+        "B4's loop": lambda: cell_cuda3.grid_force3_loop(*args3, max_occ=gs3.max_occ),
+        "B5": lambda: cell_cuda3.grid_force3(*args3, static_cov=cov),
+        "B4 energy": lambda: cell_cuda3.grid_force3(*args3, max_occ=gs3.max_occ, with_energy=True),
+        "B4's loop energy": lambda: cell_cuda3.grid_force3_loop(*args3, max_occ=gs3.max_occ, with_energy=True),
+        # B4 at the strip widths ceil(19 / k), k = 1 to 4 (its default: strip4)
+        **{f"B4 strip {w}": (lambda w=w: cell_cuda3._forces3(args3[:3], p3, gs3.max_occ, False, None, False,
+                                                            strip=w))
+           for w in sorted({-(-md3.cps // k) for k in range(1, 5)}, reverse=True)},
+    }, lead=True)
+    t7m = interleaved_ms({
+        "B4": lambda: cell_cuda3.grid_force3(*argm, max_occ=gm.max_occ),
+        "B4 full capacity": lambda: cell_cuda3.grid_force3(*argm),
+        "B4's loop": lambda: cell_cuda3.grid_force3_loop(*argm, max_occ=gm.max_occ),
+        "B5": lambda: cell_cuda3.grid_force3(*argm, static_cov=cov),
+        "B4 energy": lambda: cell_cuda3.grid_force3(*argm, max_occ=gm.max_occ, with_energy=True),
+        "B4 energy full capacity": lambda: cell_cuda3.grid_force3(*argm, with_energy=True),
+        "B4's loop energy": lambda: cell_cuda3.grid_force3_loop(*argm, max_occ=gm.max_occ, with_energy=True),
+    }, lead=True)
+    t7mig = interleaved_ms({
+        "B6": lambda: migrate_cuda3.migrate3(scode3, planes3, fills3, k_mov=k_mov, occ=occ_new3),
+        "previous B6": lambda: designs.previous(prev_b6, scode3, planes3, fills3, k_mov),
+        "B7": lambda: migrate_cuda3.migrate3(scode3, planes3, fills3, occ=occ_new3),
+        "previous B7": lambda: designs.previous(prev_b6, scode3, planes3, fills3),
+    }, lead=True)
+    times["cell_force3"] = (t7["B4"][0], cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, mo), 5))
     times["cell_force3_energy"] = (
-        _cuda_ms(lambda: cell_cuda3.grid_force3(*args3, max_occ=mo_t, with_energy=True), 50),
-        _cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, mo, with_energy=True), 5))
-    t7, strip7 = _counted_times(args3, cov, False)
-    times["cell_force3_counted"] = (t7["counted"][0], _cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, cov), 5))
-    extra["cell_force3_counted"] = {"loop_ms": t7["loop"][0], "strip": strip7}
-    times["migrate3"] = (_cuda_ms(lambda: migrate_cuda3.migrate3(scode3, fields3, fills3, k_mov=k_mov), 50),
-                         _cuda_ms(lambda: migrate_cuda3.migrate3_reference(scode3, fields3, fills3), 10))
-    times["migrate3_flat"] = (_cuda_ms(lambda: migrate_cuda3.migrate3(scode3, fields3, fills3), 50),
-                              _cuda_ms(lambda: migrate_cuda3.migrate3_reference(scode3, fields3, fills3), 10))
+        t7["B4 energy"][0], cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, mo, with_energy=True), 5))
+    t7c, strip7 = _counted_times(args3, cov, False)
+    times["cell_force3_counted"] = (t7c["counted"][0], cuda_ms(lambda: cell_cuda3.grid_force3_reference(*args3, cov), 5))
+    extra["cell_force3_counted"] = {"loop_ms": t7c["loop"][0], "strip": strip7}
+    plain_m3 = cuda_ms(lambda: migrate_cuda3.migrate3_reference(scode3, fields3, fills3), 10)
+    times["migrate3"] = (t7mig["B6"][0], plain_m3)
+    times["migrate3_flat"] = (t7mig["B7"][0], plain_m3)
     work3 = _pair_work(coords3, gs3.occ, md3.cps, mo, md3.box, p3.cutoff2)
     bounds["cell_force3"], bounds["cell_force3_energy"] = _force_bounds(work3, 3, gs3.xg.numel())
     bounds["cell_force3_counted"] = bounds["cell_force3"]
-    bounds["migrate3"] = bounds["migrate3_flat"] = _migrate_bound(fields3.shape[0], gs3.xg.numel())
+    workm = _pair_work(argm[:3], gm.occ, md3.cps, mo_m, md3.box, p3.cutoff2)
+    bm, bme = _force_bounds(workm, 3, gm.xg.numel())
+    extra["cell_force3"] = {"loop_ms": t7["B4's loop"][0], "strip": strip4, "above_cov_ms": t7m["B4"][0],
+                            "above_cov_loop_ms": t7m["B4's loop"][0],
+                            "above_cov_full_capacity_ms": t7m["B4 full capacity"][0],
+                            "above_cov_bound_ms": bm[0]}
+    extra["cell_force3_energy"] = {"loop_ms": t7["B4's loop energy"][0], "above_cov_ms": t7m["B4 energy"][0],
+                                   "above_cov_loop_ms": t7m["B4's loop energy"][0], "above_cov_bound_ms": bme[0]}
+    # the occupancy grid in besides the permutation; the flag's byte is not counted
+    bounds["migrate3"] = bounds["migrate3_flat"] = _migrate_bound(len(planes3), gs3.xg.numel(), int(occ_new3.sum()),
+                                                                  extra_planes=1)
+    extra["migrate3"] = {"previous_ms": t7mig["previous B6"][0]}
+    extra["migrate3_flat"] = {"previous_ms": t7mig["previous B7"][0]}
     print(f"phase 7 B4 forces: max abs diff {errors['cell_force3']:.3e} (max |f| {f3max:.1f}); "
           f"B4 energy variant: forces {err4ef:.3e}, e/w max abs diff {err4e:.3e}, sums within rtol "
-          f"1e-5; B5: vs plain {errors['cell_force3_counted']:.3e}, vs B4 {err54:.3e}, energy variant vs B4's "
-          f"{err5e:.3e}, both variants torch.equal to B5's full loop and over two launches; B6, B7: "
-          f"bit-equal to the plain version and to each other, {movers3} movers, mov_of "
-          f"{bool(mov_of)} (k_mov {k_mov}); pair work: {work3[0]} distance tests, {work3[1]} in "
-          f"the cutoff", flush=True)
+          f"1e-5; B5: vs plain {errors['cell_force3_counted']:.3e}, energy variant vs B4's {err5e:.3e}, "
+          f"both variants torch.equal to B5's full loop and over two launches; B4 (the counted kernel, strip "
+          f"{strip4}) both variants torch.equal to B4's loop, over two launches and to B5 (max occupancy {mo} "
+          f"<= cov {cov}); B6, B7 and the previous B6 design: bit-equal to the plain version, {movers3} movers, "
+          f"mov_of {bool(mov_of)} (k_mov {k_mov}); at N=8192 (k_mov 8) the codes after window {window8} trip the flag: B6 "
+          f"bit-equal, mov_of True; pair work: {work3[0]} distance tests, {work3[1]} in the cutoff", flush=True)
+    print(f"phase 7 melt state (90 steps from the lattice): max occupancy {mo_m} > cov {cov}; B4 both variants "
+          f"torch.equal to B4's loop, over two launches and at the full capacity ({md3.cap}), within 1e-4 of the "
+          f"plain version; pair work {workm[0]} distance tests, {workm[1]} in the cutoff; bound {bm[0]:.5f} ms, "
+          f"energy {bme[0]:.5f} ms", flush=True)
+    for label, tt in ((f"phase 7 B4 (max occupancy {mo} <= cov {cov})", t7),
+                      (f"phase 7 B4 on the melt state (max occupancy {mo_m} > cov {cov})", t7m),
+                      ("phase 7 B6, B7 and the previous design", t7mig)):
+        print(f"{smi}: {label} (medians of 7 interleaved repeats of 20 calls, lead): "
+              + ", ".join(f"{k} {spread(v)}" for k, v in tt.items()), flush=True)
+    print(f"phase 7 B4 against B5 on one state within cov: {t7['B4'][0]:.4f} against {t7['B5'][0]:.4f} ms "
+          f"({t7['B4'][0] / t7['B5'][0] - 1:+.1%})", flush=True)
     for name in ("cell_force3", "cell_force3_energy", "cell_force3_counted", "migrate3", "migrate3_flat"):
         print(f"phase 7 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
-    _print_counted_times("phase 7 B5", t7, strip7, bounds["cell_force3"], md3.cps)
-    del b4, r4, b4e, r4e, b5, b5e, r5, m6, m7, mr
+    _print_counted_times("phase 7 B5", t7c, strip7, bounds["cell_force3"], md3.cps)
+    del b4, r4, b4e, r4e, b5, b5e, r5, m6, m7, mr, mp, gm, g8, md8
 
     # -- 8. B4 against the dense oracle ----------------------------------------
     f3 = md3.forces(gs3.replace(**dict(zip(("fxg", "fyg", "fzg"), md3.force_kernel(*coords3, gs3.max_occ)))))
@@ -923,11 +1078,11 @@ def main() -> int:
         check_pairwise(pos4, pairwise_cuda.PairwiseParams(box=dense4.box_size, cutoff=2.5),
                        f"B8 N={dense4.n} 2D PBC cutoff 2.5", with_energy)
         check_pairwise(pos4_3d, pairwise_cuda.PairwiseParams(), f"B8 N={dense4.n} 3D no box", with_energy)
-    times["pairwise_lj"] = (_cuda_ms(lambda: pairwise_cuda.lj_force_pairwise(pos_d, pp), 50),
-                            _cuda_ms(lambda: pairwise_cuda.lj_force_pairwise_reference(pos_d, pp), 5))
+    times["pairwise_lj"] = (cuda_ms(lambda: pairwise_cuda.lj_force_pairwise(pos_d, pp), 50),
+                            cuda_ms(lambda: pairwise_cuda.lj_force_pairwise_reference(pos_d, pp), 5))
     times["pairwise_lj_energy"] = (
-        _cuda_ms(lambda: pairwise_cuda.lj_force_pairwise(pos_d, pp, True), 50),
-        _cuda_ms(lambda: pairwise_cuda.lj_force_pairwise_reference(pos_d, pp, True), 5))
+        cuda_ms(lambda: pairwise_cuda.lj_force_pairwise(pos_d, pp, True), 50),
+        cuda_ms(lambda: pairwise_cuda.lj_force_pairwise_reference(pos_d, pp, True), 5))
     bounds["pairwise_lj"], bounds["pairwise_lj_energy"] = _pairwise_bounds(dense.n, 2)
     row_blocks, slices, slice_len = pairwise_cuda._lj_geometry(dense.n)
     print(f"phase 11 B8 launch at N={dense.n}: {row_blocks} row blocks of {pairwise_cuda.LJ_ROWS} "
@@ -1048,11 +1203,11 @@ def main() -> int:
         err_f = _max_diff(f1, fr, occ_p, f"B3 {label} forces", 1e-4)
         err_ef3 = _max_diff(e1[:2], er[:2], occ_p, f"B3 {label} energy variant forces", 1e-4)
         err_e3 = _sums_close(e1[2:], er[2:], f"B3 {label} energy variant", 1e-5)
-        t15 = _interleaved_ms({"b3": b3, "b1": b1_unpacked, "b3_e": lambda: b3(True),
+        t15 = interleaved_ms({"b3": b3, "b1": b1_unpacked, "b3_e": lambda: b3(True),
                                "b1_e": lambda: b1_unpacked(True)})
-        t_f = (t15["b3"][0], _cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r), 5))
+        t_f = (t15["b3"][0], cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r), 5))
         t_e = (t15["b3_e"][0],
-               _cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r, with_energy=True), 5))
+               cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r, with_energy=True), 5))
         work_p = _pair_work((xu, yu), cell_cuda_packed.unpack(g.occ, r), m.cps, m.cap, m.box, pk.cutoff2)
         b_f, b_e = _force_bounds(work_p, 2, g.xg.numel(), extra_in_bytes=cnt.numel() * cnt.element_size())
         packed[label] = dict(md=m, gs=g, errors=(err_f, max(err_ef3, err_e3)), times=(t_f, t_e), bounds=(b_f, b_e),
@@ -1065,8 +1220,8 @@ def main() -> int:
               f"pair work: {work_p[0]} distance tests, {work_p[1]} in the cutoff", flush=True)
         for name, t, b, kk, kb in (("cell_force_packed", t_f, b_f, "b3", "b1"),
                                    ("cell_force_packed_energy", t_e, b_e, "b3_e", "b1_e")):
-            print(f"phase 15 {label} time {name}: kernel {_spread(t15[kk])}, B1's full-capacity loop on the "
-                  f"unpacked grids {_spread(t15[kb])} (medians of 7 interleaved repeats of 20 calls); plain "
+            print(f"phase 15 {label} time {name}: kernel {spread(t15[kk])}, B1's full-capacity loop on the "
+                  f"unpacked grids {spread(t15[kb])} (medians of 7 interleaved repeats of 20 calls); plain "
                   f"{t[1]:.4f} ms, bound {b[0]:.5f} ms ({b[1]}) per call", flush=True)
         del f1, f2, fr, e1, e2, er, yard, xu, yu
 
@@ -1082,9 +1237,9 @@ def main() -> int:
                        migrate_cuda.migrate_reference(scode_p, fields_p, fills, r1)):
         raise AssertionError("B2 packed: kernel output is not bit-equal to the plain version")
     errors["migrate_packed"] = 0.0
-    times["migrate_packed"] = (_cuda_ms(lambda: migrate_cuda.migrate(scode_p, fields_p, fills, r1), 50),
-                               _cuda_ms(lambda: migrate_cuda.migrate_reference(scode_p, fields_p, fills, r1), 10))
-    bounds["migrate_packed"] = _migrate_bound(fields_p.shape[0], g1.xg.numel())
+    times["migrate_packed"] = (cuda_ms(lambda: migrate_cuda.migrate(scode_p, fields_p, fills, r1), 50),
+                               cuda_ms(lambda: migrate_cuda.migrate_reference(scode_p, fields_p, fills, r1), 10))
+    bounds["migrate_packed"] = _migrate_bound(fields_p.shape[0], g1.xg.numel(), int((scode_p >= 0).sum()))
     for i, name in enumerate(("cell_force_packed", "cell_force_packed_energy")):
         errors[name] = packed["N=1M"]["errors"][i]
         times[name] = packed["N=1M"]["times"][i]
@@ -1230,10 +1385,10 @@ def main() -> int:
             if not abs(e_k - e_ref) <= 1e-5 * abs(e_ref):
                 raise AssertionError(f"B9 N={n}: 0.5 sum(m phi) {e_k} vs Gravity.energy {e_ref}, beyond rtol 1e-5")
             energy_s = f"; 0.5 sum(m phi) {e_k:.6e} vs Gravity.energy {e_ref:.6e} (rel {abs(e_k - e_ref) / abs(e_ref):.2e})"
-        times[names[0]] = (_cuda_ms(lambda: accel(pos_g, m_g), 20),
-                           _cuda_ms(lambda: pairwise_cuda.gravity_accel_pairwise_reference(pos_g, m_g, 1.0, 0.1), 3))
-        times[names[1]] = (_cuda_ms(lambda: accel_phi(pos_g, m_g), 20),
-                           _cuda_ms(lambda: pairwise_cuda.gravity_accel_pairwise_reference(pos_g, m_g, 1.0, 0.1, True), 3))
+        times[names[0]] = (cuda_ms(lambda: accel(pos_g, m_g), 20),
+                           cuda_ms(lambda: pairwise_cuda.gravity_accel_pairwise_reference(pos_g, m_g, 1.0, 0.1), 3))
+        times[names[1]] = (cuda_ms(lambda: accel_phi(pos_g, m_g), 20),
+                           cuda_ms(lambda: pairwise_cuda.gravity_accel_pairwise_reference(pos_g, m_g, 1.0, 0.1, True), 3))
         bounds[names[0]], bounds[names[1]] = _gravity_bounds(n, dim)
         print(f"phase 20 B9 N={n} {dim}D: launches {launches[names[0]]} + {launches[names[1]]} (potential); "
               f"a, a (potential variant), phi max abs diff / max |.|: {errs[0]:.2e}, {errs[1]:.2e}, "
@@ -1266,8 +1421,8 @@ def main() -> int:
             if not torch.equal(copy_cuda.chunked_copy(part), part):
                 raise AssertionError(f"B10 {dtype}: {part.numel()} elements not bit-equal")
         dst = torch.empty_like(src)
-        t21 = _interleaved_ms({"b10": lambda: copy_cuda.chunked_copy(src), "copy_": lambda: dst.copy_(src)})
-        times[name] = (t21["b10"][0], _cuda_ms(lambda: copy_cuda.copy_reference(src), 20))
+        t21 = interleaved_ms({"b10": lambda: copy_cuda.chunked_copy(src), "copy_": lambda: dst.copy_(src)})
+        times[name] = (t21["b10"][0], cuda_ms(lambda: copy_cuda.copy_reference(src), 20))
         library[name] = t21["copy_"][0]
         bounds[name] = _bound(0.0, op.bytes_per_call)  # each byte read once and written once
         ctx = runners.BenchContext(BenchConfig(warmup=1, repeats=2, steps=20), print, dev)
@@ -1278,7 +1433,7 @@ def main() -> int:
             raise AssertionError(f"B10 {dtype}: the timed loop did not launch the kernel")
         print(f"phase 21 B10 {dtype} {n_el} elements ({op.bytes_per_call // 2 >> 20} MiB): "
               f"bit-equal on it and on {odd} elements; medians of 7 interleaved repeats of 20 calls: "
-              f"B10 {_spread(t21['b10'])}, dst.copy_ {_spread(t21['copy_'])}; "
+              f"B10 {spread(t21['b10'])}, dst.copy_ {spread(t21['copy_'])}; "
               f"B10 {t21['b10'][0] / t21['copy_'][0]:.4f}x dst.copy_'s time; plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call; _timed_loop (direct, 20 steps): "
               f"{avg * 1e3:.4f} ms a copy, {op.bytes_per_call / avg / 2**30:.1f} GiB/s, {launches[name]} launches",
@@ -1439,18 +1594,19 @@ def main() -> int:
     (xh,), (yh,) = halo_blocks(g2.xg, 1, md2s.box), halo_blocks(g2.yg, 1)
     (ch,), (fh,) = halo_blocks(scode2, 1), halo_blocks(fields2, 1, dim=1)
     t24, tile24 = _tile_times(cell_cuda, (xh, yh, p2), md2s.cps, halo=True)
-    times["cell_force_halo"] = (t24["tile"][0], _cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2), 10))
+    times["cell_force_halo"] = (t24["tile"][0], cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2), 10))
     times["cell_force_halo_energy"] = (
-        t24["tile_e"][0], _cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2, True), 10))
+        t24["tile_e"][0], cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2, True), 10))
     extra["cell_force_halo"] = {"loop_ms": t24["loop"][0], "tile": list(tile24[0])}
     extra["cell_force_halo_energy"] = {"loop_ms": t24["loop_e"][0], "tile": list(tile24[1])}
-    times["migrate_halo"] = (_cuda_ms(lambda: migrate_cuda.migrate_halo(ch, fh, fills), 50),
-                             _cuda_ms(lambda: migrate_cuda.migrate_halo_reference(ch, fh, fills), 10))
-    full_ms2 = (_cuda_ms(lambda: cell_cuda.grid_force(g2.xg, g2.yg, p2), 50, lead=True),
-                _cuda_ms(lambda: migrate_cuda.migrate(scode2, fields2, fills), 50))
+    times["migrate_halo"] = (cuda_ms(lambda: migrate_cuda.migrate_halo(ch, fh, fills), 50),
+                             cuda_ms(lambda: migrate_cuda.migrate_halo_reference(ch, fh, fills), 10))
+    full_ms2 = (cuda_ms(lambda: cell_cuda.grid_force(g2.xg, g2.yg, p2), 50, lead=True),
+                cuda_ms(lambda: migrate_cuda.migrate(scode2, fields2, fills), 50))
     work2s = _pair_work((g2.xg, g2.yg), g2.occ, md2s.cps, md2s.cap, md2s.box, p2.cutoff2)
     bounds["cell_force_halo"], bounds["cell_force_halo_energy"] = _force_bounds(work2s, 2, g2.xg.numel(), xh.numel())
-    bounds["migrate_halo"] = _migrate_bound(fields2.shape[0], g2.xg.numel(), ch.numel())
+    # one block: every particle lands in the local rows once
+    bounds["migrate_halo"] = _migrate_bound(fields2.shape[0], g2.xg.numel(), int((scode2 >= 0).sum()), ch.numel())
     print(f"{smi}: phase 24 2D halo kernels, N={cfg2s.n} (grid {tuple(g2.xg.shape)}): B1 (both variants) "
           f"torch.equal to B1's loop; over 1, 2 and 4 row blocks B1 halo (both variants, the (rows + 2) and the "
           f"edge-row forms, and B1 halo's loop) and B2 halo bit-equal to B1 and B2 on the whole grid; against their "
@@ -1486,11 +1642,10 @@ def main() -> int:
         loop3 = cell_cuda3.grid_force3_static_loop(*c3s, p3s, cov3, kw.get("with_energy", False))
         if not all(torch.equal(a, b) for a, b in zip(full3[name], loop3)):
             raise AssertionError(f"B5 at {md3s.cps} cells per side ({name}): not torch.equal to B5's full loop")
-    _, _, _, scode3s, _, _ = md3s._migration_dest3(g3)
-    fields3s = torch.stack([torch.remainder(g, md3s.box) for g in c3s]
-                           + [g3.vxg, g3.vyg, g3.vzg, g3.fxg, g3.fyg, g3.fzg, g3.pid.float(),
-                              g3.crx, g3.cry, g3.crz, g3.cvx, g3.cvy, g3.cvz])
-    full_m3, mov_of3 = migrate_cuda3.migrate3(scode3s, fields3s, fills3, k_mov=md3s.migrate_k_mov)
+    scode3s, occ_new3s, planes3s, _ = designs.rebuild_inputs(md3s, g3)
+    fields3s = torch.stack(planes3s)
+    k_mov3s = md3s.migrate_k_mov
+    full_m3, mov_of3 = migrate_cuda3.migrate3(scode3s, planes3s, fills3, k_mov=k_mov3s, occ=occ_new3s)
     for name, *_ in variants3:
         errors[name] = 0.0
     errors["migrate3_halo"] = 0.0
@@ -1503,48 +1658,71 @@ def main() -> int:
                 *b, p3s, bound, kw.get("with_energy", False)) for b in blocks))]
             if not all(torch.equal(a, b) for a, b in zip(got, full3[name])):
                 raise AssertionError(f"{name} over {n_blocks} row blocks is not bit-equal to the whole-grid kernel")
+            energy = kw.get("with_energy", False)
             if "counted" in name:
                 loop_h = [torch.cat(q) for q in zip(*(cell_cuda3.grid_force3_static_loop(
-                    *b, p3s, cov3, kw.get("with_energy", False), halo=True) for b in blocks))]
-                if not all(torch.equal(a, b) for a, b in zip(got, loop_h)):
-                    raise AssertionError(f"{name} over {n_blocks} row blocks is not bit-equal to B5 halo's full loop")
+                    *b, p3s, cov3, energy, halo=True) for b in blocks))]
+            else:
+                loop_h = [torch.cat(q) for q in zip(*(cell_cuda3.grid_force3_loop(
+                    *b, p3s, max_occ=g3.max_occ, with_energy=energy, halo=True) for b in blocks))]
+            if not all(torch.equal(a, b) for a, b in zip(got, loop_h)):
+                raise AssertionError(f"{name} over {n_blocks} row blocks is not bit-equal to its loop's halo form")
             err = _max_diff(got[:3], plain[:3], occ3s, f"{name} vs plain", 1e-4)
-            if kw.get("with_energy"):
+            if energy:
                 err = max(err, _sums_close(got[3:], plain[3:], name, 1e-5))
             errors[name] = max(errors[name], err)
+        rows3 = md3s.cps // n_blocks
         cb, fb = halo_blocks(scode3s, n_blocks), halo_blocks(fields3s, n_blocks, dim=1)
-        outs = [migrate_cuda3.migrate3_halo(c, f, fills3, k_mov=md3s.migrate_k_mov) for c, f in zip(cb, fb)]
-        got_m = torch.cat([o[0] for o in outs], dim=1)
+        ob = [occ_new3s[k * rows3:(k + 1) * rows3] for k in range(n_blocks)]
+        outs = [migrate_cuda3.migrate3_halo(c, f, fills3, k_mov=k_mov3s, occ=o) for c, f, o in zip(cb, fb, ob)]
+        prev = [designs.previous(prev_b6, c, f, fills3, k_mov3s, halo=True) for c, f in zip(cb, fb)]
         plain_m = torch.cat([migrate_cuda3.migrate3_halo_reference(c, f, fills3) for c, f in zip(cb, fb)], dim=1)
-        if not (torch.equal(got_m, full_m3) and torch.equal(got_m, plain_m)):
-            raise AssertionError(f"B6 halo over {n_blocks} row blocks is not bit-equal to B6 and to its plain version")
-        if any(bool(o[1]) for o in outs) != bool(mov_of3):
-            raise AssertionError(f"B6 halo's mover flag over {n_blocks} row blocks differs from B6's")
+        for label, parts in (("B6 halo", outs), ("the previous B6 halo design", prev)):
+            got_m = torch.cat([o[0] for o in parts], dim=1)
+            if not (torch.equal(got_m, full_m3) and torch.equal(got_m, plain_m)):
+                raise AssertionError(f"{label} over {n_blocks} row blocks is not bit-equal to B6 and to the plain "
+                                     "version")
+            if any(bool(o[1]) for o in parts) != bool(mov_of3):
+                raise AssertionError(f"{label}'s mover flag over {n_blocks} row blocks differs from B6's")
     (xh3,), (yh3,), (zh3,) = (halo_blocks(g, 1, s) for g, s in zip(c3s, (md3s.box, 0.0, 0.0)))
     (ch3,), (fh3,) = halo_blocks(scode3s, 1), halo_blocks(fields3s, 1, dim=1)
-    for name, kw, bound in variants3[:3]:
-        energy = kw.get("with_energy", False)
-        times[name] = (
-            _cuda_ms(lambda kw=kw: cell_cuda3.grid_force3_halo(xh3, yh3, zh3, p3s, **kw), 50),
-            _cuda_ms(lambda b=bound, e=energy: cell_cuda3.grid_force3_halo_reference(xh3, yh3, zh3, p3s, b, e), 5))
-    times["migrate3_halo"] = (
-        _cuda_ms(lambda: migrate_cuda3.migrate3_halo(ch3, fh3, fills3, k_mov=md3s.migrate_k_mov), 50),
-        _cuda_ms(lambda: migrate_cuda3.migrate3_halo_reference(ch3, fh3, fills3), 10))
-    full_ms3 = (_cuda_ms(lambda: cell_cuda3.grid_force3(*c3s, p3s, max_occ=g3.max_occ), 50),
-                _cuda_ms(lambda: cell_cuda3.grid_force3(*c3s, p3s, static_cov=cov3), 50),
-                _cuda_ms(lambda: migrate_cuda3.migrate3(scode3s, fields3s, fills3, k_mov=md3s.migrate_k_mov), 50))
+    mo3t = g3.max_occ
+    t25h = interleaved_ms({
+        "B4 halo": lambda: cell_cuda3.grid_force3_halo(xh3, yh3, zh3, p3s, max_occ=mo3t),
+        "B4 halo's loop": lambda: cell_cuda3.grid_force3_loop(xh3, yh3, zh3, p3s, max_occ=mo3t, halo=True),
+        "B4 halo energy": lambda: cell_cuda3.grid_force3_halo(xh3, yh3, zh3, p3s, max_occ=mo3t, with_energy=True),
+        "B4 halo's loop energy": lambda: cell_cuda3.grid_force3_loop(xh3, yh3, zh3, p3s, max_occ=mo3t,
+                                                                   with_energy=True, halo=True),
+        "B4": lambda: cell_cuda3.grid_force3(*c3s, p3s, max_occ=mo3t),
+        "B5": lambda: cell_cuda3.grid_force3(*c3s, p3s, static_cov=cov3),
+        "B6 halo": lambda: migrate_cuda3.migrate3_halo(ch3, fh3, fills3, k_mov=k_mov3s, occ=occ_new3s),
+        "previous B6 halo": lambda: designs.previous(prev_b6, ch3, fh3, fills3, k_mov3s, halo=True),
+        "B6": lambda: migrate_cuda3.migrate3(scode3s, planes3s, fills3, k_mov=k_mov3s, occ=occ_new3s),
+    }, lead=True)
+    plain25 = {name: cuda_ms(lambda b=bound, e=kw.get("with_energy", False): cell_cuda3.grid_force3_halo_reference(
+        xh3, yh3, zh3, p3s, b, e), 5) for name, kw, bound in variants3[:3]}
+    times["cell_force3_halo"] = (t25h["B4 halo"][0], plain25["cell_force3_halo"])
+    times["cell_force3_halo_energy"] = (t25h["B4 halo energy"][0], plain25["cell_force3_halo_energy"])
+    times["migrate3_halo"] = (t25h["B6 halo"][0],
+                              cuda_ms(lambda: migrate_cuda3.migrate3_halo_reference(ch3, fh3, fills3), 10))
+    full_ms3 = (t25h["B4"][0], t25h["B5"][0], t25h["B6"][0])
     t25, strip25 = _counted_times((xh3, yh3, zh3, p3s), cov3, True)
-    times["cell_force3_counted_halo"] = (t25["counted"][0], times["cell_force3_counted_halo"][1])
+    times["cell_force3_counted_halo"] = (t25["counted"][0], plain25["cell_force3_counted_halo"])
     extra["cell_force3_counted_halo"] = {"loop_ms": t25["loop"][0], "strip": strip25}
+    extra["cell_force3_halo"] = {"loop_ms": t25h["B4 halo's loop"][0]}
+    extra["cell_force3_halo_energy"] = {"loop_ms": t25h["B4 halo's loop energy"][0]}
+    extra["migrate3_halo"] = {"previous_ms": t25h["previous B6 halo"][0]}
     n_out3, n_in3 = g3.xg.numel(), xh3.numel()
     b4h, b4he = _force_bounds(_pair_work(c3s, g3.occ, md3s.cps, mo3, md3s.box, p3s.cutoff2), 3, n_out3, n_in3)
     b5h, _ = _force_bounds(_pair_work(c3s, g3.occ, md3s.cps, cov3, md3s.box, p3s.cutoff2), 3, n_out3, n_in3)
     bounds.update(cell_force3_halo=b4h, cell_force3_halo_energy=b4he, cell_force3_counted_halo=b5h,
-                  migrate3_halo=_migrate_bound(fields3s.shape[0], n_out3, ch3.numel()))
+                  migrate3_halo=_migrate_bound(fields3s.shape[0], n_out3, int(occ_new3s.sum()), ch3.numel(),
+                                                extra_planes=1))
     print(f"phase 25 3D halo kernels, N={cfg3s.n} (grid {tuple(g3.xg.shape)}, skin {md3s.skin:.4f}, max "
           f"occupancy {mo3}, B5 bound {cov3}): B5 (both variants) torch.equal to B5's full loop on the "
           f"whole grid; over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 halo (both variants) and "
-          f"B6 halo bit-equal to the whole-grid kernels, B5 halo to B5 halo's full loop, the mover flag "
+          f"B6 halo (and the previous design) bit-equal to the whole-grid kernels, B4 halo and B5 "
+          f"halo to their loops' halo forms, the mover flag "
           f"({bool(mov_of3)}) where B6 raises it; against their plain versions: B4 halo "
           f"{errors['cell_force3_halo']:.3e}, energy variant {errors['cell_force3_halo_energy']:.3e}, B5 "
           f"halo {errors['cell_force3_counted_halo']:.3e}, energy variant "
@@ -1555,6 +1733,8 @@ def main() -> int:
     for name in ("cell_force3_halo", "cell_force3_halo_energy", "cell_force3_counted_halo", "migrate3_halo"):
         print(f"phase 25 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+    print(f"{smi}: phase 25 at one rank's shape (medians of 7 interleaved repeats of 20 calls, lead): "
+          + ", ".join(f"{k} {spread(v)}" for k, v in t25h.items()), flush=True)
     _print_counted_times("phase 25 B5 halo at one rank's shape", t25, strip25, b5h, md3s.cps)
 
     # -- 26. the row-sharded engines on the card, world size 1 ---------------------
@@ -1573,7 +1753,7 @@ def main() -> int:
                          "cell_force_packed_energy", "migrate_packed", "cell_force_loop", "cell_force_loop_energy",
                          "cell_force_halo_loop", "cell_force_halo_loop_energy"),
                   "3D": ("cell_force3", "cell_force3_energy", "cell_force3_counted", "cell_force3_static",
-                         "migrate3", "migrate3_flat")}
+                         "migrate3", "migrate3_flat", "cell_force3_loop", "cell_force3_halo_loop")}
     halo_names = {"2D": ("cell_force_halo", "cell_force_halo_energy", "migrate_halo"),
                   "3D": ("cell_force3_halo", "cell_force3_halo_energy", "cell_force3_counted_halo", "migrate3_halo")}
     for label, c, engine, kw in (("2D", cfg2s, ShardedGridMD, {}),
@@ -1586,11 +1766,13 @@ def main() -> int:
         counts = launch_counts()
         check_run(res_s, f"{label} sharded engine", c)
         if (any(counts[n] for n in full_names[label]) or counts["cell_force3_static_halo"]
-                or not all(counts[n] > 0 for n in halo_names[label])):
+                or counts["cell_force3_halo_loop"] or not all(counts[n] > 0 for n in halo_names[label])):
             raise AssertionError(f"{label} sharded engine: launches {counts}; expected the halo kernels only")
         launches.update({n: counts[n] for n in halo_names[label]})
         if label == "2D":
             loop_main.update({k: counts[k] for k in ("cell_force_halo_loop", "cell_force_halo_loop_energy")})
+        else:
+            loop_main3_halo = counts["cell_force3_halo_loop"]  # B4 halo's loop on the sharded path: 0
         res_u = lj_fluid.run(c, device=dev, md=plain_md)
         check_run(res_u, f"{label} unsharded engine at N={c.n}", c)
         ok, err = scaling.parity(c, sharded, lj_fluid.init_state(c, dev), 50, dev)
@@ -1606,6 +1788,15 @@ def main() -> int:
         us_halo = _host_us(lambda: sharded._with_halo(*coords))
         # the 2D force reads the edge rows where the exchange leaves them
         us_edges = _host_us(lambda: sharded._edge_rows(*coords)) if label == "2D" else None
+        if label == "3D":
+            # one rebuild's device ops, and its exchange of the code and field
+            # edge rows as B6 halo takes them (a stack of the planes, the
+            # exchange, two (rows + 2) copies)
+            gsh = sharded.init(res_s.state.position, res_s.state.velocity)
+            gsh = sharded._window_for(gsh, res_s.cadence or 9)(gsh)
+            _rebuild_ops(sharded, gsh, "phase 26 sharded 3D")
+            sc_h, _, pl_h, _ = designs.rebuild_inputs(sharded, gsh)
+            us_mig = _host_us(lambda: sharded._halo_planes(sc_h, torch.stack(pl_h)))
         steps = c.eq_steps + c.prod_steps
         ms_s = 1e3 * (res_s.time_eq_s + res_s.time_prod_s) / steps
         ms_u = 1e3 * (res_u.time_eq_s + res_u.time_prod_s) / steps
@@ -1618,13 +1809,21 @@ def main() -> int:
               f"{scaling.PARITY_TOL}); halo launches {[counts[n] for n in halo_names[label]]}, whole-grid "
               f"launches 0; an all-reduce MAX {us_reduce:.1f} us, one step's edge-row exchange "
               + (f"{us_halo:.1f} us with the (rows + 2) copies, {us_edges:.1f} us without them (the force's)"
-                 if us_edges is not None else f"{us_halo:.1f} us"), flush=True)
+                 if us_edges is not None else f"{us_halo:.1f} us; a rebuild's exchange of the code and field edge "
+                 f"rows {us_mig:.1f} us (the stack, the exchange and the (rows + 2) copies B6 halo reads)"),
+              flush=True)
         if label == "2D":
             traced2s = override(c, prod_steps=2 * c.sample_every)
             busy_line(f"{smi}: phase 26 sharded 2D N={c.n}", res_s, c,
                       profile_device(lambda: lj_fluid.production(traced2s, res_s.state, res_s.cadence, md=sharded),
                                      os.path.join("chiprun_out", "chip_smoke_sharded_2d_trace.json")),
                       ("cell_force_tile_kernel",), "B1 halo")
+        else:
+            traced3s = override(c, prod_steps=2 * c.sample_every)
+            busy_line(f"{smi}: phase 26 sharded 3D N={c.n}", res_s, c,
+                      profile_device(lambda: lj_fluid.production(traced3s, res_s.state, res_s.cadence, md=sharded),
+                                     os.path.join("chiprun_out", "chip_smoke_sharded_3d_trace.json")),
+                      ("cell_force3_counted_kernel",), "B5 halo and B4 halo (the counted kernel)")
     # lj_fluid's 3D engine at 18 cells per side: its mover flag at k_mov 16
     print(f"phase 26 3D ShardedGridMD3 at {sharded.cps} cells per side with lj_fluid's k_mov "
           f"{sharded.migrate_k_mov}: overflow {res_s.overflow} (B6's mover flag stays down through the melt's "
@@ -1667,6 +1866,9 @@ def main() -> int:
         loop_key = name.replace("cell_force", "cell_force_loop") if "halo" not in name else name.replace(
             "cell_force_halo", "cell_force_halo_loop")
         extra[name]["loop_launches"] = loop_main[loop_key]
+    for name, n_loop in (("cell_force3", loop_main3), ("cell_force3_energy", loop_main3),
+                         ("cell_force3_halo", loop_main3_halo), ("cell_force3_halo_energy", loop_main3_halo)):
+        extra[name]["loop_launches"] = n_loop
     kernels = [
         {"name": name, "route": "cuda", "source": root + src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errors[name],

@@ -1,28 +1,28 @@
 """Kernels B4 and B5: 3D Lennard-Jones forces on the cell grid, and their
 halo forms.
 
-Replace the TPU kernels ``ops/kernels/cell_pallas3.py:_newton_kernel3`` (B4,
-partner slots bounded at run time by the max cell occupancy) and
+Replace the TPU kernels ``ops/kernels/cell_pallas3.py:_newton_kernel3``
+(B4, partner slots bounded at run time by the max cell occupancy) and
 ``:_static_kernel3`` (B5, the bound ``cov`` fixed at compile time) of the
 JAX package, both built by ``make_grid_force_kernel3``, and, as B4/B5
 halo, their explicit-halo call ``.raw`` (``cell_pallas3.py:722``) that the
-row-sharded engine runs on each device's x-rows. The CUDA source is
-``csrc/cell_force3.cu``. B4 is one thread per slot over 27 cells x the
-bound's partner slots (``cell_force3_kernel<0, ...>``, reading ``max_occ``
-through a device pointer). B5 is the counted kernel
-(``cell_force3_counted_kernel<COV, ...>``): one block a strip of z-cells,
-the 3 x 3 neighbour lines staged in shared memory with occupied slots
-only, one thread per occupied target; bit-equal to B5's full loop over
-``cov`` slots (``cell_force3_kernel<COV, ...>``), which stays in the
-library as its yardstick. The source's header says what bounds each on an
-H100 and how the designs answer that.
+row-sharded engine runs on each device's x-rows. The CUDA source is ``csrc/cell_force3.cu``. Both are the
+counted kernel (``cell_force3_counted_kernel<COV, ...>``): one block a
+strip of z-cells, the 3 x 3 neighbour lines staged in shared memory with
+occupied slots only, one thread per occupied target. B5 is it at
+``COV = cov``; B4 at ``COV = 0``, its shared memory sized for the capacity
+and its bound ``max_occ`` read on the card through a pointer. Each is
+bit-equal to its full loop over the bound's slots
+(``cell_force3_kernel<COV, ...>``), which stays in the library as its
+yardstick. The source's header says what bounds them on an H100 and how
+the design answers that.
 
 Grids are ``(ncx, cap, ncy * ncz)`` float32, the (y, z) cell plane flattened
 without the TPU's 128-lane padding. Empty slots hold the x sentinel
 ``2.5 * box`` (y = z = 0), which the validity test ``0 < r2 < cutoff^2``
 rejects, so no occupancy mask is read. Slots at or past the bound get zero.
 The counted kernel takes each cell's count as its number of non-sentinel
-slots below ``cov``: the engines fill a cell's slots from 0 at every
+slots below the bound: the engines fill a cell's slots from 0 at every
 (re)binning, and the x-rows the halo exchange attaches are such rows.
 
 - :func:`grid_force3_reference`: the plain PyTorch version, used for CPU
@@ -34,16 +34,19 @@ slots below ``cov``: the engines fill a cell's slots from 0 at every
   ``(rows + 2, cap, ncy * ncz)`` in and ``(rows, cap, ncy * ncz)`` out. The
   caller puts the x seam into the halo rows; x does not wrap. Over P row
   blocks the result is bit-equal to the full kernels;
-- :func:`grid_force3_static_loop`: B5's full loop on the card, which no
-  path runs: the counted kernel's bit-exact and timing yardstick;
+- :func:`grid_force3_loop` / :func:`grid_force3_static_loop`: B4's and
+  B5's full loops on the card, which no path runs: the counted kernel's
+  bit-exact and timing yardsticks;
 - :func:`strip_width`: the z-cells a block of the counted kernel takes (on
   the card);
 - ``LAUNCHES`` / ``ENERGY_LAUNCHES``: launches of B4 and of its energy
   variant, ``COUNTED_LAUNCHES``: of B5 (the counted kernel, either
   variant), and ``HALO_LAUNCHES`` / ``HALO_ENERGY_LAUNCHES`` /
   ``HALO_COUNTED_LAUNCHES`` the same of the halo forms;
-  ``STATIC_LAUNCHES`` / ``HALO_STATIC_LAUNCHES``: of B5's full loop; each
-  counted where a wrapper launches its kernel.
+  ``LOOP_LAUNCHES`` / ``HALO_LOOP_LAUNCHES``: of B4's loop and
+  ``STATIC_LAUNCHES`` / ``HALO_STATIC_LAUNCHES``: of B5's full loop (either
+  variant); each counted where a wrapper launches its kernel;
+- ``MAX_CAP``: the largest capacity B4's shared memory holds.
 """
 
 from __future__ import annotations
@@ -68,9 +71,15 @@ HALO_ENERGY_LAUNCHES = 0
 HALO_COUNTED_LAUNCHES = 0
 STATIC_LAUNCHES = 0
 HALO_STATIC_LAUNCHES = 0
+LOOP_LAUNCHES = 0
+HALO_LOOP_LAUNCHES = 0
 # the compile-time bounds csrc/cell_force3.cu instantiates for B5
 STATIC_COVS = (8, 16, 24, 32, 40, 48, 56, 64)
 MAX_STRIP = 32  # z-cells of a counted block: one warp's prefix sum
+# B4's largest capacity: the largest multiple of 8 whose strip of one
+# z-cell, with the energy, fits the H100's 232,448 bytes of shared memory
+# a block (Strip3::bytes in csrc/cell_force3.cu: 345 * cap + 440)
+MAX_CAP = 672
 
 
 @dataclass(frozen=True)
@@ -214,21 +223,23 @@ def _pair_sums3(x4, y4, z4, partners, p: CellForce3Params, bound: int, with_ener
     return tuple(full)
 
 
-def strip_width(p: CellForce3Params, rows: int, cov: int, with_energy: bool, device) -> int:
+def strip_width(p: CellForce3Params, rows: int, cov: Optional[int], with_energy: bool, device) -> int:
     """The z-cells a block of the counted kernel takes on ``rows`` output
-    x-rows at bound ``cov`` on CUDA ``device``: the widest ``ceil(ncz /
-    k)`` whose blocks are all resident on the card at once, from the
-    occupancy calculator (``pick_strip`` in ``csrc/cell_force3.cu``)."""
-    return _strip_width(cov, bool(with_energy), rows, p.cps, torch.device(device).index or 0)
+    x-rows at bound ``cov`` (None: B4, shared memory for the capacity) on
+    CUDA ``device``: the widest ``ceil(ncz / k)`` whose blocks are all
+    resident on the card at once, from the occupancy calculator, else the
+    widest balanced one of at most 16 that fits (``pick_strip`` in
+    ``csrc/cell_force3.cu``)."""
+    return _strip_width(cov or 0, p.cap, bool(with_energy), rows, p.cps, torch.device(device).index or 0)
 
 
 @functools.lru_cache(maxsize=None)
-def _strip_width(cov: int, with_energy: bool, rows: int, cps: int, index: int) -> int:
+def _strip_width(cov: int, cap: int, with_energy: bool, rows: int, cps: int, index: int) -> int:
     fn = _build.library().jtps_cell_force3_counted_strip
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     w = ctypes.c_int(0)
-    _build.check(fn(cov, int(with_energy), rows, cps, cps, index, ctypes.byref(w)), "cell_force3 strip choice")
+    _build.check(fn(cov, cap, int(with_energy), rows, cps, cps, index, ctypes.byref(w)), "cell_force3 strip choice")
     return w.value
 
 
@@ -250,7 +261,7 @@ def _launcher():
 def _counted_launcher():
     fn = _build.library().jtps_cell_force3_counted
     fn.argtypes = (
-        [ctypes.c_void_p] * 8
+        [ctypes.c_void_p] * 9
         + [ctypes.c_int] * 5
         + [ctypes.c_float] * 7
         + [ctypes.c_int] * 4
@@ -265,10 +276,10 @@ def _forces3(grids, p: CellForce3Params, max_occ, with_energy: bool, static_cov,
     """Checks the arguments of :func:`grid_force3` (``halo=False``) or
     :func:`grid_force3_halo` (``halo=True``: each grid carries one halo
     x-row on each side) and runs the plain version on the CPU or a kernel
-    on the card: B4, or with ``static_cov`` the counted kernel in strips of
-    ``strip`` z-cells (default: :func:`strip_width`; another width is for
-    measuring the choice), or B5's full loop with ``loop``. Returns the
-    outputs and whether a kernel launched."""
+    on the card: the counted kernel, B4 or with ``static_cov`` B5, in
+    strips of ``strip`` z-cells (default: :func:`strip_width`; another
+    width is for measuring the choice), or with ``loop`` the full loop.
+    Returns the outputs and whether a kernel launched."""
     dev = grids[0].device
     rows = grids[0].shape[0] - 2 if halo else p.cps
     if rows < 1:
@@ -278,14 +289,15 @@ def _forces3(grids, p: CellForce3Params, max_occ, with_energy: bool, static_cov,
         check_grid(t, name, shape, dev)
     if static_cov is not None and not 0 < static_cov <= p.cap:
         raise ValueError(f"static_cov {static_cov} must lie in [1, capacity {p.cap}]")
+    if static_cov is None and not loop and p.cap > MAX_CAP:
+        raise ValueError(f"capacity {p.cap}: B4's shared memory holds capacities up to MAX_CAP = {MAX_CAP}")
     if max_occ is not None and static_cov is None:
         if max_occ.dtype != torch.int32 or max_occ.numel() != 1:
             raise TypeError(f"max_occ: expected one int32, got {max_occ.dtype} {tuple(max_occ.shape)}")
         if max_occ.device != dev:
             raise ValueError(f"max_occ: on {max_occ.device}, expected {dev}")
-    if strip is not None and (static_cov is None or loop or not 1 <= strip <= min(MAX_STRIP, p.cps)):
-        raise ValueError(f"strip {strip}: the counted kernel (static_cov) takes 1 to "
-                         f"{min(MAX_STRIP, p.cps)} z-cells")
+    if strip is not None and (loop or not 1 <= strip <= min(MAX_STRIP, p.cps)):
+        raise ValueError(f"strip {strip}: the counted kernel takes 1 to {min(MAX_STRIP, p.cps)} z-cells")
     if dev.type == "cpu":
         bound = static_cov if static_cov is not None else max_occ
         bound = None if bound is None else int(bound)
@@ -299,18 +311,15 @@ def _forces3(grids, p: CellForce3Params, max_occ, with_energy: bool, static_cov,
             for _ in range(5 if with_energy else 3)]
     ptrs = [g.data_ptr() for g in grids] + [o.data_ptr() for o in outs[:3]]
     ptrs += [o.data_ptr() for o in outs[3:]] if with_energy else [None, None]
+    ptrs.append(None if (max_occ is None or static_cov is not None) else max_occ.data_ptr())
     consts = (p.box, p.sentinel, p.cutoff2, p.sigma2, p.fscale, p.epsilon, p.shift)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if static_cov is None or loop:
-        status = _launcher()(
-            *ptrs, None if (max_occ is None or static_cov is not None) else max_occ.data_ptr(),
-            static_cov or 0, rows, p.cap, p.cps, p.cps, *consts, int(with_energy), int(halo), dev.index, stream,
-        )
+    shape_args = (static_cov or 0, rows, p.cap, p.cps, p.cps, *consts, int(with_energy), int(halo))
+    if loop:
+        status = _launcher()(*ptrs, *shape_args, dev.index, stream)
     else:
         w = strip_width(p, rows, static_cov, with_energy, dev) if strip is None else strip
-        status = _counted_launcher()(
-            *ptrs, static_cov, rows, p.cap, p.cps, p.cps, *consts, int(with_energy), int(halo), w, dev.index, stream,
-        )
+        status = _counted_launcher()(*ptrs, *shape_args, w, dev.index, stream)
     _build.check(status, "cell_force3 halo kernel" if halo else "cell_force3 kernel")
     return tuple(outs), True
 
@@ -327,9 +336,10 @@ def grid_force3(
     """``(fx, fy, fz)`` (or ``(fx, fy, fz, e, w)``) totals on the cell grid.
 
     B4 (``static_cov=None``) covers slots below ``max_occ``, a 0-d int32
-    tensor on the grids' device (None: the full capacity); B5 covers slots
-    below ``static_cov`` and ignores ``max_occ``. On the card B5 is the
-    counted kernel: the grids' cells must fill their slots from 0."""
+    tensor on the grids' device (None: the full capacity, at most
+    ``MAX_CAP``); B5 covers slots below ``static_cov`` and ignores
+    ``max_occ``. On the card both are the counted kernel: the grids' cells
+    must fill their slots from 0."""
     global LAUNCHES, ENERGY_LAUNCHES, COUNTED_LAUNCHES
     outs, launched = _forces3((xg, yg, zg), p, max_occ, with_energy, static_cov, halo=False)
     if launched:
@@ -363,6 +373,30 @@ def grid_force3_halo(
             HALO_ENERGY_LAUNCHES += 1
         else:
             HALO_LAUNCHES += 1
+    return outs
+
+
+def grid_force3_loop(
+    xg: torch.Tensor,
+    yg: torch.Tensor,
+    zg: torch.Tensor,
+    p: CellForce3Params,
+    max_occ: Optional[torch.Tensor] = None,
+    with_energy: bool = False,
+    halo: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """B4 (``halo``: B4 halo) as its full loop: every slot's thread over 27
+    cells x ``max_occ`` partner slots (None: the capacity). No path runs
+    it; it is the counted kernel's yardstick, bit-equal to it on grids
+    whose cells fill their slots from 0. A CPU tensor takes the plain
+    version."""
+    global LOOP_LAUNCHES, HALO_LOOP_LAUNCHES
+    outs, launched = _forces3((xg, yg, zg), p, max_occ, with_energy, None, halo=halo, loop=True)
+    if launched:
+        if halo:
+            HALO_LOOP_LAUNCHES += 1
+        else:
+            LOOP_LAUNCHES += 1
     return outs
 
 

@@ -13,12 +13,15 @@ Langevin window and its drivers:
 - Leapfrog windows, coordinates unwrapped between rebuilds, the skin/2
   violation flag (NaN-safe), Kahan compensation of positions and velocities.
 - The rebuild is sort-free over the 27 directions: an allocation in plain
-  PyTorch (``_migration_dest3``) gives each slot a source-frame code and the
-  scatter B6 (``migrate_cuda3``; B7 with ``migrate_compact=False``) moves the
-  fields, raising the loud ``mov_of`` flag when a cell has more than
-  ``migrate_k_mov`` movers, as the JAX package's compacted kernel does.
+  PyTorch (``_migration_dest3``) gives each slot a source-frame code, and
+  one launch of B6 (``migrate_cuda3``; B7 with ``migrate_compact=False``)
+  moves the fields from where they lie, fills the slots the allocation
+  left empty and raises the loud ``mov_of`` flag on the card when a cell
+  has more than ``migrate_k_mov`` movers, as the JAX package's compacted
+  kernel does.
 - ``max_occ``, the largest cell occupancy of the last (re)binning, is a 0-d
-  int32 tensor on the device. B4 reads it there through a pointer.
+  int32 tensor on the device. B4 (the counted kernel at the capacity's
+  shared memory) reads it there through a pointer as its bound.
 
 Host control flow: the JAX package's ``lax.cond``/``while_loop`` drivers
 are Python loops here. The gated driver reads ``dmax2`` once per window. In
@@ -338,7 +341,8 @@ class GridMD3:
     def _rebuild_migrate(self, s: GridMD3State) -> GridMD3State:
         """Sort-free re-binning: allocation in plain PyTorch, then one
         migrate launch (B6, or B7 with ``migrate_compact=False``) that moves
-        every field. A particle that moved further than one cell raises
+        every field from where it lies and raises the mover flag on the
+        card. A particle that moved further than one cell raises
         ``overflow`` and is kept in place; so do B6's ``mov_of`` and, in pure
         static mode, a new ``max_occ`` above ``static_cov``. Coordinates are
         wrapped back into [0, box) here, the only place they ever are, and
@@ -353,7 +357,7 @@ class GridMD3:
         new_mo = self._max_occ(occ_new)
         if self._pure_static:
             overflow = overflow | (new_mo > self.static_cov)
-        out, mov_of = self._migrate(scode, torch.stack(fields), fills)
+        out, mov_of = self._migrate(scode, fields, fills, occ_new)
         comp = {}
         if s.crx is not None:
             comp = dict(crx=out[10], cry=out[11], crz=out[12], cvx=out[13], cvy=out[14], cvz=out[15])
@@ -367,11 +371,12 @@ class GridMD3:
             overflow=self._all_max(overflow | mov_of), max_occ=new_mo, **comp,
         )
 
-    def _migrate(self, scode: torch.Tensor, fields: torch.Tensor, fills):
-        """The rebuild's permutation of the stacked fields and its mover
-        flag: B6, or B7 with ``migrate_compact=False``."""
+    def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor):
+        """The rebuild's permutation of the field planes and its mover
+        flag: B6, or B7 with ``migrate_compact=False``; ``occ`` is the
+        allocation's occupancy of the output."""
         k_mov = self.migrate_k_mov if self.migrate_compact else None
-        return migrate3(scode, fields, fills, k_mov=k_mov)
+        return migrate3(scode, fields, fills, k_mov=k_mov, occ=occ)
 
     # -- rebuild (sort-based oracle) -------------------------------------------
     def _rebuild(self, s: GridMD3State) -> GridMD3State:

@@ -1,28 +1,34 @@
-"""Kernels B6 and B7: the cell-grid rebuild permutation (3D), and B6's
-halo form.
+"""Kernels B6 and B7: the cell-grid rebuild permutation (3D) with B6's mover
+flag, and B6's halo form.
 
 Replace the TPU kernels ``ops/kernels/migrate_pallas3.py:
 _migrate_kernel3_compact`` (B6, the default) and ``:_migrate_kernel3`` (B7,
 ``compact=False``, B6's parity oracle) of the JAX package, both built by
 ``make_migrate_kernel3``, and, as B6 halo, B6's explicit-halo call ``.raw``
 (``migrate_pallas3.py:471``) that the row-sharded engine runs on each
-device's x-rows. On the card each is one scatter, the CUDA source
-``csrc/migrate3.cu``; its header says why the TPU's mover compaction buys
-nothing there and what bounds the scatter on an H100.
+device's x-rows. On the card each is one launch of one kernel
+(``csrc/migrate3.cu``) that fills, scatters and raises the mover flag; its
+header says why the TPU's mover compaction buys nothing there and what
+bounds the kernel on an H100.
 
 ``scode`` is the (ncx, cap, ncy * ncz) int32 source-frame code grid from
 ``GridMD3._migration_dest3``: ``dcode * cap + a`` for a slot moving in
 direction ``dcode = ((dx+1)*3 + (dy+1))*3 + (dz+1)`` to slot ``a`` of its
-target cell, -1 for an empty or invalid slot. ``fields`` is one stacked
-(F, ncx, cap, ncy * ncz) float32 tensor, so one launch moves every field.
+target cell, -1 for an empty or invalid slot. ``planes`` is a sequence of F
+(ncx, cap, ncy * ncz) float32 field planes, read where they lie (a stacked
+(F, ncx, cap, ncy * ncz) tensor is such a sequence); the output is one (F,
+ncx, cap, ncy * ncz) tensor. ``occ`` is the allocation's occupancy of the
+output (1.0 where a source lands, 0.0 elsewhere: ``_migration_dest3``'s
+``occ_new``): the kernel fills the slots it leaves empty.
 
 - :func:`migrate3_reference`: the plain PyTorch version;
-- :func:`mover_overflow`: B6's loud flag, computed from the codes as the
-  JAX package's ``compact_fields`` does;
+- :func:`mover_overflow`: B6's loud flag in plain PyTorch, computed from
+  the codes as the JAX package's ``compact_fields`` does; the CPU path's,
+  and the kernel's reference;
 - :func:`migrate3`: the wrapper. A CPU tensor takes the plain version, a
   CUDA tensor launches the kernel or raises;
 - :func:`migrate3_halo_reference` / :func:`migrate3_halo`: B6 halo on one
-  rank's ``rows`` x-rows; ``scode`` and ``fields`` carry one halo x-row on
+  rank's ``rows`` x-rows; ``scode`` and ``planes`` carry one halo x-row on
   each side, the output only the local rows, and a source whose target row
   lies outside them is dropped (its owner moves it from its own halo copy).
   ``mov_of`` is the local rows' flag; the engine reduces it over ranks.
@@ -38,12 +44,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import _build
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda import check_migrate_args
 
 LAUNCHES = 0
 FLAT_LAUNCHES = 0
@@ -52,28 +57,51 @@ MAX_FIELDS = 16  # kMaxFields in csrc/migrate3.cu
 STAY = 13  # dcode of (dx, dy, dz) == (0, 0, 0)
 
 
+def _targets3(scode: torch.Tensor, rows: int, halo: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(src, tgt)``: the flat source slots of ``scode`` (``(rows + 2, ...)``
+    with ``halo``) whose valid code names a slot of the ``rows`` output
+    rows, and the flat output slots they name."""
+    cap, plane = scode.shape[1], scode.shape[2]
+    c = math.isqrt(plane)
+    code = scode.reshape(-1)
+    src = torch.arange(code.numel(), device=code.device)
+    dcode = torch.div(code, cap, rounding_mode="floor")
+    tx = torch.div(src, cap * plane, rounding_mode="floor") + torch.div(dcode, 9, rounding_mode="floor") - 1
+    ok = (code >= 0) & (code < 27 * cap)
+    if halo:
+        tx = tx - 1  # extended row + dx - 1: the local target row
+        ok = ok & (tx >= 0) & (tx < rows)
+    else:
+        tx = tx % rows
+    src, code, dcode, tx = src[ok], code[ok], dcode[ok], tx[ok]
+    lane = src % plane
+    ty = (torch.div(lane, c, rounding_mode="floor") + torch.div(dcode, 3, rounding_mode="floor") % 3 - 1) % c
+    tz = (lane % c + dcode % 3 - 1) % c
+    return src, (tx * cap + code % cap) * plane + ty * c + tz
+
+
+def _permute(scode: torch.Tensor, fields: torch.Tensor, fills: Sequence[float], rows: int, halo: bool):
+    n_fields, _, cap, plane = fields.shape
+    fill = torch.tensor(list(fills), dtype=fields.dtype, device=fields.device)
+    out = fill.view(n_fields, 1).expand(n_fields, rows * cap * plane).clone()
+    src, tgt = _targets3(scode, rows, halo)
+    out[:, tgt] = fields.reshape(n_fields, -1)[:, src]
+    return out.view(n_fields, rows, cap, plane)
+
+
 def migrate3_reference(
     scode: torch.Tensor, fields: torch.Tensor, fills: Sequence[float]
 ) -> torch.Tensor:
     """Plain PyTorch version: ``out[f, target(s)] = fields[f, s]`` for every
     source slot ``s`` with a valid code, ``fills[f]`` everywhere else."""
-    n_fields, c, cap, plane = fields.shape
-    fill = torch.tensor(list(fills), dtype=fields.dtype, device=fields.device)
-    out = fill.view(n_fields, 1).expand(n_fields, c * cap * plane).clone()
-    code = scode.reshape(-1)
-    src = torch.arange(code.numel(), device=code.device)
-    ok = (code >= 0) & (code < 27 * cap)
-    src = src[ok]
-    code = code[ok]
-    dcode = torch.div(code, cap, rounding_mode="floor")
-    a = code % cap
-    lane = src % plane
-    tx = (torch.div(src, cap * plane, rounding_mode="floor") + torch.div(dcode, 9, rounding_mode="floor") - 1) % c
-    ty = (torch.div(lane, c, rounding_mode="floor") + torch.div(dcode, 3, rounding_mode="floor") % 3 - 1) % c
-    tz = (lane % c + dcode % 3 - 1) % c
-    tgt = (tx * cap + a) * plane + ty * c + tz
-    out[:, tgt] = fields.reshape(n_fields, -1)[:, src]
-    return out.view(n_fields, c, cap, plane)
+    return _permute(scode, fields, fills, fields.shape[1], halo=False)
+
+
+def migrate3_halo_reference(scode: torch.Tensor, fields: torch.Tensor, fills: Sequence[float]) -> torch.Tensor:
+    """Plain PyTorch version of B6 halo: ``out[f, target(s)] = fields[f, s]``
+    for every source slot ``s`` of the extended x-rows whose valid code
+    names a slot in the local rows, ``fills[f]`` everywhere else."""
+    return _permute(scode, fields, fills, fields.shape[1] - 2, halo=True)
 
 
 def mover_overflow(scode: torch.Tensor, k_mov: int) -> torch.Tensor:
@@ -89,123 +117,142 @@ def mover_overflow(scode: torch.Tensor, k_mov: int) -> torch.Tensor:
 def _launcher():
     fn = _build.library().jtps_migrate3
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+    ] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _halo_launcher():
-    fn = _build.library().jtps_migrate3_halo
-    fn.argtypes = _launcher().argtypes
-    fn.restype = ctypes.c_int
-    return fn
+# the flag's two words of device scratch (csrc/migrate3.cu), one pair for
+# each (device, stream): launches on one stream run in turn and leave the
+# pair zeroed; launches on two streams get two pairs
+_SYNC: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def migrate3(
-    scode: torch.Tensor,
-    fields: torch.Tensor,
-    fills: Sequence[float],
-    k_mov: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Permute the stacked (F, ncx, cap, ncy * ncz) ``fields`` by ``scode``.
-    Returns ``(out, mov_of)``: with ``k_mov`` (B6) ``mov_of`` is
-    :func:`mover_overflow`, without it (B7) always False."""
-    global LAUNCHES, FLAT_LAUNCHES
-    if fields.dim() != 4:
-        raise ValueError(f"fields: expected (F, ncx, cap, ncy*ncz), got {tuple(fields.shape)}")
-    n_fields, c, cap, plane = fields.shape
-    if plane != c * c or tuple(scode.shape) != (c, cap, plane):
-        raise ValueError(
-            f"scode {tuple(scode.shape)} and fields {tuple(fields.shape)} "
-            "do not describe one cubic (ncx, cap, ncy*ncz) grid"
-        )
-    check_migrate_args(scode, fields, fills, MAX_FIELDS)
-    mov_of = _mov_of(scode, k_mov)
-    if fields.device.type == "cpu":
-        return migrate3_reference(scode, fields, fills), mov_of
-    out = _launch(_launcher(), scode, fields, fills, c, c, "migrate3 kernel")
-    if k_mov is None:
-        FLAT_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    return out, mov_of
+def _sync_words(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _SYNC:
+        _SYNC[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _SYNC[key]
 
 
-def migrate3_halo_reference(scode: torch.Tensor, fields: torch.Tensor, fills: Sequence[float]) -> torch.Tensor:
-    """Plain PyTorch version of B6 halo: ``out[f, target(s)] = fields[f, s]``
-    for every source slot ``s`` of the extended x-rows whose valid code
-    names a slot in the local rows, ``fills[f]`` everywhere else."""
-    n_fields, ext_rows, cap, plane = fields.shape
-    rows = ext_rows - 2
-    c = math.isqrt(plane)
-    fill = torch.tensor(list(fills), dtype=fields.dtype, device=fields.device)
-    out = fill.view(n_fields, 1).expand(n_fields, rows * cap * plane).clone()
-    code = scode.reshape(-1)
-    src = torch.arange(code.numel(), device=code.device)
-    dcode = torch.div(code, cap, rounding_mode="floor")
-    # extended row + dx - 1: the local target row
-    tx = torch.div(src, cap * plane, rounding_mode="floor") + torch.div(dcode, 9, rounding_mode="floor") - 2
-    ok = (code >= 0) & (code < 27 * cap) & (tx >= 0) & (tx < rows)
-    src, code, dcode, tx = src[ok], code[ok], dcode[ok], tx[ok]
-    lane = src % plane
-    ty = (torch.div(lane, c, rounding_mode="floor") + torch.div(dcode, 3, rounding_mode="floor") % 3 - 1) % c
-    tz = (lane % c + dcode % 3 - 1) % c
-    tgt = (tx * cap + code % cap) * plane + ty * c + tz
-    out[:, tgt] = fields.reshape(n_fields, -1)[:, src]
-    return out.view(n_fields, rows, cap, plane)
+def _check(scode: torch.Tensor, planes: Sequence[torch.Tensor], fills: Sequence[float], occ: torch.Tensor,
+           rows: int, what: str) -> List[torch.Tensor]:
+    """Checks ``scode`` (int32, ``(rows + 2 * halo, cap, c*c)``), the F field
+    planes (float32, the code grid's shape), ``occ`` (float32, ``(rows, cap,
+    c*c)``), all contiguous on one cpu or cuda device, and one fill a field;
+    ``what`` names the source rows in messages. Returns the planes as a
+    list."""
+    if scode.dtype != torch.int32:
+        raise TypeError(f"expected int32 scode, got {scode.dtype}")
+    shape = tuple(scode.shape)
+    c = math.isqrt(shape[2]) if len(shape) == 3 else 0
+    planes = list(planes)
+    if not planes:
+        raise ValueError("planes: no field plane")
+    for f in planes:
+        if f.dtype != torch.float32:
+            raise TypeError(f"expected float32 field planes, got {f.dtype}")
+        if c * c != shape[-1] or tuple(f.shape) != shape:
+            raise ValueError(f"scode {shape} and field plane {tuple(f.shape)} do not describe one cubic ({what}, "
+                             "cap, ncy*ncz) grid")
+        if not (f.is_contiguous() and scode.is_contiguous()):
+            raise ValueError("field planes and scode must be contiguous")
+        if f.device != scode.device:
+            raise ValueError(f"scode on {scode.device}, field plane on {f.device}")
+    if len(fills) != len(planes):
+        raise ValueError(f"{len(fills)} fills for {len(planes)} fields")
+    if scode.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the migrate kernels run on cpu or cuda tensors, not {scode.device}")
+    if scode.device.type == "cuda" and len(planes) > MAX_FIELDS:
+        raise ValueError(f"the migrate kernel moves at most {MAX_FIELDS} fields, got {len(planes)}")
+    occ_shape = (rows,) + shape[1:]
+    if occ.dtype != torch.float32 or tuple(occ.shape) != occ_shape or not occ.is_contiguous():
+        raise ValueError(f"occ: expected a contiguous float32 {occ_shape} grid, got {occ.dtype} "
+                         f"{tuple(occ.shape)}")
+    if occ.device != scode.device:
+        raise ValueError(f"occ: on {occ.device}, expected {scode.device}")
+    return planes
 
 
-def migrate3_halo(
-    scode: torch.Tensor,
-    fields: torch.Tensor,
-    fills: Sequence[float],
-    k_mov: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B6 halo: permute the stacked (F, rows + 2, cap, ncy * ncz) ``fields``
-    by ``scode`` into the (F, rows, cap, ncy * ncz) local rows. Returns
-    ``(out, mov_of)``, ``mov_of`` of the local rows' codes."""
-    global HALO_LAUNCHES
-    if fields.dim() != 4:
-        raise ValueError(f"fields: expected (F, rows + 2, cap, ncy*ncz), got {tuple(fields.shape)}")
-    n_fields, ext_rows, cap, plane = fields.shape
-    c = math.isqrt(plane)
-    if ext_rows < 3 or c * c != plane or tuple(scode.shape) != (ext_rows, cap, plane):
-        raise ValueError(
-            f"scode {tuple(scode.shape)} and fields {tuple(fields.shape)}: expected "
-            "(rows + 2, cap, c*c) and (F, rows + 2, cap, c*c) with rows >= 1"
-        )
-    check_migrate_args(scode, fields, fills, MAX_FIELDS)
-    mov_of = _mov_of(scode[1:-1], k_mov)
-    if fields.device.type == "cpu":
-        return migrate3_halo_reference(scode, fields, fills), mov_of
-    out = _launch(_halo_launcher(), scode, fields, fills, ext_rows - 2, c, "migrate3 halo kernel")
-    HALO_LAUNCHES += 1
-    return out, mov_of
-
-
-def _mov_of(scode: torch.Tensor, k_mov: Optional[int]) -> torch.Tensor:
+def _check_k_mov(k_mov: Optional[int]) -> None:
     if k_mov is not None and k_mov < 1:
         raise ValueError(f"k_mov must be positive, got {k_mov}")
+
+
+def _cpu_flag(scode: torch.Tensor, k_mov: Optional[int]) -> torch.Tensor:
     if k_mov is None:
         return torch.zeros((), dtype=torch.bool, device=scode.device)
     return mover_overflow(scode, k_mov)
 
 
-def _launch(fn, scode, fields, fills, out_rows: int, c: int, what: str) -> torch.Tensor:
-    """One launch of ``jtps_migrate3`` or ``jtps_migrate3_halo`` into a new
-    (F, out_rows, cap, c * c) tensor."""
-    n_fields, _, cap, plane = fields.shape
-    out = torch.empty((n_fields, out_rows, cap, plane), dtype=fields.dtype, device=fields.device)
-    host_fills = (ctypes.c_float * n_fields)(*fills)
-    status = fn(
-        scode.data_ptr(), fields.data_ptr(), out.data_ptr(), host_fills,
-        n_fields, out_rows, cap, c, c, fields.device.index,
-        torch.cuda.current_stream(fields.device).cuda_stream,
+def _launch(scode: torch.Tensor, planes: List[torch.Tensor], occ: torch.Tensor, fills, k_mov, halo: bool,
+            what: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``jtps_migrate3`` into a new (F, rows, cap, c * c)
+    output and a 0-d bool flag."""
+    n_fields, device = len(planes), scode.device
+    rows, cap, plane = occ.shape
+    out = torch.empty((n_fields, rows, cap, plane), dtype=torch.float32, device=device)
+    flag = torch.empty((), dtype=torch.bool, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    c = math.isqrt(plane)
+    status = _launcher()(
+        scode.data_ptr(), (ctypes.c_void_p * n_fields)(*(f.data_ptr() for f in planes)), occ.data_ptr(),
+        out.data_ptr(), flag.data_ptr(), _sync_words(device, stream).data_ptr(),
+        (ctypes.c_float * n_fields)(*fills), n_fields, rows, cap, c, c, k_mov or 0, int(halo), device.index,
+        stream,
     )
     _build.check(status, what)
-    return out
+    return out, flag
+
+
+def migrate3(
+    scode: torch.Tensor,
+    planes: Sequence[torch.Tensor],
+    fills: Sequence[float],
+    k_mov: Optional[int] = None,
+    *,
+    occ: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Permute the F (ncx, cap, ncy * ncz) field ``planes`` by ``scode``
+    into one (F, ncx, cap, ncy * ncz) tensor; ``occ`` is the allocation's
+    occupancy of the output. Returns ``(out, mov_of)``: with ``k_mov`` (B6)
+    ``mov_of`` is :func:`mover_overflow`, without it (B7) always False; on
+    the card a 0-d bool the kernel wrote."""
+    global LAUNCHES, FLAT_LAUNCHES
+    planes = _check(scode, planes, fills, occ, scode.shape[0], "ncx")
+    _check_k_mov(k_mov)
+    if scode.device.type == "cpu":
+        return migrate3_reference(scode, torch.stack(planes), fills), _cpu_flag(scode, k_mov)
+    out, flag = _launch(scode, planes, occ, fills, k_mov, False, "migrate3 kernel")
+    if k_mov is None:
+        FLAT_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return out, flag
+
+
+def migrate3_halo(
+    scode: torch.Tensor,
+    planes: Sequence[torch.Tensor],
+    fills: Sequence[float],
+    k_mov: Optional[int] = None,
+    *,
+    occ: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6 halo: permute the (rows + 2, cap, ncy * ncz) field ``planes``
+    (one halo x-row on each side, as ``scode``) into the (F, rows, cap,
+    ncy * ncz) local rows; ``occ`` is the local rows' allocated occupancy.
+    Returns ``(out, mov_of)``, ``mov_of`` of the local rows' codes."""
+    global HALO_LAUNCHES
+    rows = scode.shape[0] - 2
+    if scode.dim() != 3 or rows < 1:
+        raise ValueError(f"scode {tuple(scode.shape)}: expected (rows + 2, cap, c*c) with rows >= 1")
+    planes = _check(scode, planes, fills, occ, rows, "rows + 2")
+    _check_k_mov(k_mov)
+    if scode.device.type == "cpu":
+        return migrate3_halo_reference(scode, torch.stack(planes), fills), _cpu_flag(scode[1:-1], k_mov)
+    out, flag = _launch(scode, planes, occ, fills, k_mov, True, "migrate3 halo kernel")
+    HALO_LAUNCHES += 1
+    return out, flag

@@ -13,10 +13,10 @@ docstring first) on the x-rows of the ``(ncx, cap, ncy * ncz)`` layout.
   one-row exchanges of the per-cell counts and bases), then B6 halo
   (``migrate_cuda3.migrate3_halo``) from the local rows with the
   neighbours' whole edge rows attached. B6's ``mov_of`` flag is computed on
-  each rank's own source cells and reduced with MAX, so it rises exactly
-  where the unsharded engine's does. JAX compacts each edge row to its
-  ``k_mov`` mover planes before the exchange; the port sends the rows
-  whole (``csrc/migrate3.cu`` says why).
+  the card from each rank's own source cells and reduced with MAX, so it
+  rises exactly where the unsharded engine's does. JAX compacts each edge
+  row to its ``k_mov`` mover planes before the exchange; the port sends
+  the rows whole (``csrc/migrate3.cu`` says why).
 """
 
 from __future__ import annotations
@@ -76,8 +76,9 @@ class ShardedGridMD3(RowSharded, GridMD3):
 
         return kernel
 
-    def _migrate(self, scode: torch.Tensor, fields: torch.Tensor, fills):
-        return migrate3_halo(*self._halo_planes(scode, fields), fills, k_mov=self.migrate_k_mov)
+    def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor):
+        code, ext = self._halo_planes(scode, torch.stack(fields))
+        return migrate3_halo(code, ext, fills, k_mov=self.migrate_k_mov, occ=occ)
 
     def force_once(self, s: GridMD3State):
         """One sharded force evaluation: this rank's ``(fx, fy, fz)``."""

@@ -7,7 +7,9 @@ inflate the wall time), it gives the card's busy share; one minus it is the
 idle share. :func:`window_sync_cost` times the host sync that the gated
 drivers make once per window, :func:`rebuild_read_cost` the host read of
 ``max_occ`` that the 3D engine's hybrid kernel choice makes once per
-rebuild period.
+rebuild period. :func:`cuda_ms` times a call on the card with CUDA events,
+:func:`interleaved_ms` several calls in turns, :func:`spread` prints one
+of its results.
 """
 
 from __future__ import annotations
@@ -41,6 +43,49 @@ def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, st
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
     prof.export_chrome_trace(trace_path)
     return sum(by_name.values()), table, by_name
+
+
+def cuda_ms(fn: Callable[[], object], reps: int, lead: bool = False) -> float:
+    """Mean device time of ``fn()`` over ``reps`` back-to-back calls, from
+    CUDA events, after a warm call. A second untimed call is still running
+    when the start event is recorded, so the card does not sit idle while
+    the host prepares the first timed call (a wrapper's host time, up to
+    tens of us, would otherwise count once in every ``reps`` calls). With
+    ``lead``, the card first spins for about 5 ms, long enough for the host
+    to queue every timed call: a kernel shorter than its wrapper's host time
+    then runs back to back and is timed alone, not the host."""
+    fn()
+    torch.cuda.synchronize()
+    if lead:
+        torch.cuda._sleep(10_000_000)  # clock cycles: ~5 ms at the H100's ~1.98 GHz
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def interleaved_ms(
+    fns: Dict[str, Callable[[], object]], repeats: int = 7, reps: int = 20, lead: bool = False
+) -> Dict[str, Tuple[float, float, float]]:
+    """``{name: (median, min, max)}`` of each function's mean device ms over
+    ``reps`` calls (:func:`cuda_ms`, ``lead`` passed on), in ``repeats``
+    rounds that take the functions in turn, so that a drift of the card's
+    clock falls on all."""
+    runs: Dict[str, list] = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            runs[name].append(cuda_ms(fn, reps, lead))
+    return {name: (statistics.median(v), min(v), max(v)) for name, v in runs.items()}
+
+
+def spread(t: Tuple[float, float, float]) -> str:
+    """A ``(median, min, max)`` triple of :func:`interleaved_ms` as text."""
+    return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
 
 
 def _paired_medians(timed: Callable[[bool], float], repeats: int) -> Tuple[float, float]:

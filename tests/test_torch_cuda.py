@@ -54,10 +54,12 @@ def _advanced_state(device, rows_per_block=1):
 CFG3 = override(CFG, n=8192, dim=3)  # cps 8, cap 32, B5 bound 24
 
 
-def _advanced_state3(device):
-    """A 3D grid state 5 steps after a rebuild: coordinates unwrapped."""
-    md = lj_fluid._make_grid_md(CFG3, device)
-    s0 = lj_fluid.init_state(CFG3, device)
+def _advanced_state3(device, n: int = CFG3.n):
+    """A 3D grid state at ``n`` particles 5 steps after a rebuild:
+    coordinates unwrapped."""
+    cfg = override(CFG3, n=n)
+    md = lj_fluid._make_grid_md(cfg, device)
+    s0 = lj_fluid.init_state(cfg, device)
     gs = md.make_production_run_fixed(100, 10)(md.init(s0.position, s0.velocity))
     return md, md._window_for(gs, 5)(gs)
 
@@ -234,6 +236,50 @@ def test_counted_kernel3_bit_equal_to_static_loop(cuda_device, with_energy):
     assert (cell_cuda3.COUNTED_LAUNCHES, cell_cuda3.STATIC_LAUNCHES) == (before[0] + 2, before[1] + 1)
 
 
+def _melt_state3(device):
+    """A 3D grid state 30 steps into the melt from the lattice at N=8192:
+    its fullest cell exceeds B5's bound, where the hybrid windows run B4."""
+    md = lj_fluid._make_grid_md(CFG3, device)
+    s0 = lj_fluid.init_state(CFG3, device)
+    return md, md.make_production_run_fixed(30, 10)(md.init(s0.position, s0.velocity))
+
+
+@pytest.mark.parametrize("with_energy", [False, True])
+def test_b4_counted_bit_equal_to_loop(cuda_device, with_energy):
+    """B4 as launched (the counted kernel, bound ``max_occ`` read on the
+    card) torch.equal to B4's loop and to itself at the full capacity and
+    over two launches, on ``_advanced_state3``'s state (where its max
+    occupancy is within B5's bound, B5's bits too) and on a melt above that
+    bound; its halo form over 1, 2 and 4 x-row blocks
+    torch.equal to the whole grid and to the loop's halo form."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import halo_blocks
+
+    for state in (_advanced_state3, _melt_state3):
+        md, gs = state(cuda_device)
+        p = cell_cuda3.CellForce3Params.from_grid(md.grid_fn)
+        args, mo, cov = (gs.xg, gs.yg, gs.zg, p), gs.max_occ, md.static_cov
+        before = (cell_cuda3.LAUNCHES + cell_cuda3.ENERGY_LAUNCHES, cell_cuda3.LOOP_LAUNCHES)
+        loop = cell_cuda3.grid_force3_loop(*args, max_occ=mo, with_energy=with_energy)
+        got = cell_cuda3.grid_force3(*args, max_occ=mo, with_energy=with_energy)
+        for again in (cell_cuda3.grid_force3(*args, max_occ=mo, with_energy=with_energy),
+                      cell_cuda3.grid_force3(*args, with_energy=with_energy), loop):
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), state.__name__
+        if int(mo) <= cov:
+            b5 = cell_cuda3.grid_force3(*args, with_energy=with_energy, static_cov=cov)
+            assert all(torch.equal(a, b) for a, b in zip(got, b5))
+        assert (cell_cuda3.LAUNCHES + cell_cuda3.ENERGY_LAUNCHES, cell_cuda3.LOOP_LAUNCHES) == (
+            before[0] + 3, before[1] + 1)
+        for n in (1, 2, 4):
+            blocks = list(zip(halo_blocks(gs.xg, n, md.box), halo_blocks(gs.yg, n), halo_blocks(gs.zg, n)))
+            parts = [cell_cuda3.grid_force3_halo(*b, p, max_occ=mo, with_energy=with_energy) for b in blocks]
+            loops = [cell_cuda3.grid_force3_loop(*b, p, max_occ=mo, with_energy=with_energy, halo=True)
+                     for b in blocks]
+            for q in (parts, loops):
+                assert all(torch.equal(torch.cat(c), f) for c, f in zip(zip(*q), got)), (state.__name__, n)
+    assert int(mo) > cov  # the melt state is above B5's bound
+
+
 @pytest.mark.parametrize("p", [1, 2, 4])
 def test_counted_halo_kernel3_bit_equal_to_static_loops(cuda_device, p):
     """B5 halo as launched (the counted kernel) over p x-row blocks, both
@@ -257,20 +303,57 @@ def test_counted_halo_kernel3_bit_equal_to_static_loops(cuda_device, p):
 
 
 def test_migrate3_kernels_bit_equal(cuda_device):
-    """B6 and B7 (one scatter) bit-equal to the plain version, with the
-    same mover flag as on the CPU."""
+    """B6 and B7 (one launch each: fill, scatter and flag) bit-equal to the
+    plain version, on the stacked fields and on the planes where they lie,
+    with the flag of the CPU's ``mover_overflow`` at k_mov 8 and at 1
+    (which trips it)."""
     md, gs = _advanced_state3(cuda_device)
-    _, _, _, scode, _, _ = md._migration_dest3(gs)
-    fields = torch.stack([gs.xg, gs.yg, gs.zg, gs.vxg, gs.pid.float()])
+    _, _, _, scode, occ_new, _ = md._migration_dest3(gs)
+    planes = [gs.xg, gs.yg, gs.zg, gs.vxg, gs.pid.float()]
+    fields = torch.stack(planes)
     fills = [md.sentinel, 0.0, 0.0, 0.0, -1.0]
     before = (migrate_cuda3.LAUNCHES, migrate_cuda3.FLAT_LAUNCHES)
     want = migrate_cuda3.migrate3_reference(scode, fields, fills)
-    for k_mov in (8, None):
-        got, mov_of = migrate_cuda3.migrate3(scode, fields, fills, k_mov=k_mov)
-        assert torch.equal(got, want)
-        _, mov_of_cpu = migrate_cuda3.migrate3(scode.cpu(), fields.cpu(), fills, k_mov=k_mov)
-        assert bool(mov_of) == bool(mov_of_cpu)
-    assert (migrate_cuda3.LAUNCHES, migrate_cuda3.FLAT_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for k_mov in (8, 1, None):
+        for f in (fields, planes):
+            got, mov_of = migrate_cuda3.migrate3(scode, f, fills, k_mov=k_mov, occ=occ_new)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert mov_of.dtype == torch.bool and mov_of.device.type == "cuda"
+            want_flag = k_mov is not None and bool(migrate_cuda3.mover_overflow(scode.cpu(), k_mov))
+            assert bool(mov_of) is want_flag, k_mov
+    assert bool(migrate_cuda3.mover_overflow(scode, 1))
+    assert (migrate_cuda3.LAUNCHES, migrate_cuda3.FLAT_LAUNCHES) == (before[0] + 4, before[1] + 2)
+
+
+def test_migrate3_flags_back_to_back(cuda_device):
+    """B6, B7 and B6 halo launched in turn, queued with no sync between
+    them, on two grids of different sizes (N=2048 and N=8192) with
+    the flag tripping and not, then again on a second stream: every flag is
+    ``mover_overflow``'s (B7's False), so each launch leaves the flag's
+    device scratch as it found it."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import halo_blocks
+
+    cases = []
+    for md, gs in (_advanced_state3(cuda_device, n=2048), _advanced_state3(cuda_device)):
+        _, _, _, scode, occ, _ = md._migration_dest3(gs)
+        planes = [gs.xg, gs.pid.float()]
+        fills = [md.sentinel, -1.0]
+        (ch,), (fh,) = halo_blocks(scode, 1), halo_blocks(torch.stack(planes), 1, dim=1)
+        for k_mov in (1, md.migrate_k_mov):
+            want = bool(migrate_cuda3.mover_overflow(scode.cpu(), k_mov))
+            cases.append((lambda s=scode, f=planes, v=fills, k=k_mov, o=occ: migrate_cuda3.migrate3(s, f, v, k, occ=o),
+                          want))
+            cases.append((lambda s=scode, f=planes, v=fills, o=occ: migrate_cuda3.migrate3(s, f, v, occ=o), False))
+            cases.append((lambda s=ch, f=fh, v=fills, k=k_mov, o=occ: migrate_cuda3.migrate3_halo(s, f, v, k, occ=o),
+                          want))
+    assert {w for _, w in cases} == {True, False}
+    side = torch.cuda.Stream(device=cuda_device)
+    for stream in (torch.cuda.current_stream(cuda_device), side):
+        with torch.cuda.stream(stream):
+            flags = [run()[1] for run, _ in cases + cases[::-1]]
+        stream.synchronize()
+        assert [bool(f) for f in flags] == [w for _, w in cases + cases[::-1]]
 
 
 def test_wrappers_reject_bad_cuda_inputs(cuda_device):
@@ -493,13 +576,14 @@ def test_halo_kernels_3d_bit_equal_to_whole_grid(cuda_device, p):
         full = cell_cuda3.grid_force3(gs.xg, gs.yg, gs.zg, params, **kw)
         parts = [cell_cuda3.grid_force3_halo(*b, params, **kw) for b in blocks]
         assert all(torch.equal(torch.cat(q), f) for q, f in zip(zip(*parts), full))
-    _, _, _, scode, _, _ = md._migration_dest3(gs)
+    _, _, _, scode, occ_new, _ = md._migration_dest3(gs)
     fields = torch.stack([gs.xg, gs.yg, gs.zg, gs.pid.float()])
     fills = [md.sentinel, 0.0, 0.0, -1.0]
     fblocks = halo_blocks(fields, p, dim=1)
     for k_mov in (1, md.migrate_k_mov):
-        full, flag = migrate_cuda3.migrate3(scode, fields, fills, k_mov=k_mov)
-        outs = [migrate_cuda3.migrate3_halo(c, f, fills, k_mov=k_mov) for c, f in zip(halo_blocks(scode, p), fblocks)]
+        full, flag = migrate_cuda3.migrate3(scode, fields, fills, k_mov=k_mov, occ=occ_new)
+        outs = [migrate_cuda3.migrate3_halo(c, f, fills, k_mov=k_mov, occ=o)
+                for c, f, o in zip(halo_blocks(scode, p), fblocks, occ_new.chunk(p))]
         assert torch.equal(torch.cat([o[0] for o in outs], 1), full)
         assert any(bool(o[1]) for o in outs) is bool(flag)
 

@@ -5,7 +5,11 @@ cell's count is its number of non-sentinel slots. Also on the halo rows a
 rank of ``ShardedGridMD3`` attaches (where the x seam moves the sentinel
 by -+ box), and, on the CPU, why the counted loop is bit-equal to B5's
 full loop: the count-bounded loop written out op for op in float32 gives
-the plain versions' bits. And the wrapper's dispatch and checks.
+the full loops' bits, B5's at ``cov`` and B4's at ``max_occ`` and at the
+capacity, also where the fullest cell exceeds ``cov`` (the state in which
+the hybrid windows run B4, the counted kernel at the capacity's shared
+memory), whole-grid and over halo row blocks. And the wrapper's dispatch
+and checks.
 
 The counts have no counterpart in the JAX package (its kernels loop over
 every slot); the 3D engine against JAX's is in ``test_torch_grid_md3.py``
@@ -28,19 +32,63 @@ N, RHO, DT = 8192, 0.8, 1e-3  # box 21.71: cps 7, cap 48, cov ("auto") 40
 SHIFT = 0.45  # lattice spacing 1.034: about a hundred particles start outside [0, box)
 
 
-def _engine(shift=0.0, static_cov="auto", sharded=False):
+SQUEEZED = 17  # particles moved into one cell: its 27 become 44, above cov 40, within cap 48
+
+
+def _squeeze(pos: np.ndarray, box: float, cps: int) -> np.ndarray:
+    """``pos`` with the last ``SQUEEZED`` particles (in far cells) moved into
+    cell (3, 3, 3): onto the first points of a 12^3 grid in that cell at
+    least 0.75 from every particle near it and from each other, so its
+    occupancy (27) exceeds the hybrid bound and no pair is closer than
+    0.75 sigma."""
+    cell = box / cps
+    lo = np.full(3, 3 * cell)
+    g = np.linspace(0.1, cell - 0.1, 12)
+    cand = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3) + lo
+    near = pos[np.all(np.abs(np.mod(pos, box) - (lo + cell / 2)) < cell, axis=1)]
+    chosen = []
+    for c in cand:
+        if len(chosen) == SQUEEZED:
+            break
+        pts = np.concatenate([near] + chosen)
+        if np.min(np.linalg.norm(pts - c, axis=1)) >= 0.75:
+            chosen.append(c[None])
+    out = pos.copy()
+    out[-SQUEEZED:] = np.concatenate(chosen).astype(np.float32)
+    return out
+
+
+def _engine(shift=0.0, static_cov="auto", sharded=False, squeeze=False):
     """The engine and its initial state: a jittered cubic lattice, moved by
     ``shift`` on every axis (about half a spacing puts a plane of particles
-    across each seam, unwrapped, as between rebuilds)."""
+    across each seam, unwrapped, as between rebuilds); with ``squeeze``,
+    :func:`_squeeze`d so that the fullest cell exceeds ``cov``."""
     box = float((N / RHO) ** (1.0 / 3.0))
     gf = make_cell_grid_fn(box, 2.5, N, dim=3)
     if sharded:
         md = ShardedGridMD3(gf, make_mesh(device="cpu"), dt=DT, compensated=True, static_cov=static_cov)
     else:
         md = GridMD3(gf, dt=DT, compensated=True, static_cov=static_cov, device="cpu")
-    pos = torch.from_numpy(lattice_positions(N, box, seed=41, dim=3) - np.float32(shift))
+    pos = lattice_positions(N, box, seed=41, dim=3) - np.float32(shift)
+    if squeeze:
+        pos = _squeeze(pos, box, gf.cells_per_side)
     vel = torch.from_numpy(velocities(N, kt=1.0, seed=42, dim=3))
-    return md, md.init(pos, vel)
+    return md, md.init(torch.from_numpy(pos), vel)
+
+
+def _start(start: str, sharded: bool = False):
+    """``within_cov``: 16 steps from the shifted lattice, every cell within
+    ``cov`` (B5's windows); ``above_cov``: the squeezed shifted lattice, its
+    fullest cell above ``cov`` and within the capacity (B4's windows)."""
+    if start == "within_cov":
+        md, s = _engine(SHIFT, sharded=sharded)
+        s = md._window_for(s, 16)(s)
+        assert int(s.max_occ) < md.static_cov
+    else:
+        md, s = _engine(SHIFT, sharded=sharded, squeeze=True)
+        assert md.static_cov < int(s.max_occ) <= md.cap
+    assert not bool(s.overflow)
+    return md, s
 
 
 def _counts(xg, p: cell_cuda3.CellForce3Params, bound=None):
@@ -194,25 +242,28 @@ def _close(got, plain):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
+@pytest.mark.parametrize("start", ["within_cov", "above_cov"])
 @pytest.mark.parametrize("with_energy", [False, True])
-def test_count_bounded_sums_bit_equal_to_full_loops(with_energy):
-    """On a state 16 steps from a lattice across the seams (coordinates
-    outside [0, box), unwrapped), the counted kernel's loop gives B5's full
-    loop at ``cov`` and B4's at ``max_occ`` bit for bit: a skipped pair adds
-    an exact +-0 to a partial sum that is never -0, and b stays ascending.
-    All three agree with B5's and B4's plain versions to summation order."""
-    md, s = _engine(SHIFT)
-    s = md._window_for(s, 16)(s)
+def test_count_bounded_sums_bit_equal_to_full_loops(with_energy, start):
+    """On states with coordinates outside [0, box) (unwrapped), the counted
+    kernel's loop gives the full loops bit for bit: a skipped pair adds an
+    exact +-0 to a partial sum that is never -0, and b stays ascending.
+    Within ``cov``: counted at ``cov`` (B5) against B5's full loop and B4's
+    at ``max_occ``. Above it (B4's windows): counted at ``max_occ`` and at
+    the capacity (B4 with and without its run-time bound) against B4's
+    loop at both. All agree with the plain versions to summation order."""
+    md, s = _start(start)
     occ = s.occ > 0.5
-    assert int(((s.xg < 0) | (s.yg < 0) | (s.zg < 0))[occ].sum()) > 50 and not bool(s.overflow)
-    mo, cov = int(s.max_occ), md.static_cov
-    assert mo < cov  # B4's bound and B5's differ
+    assert int(((s.xg < 0) | (s.yg < 0) | (s.zg < 0))[occ].sum()) > 50
+    mo, cov, cap = int(s.max_occ), md.static_cov, md.cap
     p = cell_cuda3.CellForce3Params.from_grid(md.grid_fn)
-    counted = _whole_grid_sums(s, p, cov, with_energy, True)
-    for full in (_whole_grid_sums(s, p, cov, with_energy, False), _whole_grid_sums(s, p, mo, with_energy, False)):
-        assert all(torch.equal(a, b) for a, b in zip(counted, full))
-    for bound in (cov, mo):
-        _close(counted, cell_cuda3.grid_force3_reference(s.xg, s.yg, s.zg, p, bound, with_energy))
+    counted_bounds, full_bounds = ((cov,), (cov, mo)) if start == "within_cov" else ((mo, cap), (mo, cap))
+    counted = [_whole_grid_sums(s, p, b, with_energy, True) for b in counted_bounds]
+    full = [_whole_grid_sums(s, p, b, with_energy, False) for b in full_bounds]
+    for got in counted[1:] + full:
+        assert all(torch.equal(a, b) for a, b in zip(counted[0], got))
+    for bound in full_bounds:
+        _close(counted[0], cell_cuda3.grid_force3_reference(s.xg, s.yg, s.zg, p, bound, with_energy))
 
 
 def test_counted_sums_at_a_bound_below_the_occupancy():
@@ -227,43 +278,87 @@ def test_counted_sums_at_a_bound_below_the_occupancy():
     _close(counted, cell_cuda3.grid_force3_reference(s.xg, s.yg, s.zg, p, 8))
 
 
-def test_counted_halo_sums_bit_equal_to_full_halo_loop():
-    """The counted loop on one rank's extended grid (the halo x-rows with
-    their seam, counts from the shifted sentinels) gives B5 halo's full
-    loop and the whole-grid counted sums bit for bit, and B5 halo's plain
-    version to summation order."""
-    md, s = _engine(SHIFT, sharded=True)
-    s = md._window_for(s, 16)(s)
+def _row_blocks(g4: torch.Tensor, sizes, seam: float):
+    """The x-row blocks of ``sizes`` rows of a whole ``(c, cap, c, c)`` grid,
+    each with its periodic neighbour rows attached, ``-seam`` on the first
+    block's previous row and ``+seam`` on the last block's next row (x:
+    ``box``), as a rank's exchange attaches them; the blocks may differ in
+    length."""
+    c = g4.shape[0]
+    out, r0 = [], 0
+    for k, n in enumerate(sizes):
+        prev, nxt = g4[(r0 - 1) % c][None], g4[(r0 + n) % c][None]
+        if k == 0:
+            prev = prev - seam
+        if k == len(sizes) - 1:
+            nxt = nxt + seam
+        out.append(torch.cat([prev, g4[r0 : r0 + n], nxt]))
+        r0 += n
+    return out
+
+
+@pytest.mark.parametrize("start", ["within_cov", "above_cov"])
+def test_counted_halo_sums_bit_equal_to_full_halo_loop(start):
+    """The counted loop on one rank's extended grid (the halo x-rows
+    ``ShardedGridMD3`` attaches, with their seam, counts from the shifted
+    sentinels) gives the halo form's full loop and the whole-grid counted
+    sums bit for bit, and the plain halo version to summation order; at
+    ``cov`` within it, and (B4's windows) at ``max_occ`` above it, where
+    the same holds over 1, 2 and 3 x-row blocks of 7, 4 + 3 and 3 + 2 + 2
+    rows and at the capacity."""
+    md, s = _start(start, sharded=True)
     p = cell_cuda3.CellForce3Params.from_grid(md.grid_fn)
-    c, cap, cov = p.cps, p.cap, md.static_cov
+    c, cap = p.cps, p.cap
+    bound = md.static_cov if start == "within_cov" else int(s.max_occ)
+
+    def block_sums(h4, bound):
+        nh = _counts(h4[0].reshape(-1, cap, c * c), p)
+        rows = h4[0].shape[0] - 2
+
+        def partners(dx):
+            return tuple(g[1 + dx : 1 + dx + rows] for g in h4) + (nh[1 + dx : 1 + dx + rows],)
+
+        local = [g[1:-1] for g in h4]
+        counted = _loop_sums(*local, partners, p, bound, True, nh[1:-1])
+        assert all(torch.equal(a, b) for a, b in zip(counted, _loop_sums(*local, partners, p, bound, True)))
+        _close(counted, cell_cuda3.grid_force3_halo_reference(*(g.reshape(rows + 2, cap, c * c) for g in h4),
+                                                               p, bound, True))
+        return counted
+
+    whole = _whole_grid_sums(s, p, bound, True, True)
     h4 = [g.view(c + 2, cap, c, c) for g in md._with_halo(s.xg, s.yg, s.zg)]
-    nh = _counts(h4[0].reshape(c + 2, cap, c * c), p)
-
-    def partners(dx):
-        return tuple(g[1 + dx : 1 + dx + c] for g in h4) + (nh[1 + dx : 1 + dx + c],)
-
-    local = [g[1:-1] for g in h4]
-    counted = _loop_sums(*local, partners, p, cov, True, nh[1:-1])
-    full = _loop_sums(*local, partners, p, cov, True)
-    assert all(torch.equal(a, b) for a, b in zip(counted, full))
-    assert all(torch.equal(a, b) for a, b in zip(counted, _whole_grid_sums(s, p, cov, True, True)))
-    _close(counted, cell_cuda3.grid_force3_halo_reference(*(g.view(c + 2, cap, c * c) for g in h4), p, cov, True))
+    assert all(torch.equal(a, b) for a, b in zip(block_sums(h4, bound), whole))
+    if start == "above_cov":
+        g4 = [g.view(c, cap, c, c) for g in (s.xg, s.yg, s.zg)]
+        for sizes in ((7,), (4, 3), (3, 2, 2)):
+            blocks = zip(*(_row_blocks(g, sizes, seam) for g, seam in zip(g4, (p.box, 0.0, 0.0))))
+            got = [torch.cat(q) for q in zip(*(block_sums(list(b), bound) for b in blocks))]
+            assert all(torch.equal(a, b) for a, b in zip(got, whole)), sizes
+        assert all(torch.equal(a, b) for a, b in zip(block_sums(h4, cap), whole))
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_and_checks_inputs():
-    """On a CPU tensor ``grid_force3`` / ``grid_force3_halo`` with
-    ``static_cov`` and ``grid_force3_static_loop`` take the plain version
-    and count no launch; bad shapes, dtypes, bounds and strips raise."""
+    """On a CPU tensor ``grid_force3`` / ``grid_force3_halo`` (B5 with
+    ``static_cov``, B4 without, at any strip) and the full loops take the
+    plain version and count no launch; bad shapes, dtypes, bounds, strips
+    and a capacity beyond B4's shared memory raise."""
     md, s = _engine()
     p = cell_cuda3.CellForce3Params.from_grid(md.grid_fn)
     cov = md.static_cov
-    names = ("COUNTED_LAUNCHES", "HALO_COUNTED_LAUNCHES", "STATIC_LAUNCHES", "HALO_STATIC_LAUNCHES")
+    names = ("LAUNCHES", "ENERGY_LAUNCHES", "COUNTED_LAUNCHES", "HALO_COUNTED_LAUNCHES", "STATIC_LAUNCHES",
+             "HALO_STATIC_LAUNCHES", "LOOP_LAUNCHES", "HALO_LOOP_LAUNCHES")
     before = [getattr(cell_cuda3, n) for n in names]
     want = cell_cuda3.grid_force3_reference(s.xg, s.yg, s.zg, p, cov, True)
     for got in (cell_cuda3.grid_force3(s.xg, s.yg, s.zg, p, with_energy=True, static_cov=cov),
                 cell_cuda3._forces3((s.xg, s.yg, s.zg), p, None, True, cov, halo=False, strip=2)[0],
                 cell_cuda3.grid_force3_static_loop(s.xg, s.yg, s.zg, p, cov, True)):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+    mo = s.max_occ
+    want4 = cell_cuda3.grid_force3_reference(s.xg, s.yg, s.zg, p, int(mo))
+    for got in (cell_cuda3.grid_force3(s.xg, s.yg, s.zg, p, max_occ=mo),
+                cell_cuda3._forces3((s.xg, s.yg, s.zg), p, mo, False, None, halo=False, strip=2)[0],
+                cell_cuda3.grid_force3_loop(s.xg, s.yg, s.zg, p, max_occ=mo)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want4))
     (xh,), (yh,), (zh,) = halo_blocks(s.xg, 1, md.box), halo_blocks(s.yg, 1), halo_blocks(s.zg, 1)
     want_h = cell_cuda3.grid_force3_halo_reference(xh, yh, zh, p, cov)
     for got in (cell_cuda3.grid_force3_halo(xh, yh, zh, p, static_cov=cov),
@@ -281,4 +376,10 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_checks_inputs():
         with pytest.raises(ValueError, match="strip"):
             cell_cuda3._forces3(grids, p, None, False, cov, halo=False, strip=strip)
     with pytest.raises(ValueError, match="strip"):
-        cell_cuda3._forces3(grids, p, s.max_occ, False, None, halo=False, strip=2)  # B4 has no strips
+        cell_cuda3._forces3(grids, p, s.max_occ, False, None, halo=False, loop=True, strip=2)  # a loop has none
+    # B4 beyond the capacity its shared memory holds (on the card as here)
+    wide = make_cell_grid_fn(md.box, 2.5, N, dim=3, capacity=cell_cuda3.MAX_CAP + 8)
+    pw = cell_cuda3.CellForce3Params.from_grid(wide)
+    big = torch.zeros(pw.grid_shape)
+    with pytest.raises(ValueError, match=f"MAX_CAP = {cell_cuda3.MAX_CAP}"):
+        cell_cuda3.grid_force3(big, big, big, pw)

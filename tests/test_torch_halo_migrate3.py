@@ -48,16 +48,16 @@ def state():
     gs = gs.replace(xg=gs.xg + 0.3 * cell, yg=gs.yg - 0.2 * cell, zg=gs.zg + 0.1 * cell)
     md = ts.engine(3, sharded=False)
     s = grid3_state_from_jax(jax_grid_arrays(gs, GRID3_STATE_FIELDS), md)
-    xw, yw, zw, scode, _, overflow = md._migration_dest3(s)
+    xw, yw, zw, scode, occ, overflow = md._migration_dest3(s)
     assert not bool(overflow)
     fields = torch.stack([xw, yw, zw, s.vxg, s.vyg, s.vzg, s.fxg, s.fyg, s.fzg, s.pid.to(torch.float32)])
     fills = [md.sentinel] + [0.0] * 8 + [-1.0]
-    return jgf, gs, md, scode, fields, fills
+    return jgf, gs, md, scode, occ, fields, fills
 
 
-def _halo_migrate(scode, fields, fills, p, k_mov=K_MOV):
-    parts = [migrate_cuda3.migrate3_halo(c, f, fills, k_mov=k_mov)
-             for c, f in zip(halo_blocks(scode, p), halo_blocks(fields, p, dim=1))]
+def _halo_migrate(scode, occ, fields, fills, p, k_mov=K_MOV):
+    parts = [migrate_cuda3.migrate3_halo(c, f, fills, k_mov=k_mov, occ=o)
+             for c, f, o in zip(halo_blocks(scode, p), halo_blocks(fields, p, dim=1), occ.chunk(p))]
     return torch.cat([q[0] for q in parts], dim=1), [bool(q[1]) for q in parts]
 
 
@@ -65,24 +65,24 @@ def _halo_migrate(scode, fields, fills, p, k_mov=K_MOV):
 def test_b6_halo_over_blocks_equals_b6(state, p):
     """The same permutation, and the mover flag raised over the blocks
     exactly where the whole-grid flag is, at each k_mov."""
-    *_, md, scode, fields, fills = state
-    full, _ = migrate_cuda3.migrate3(scode, fields, fills, k_mov=K_MOV)
-    out, _ = _halo_migrate(scode, fields, fills, p)
+    *_, md, scode, occ, fields, fills = state
+    full, _ = migrate_cuda3.migrate3(scode, fields, fills, k_mov=K_MOV, occ=occ)
+    out, _ = _halo_migrate(scode, occ, fields, fills, p)
     np.testing.assert_array_equal(out.numpy(), full.numpy())
     assert int((out[9] >= 0).sum()) == md.n
     flags = []
     for k_mov in (1, 2, 4, 8, md.cap):
-        flags.append(bool(migrate_cuda3.migrate3(scode, fields, fills, k_mov=k_mov)[1]))
-        assert any(_halo_migrate(scode, fields, fills, p, k_mov)[1]) is flags[-1], k_mov
+        flags.append(bool(migrate_cuda3.migrate3(scode, fields, fills, k_mov=k_mov, occ=occ)[1]))
+        assert any(_halo_migrate(scode, occ, fields, fills, p, k_mov)[1]) is flags[-1], k_mov
     assert flags[0] and not flags[-1]
 
 
 def test_b6_halo_matches_jax_sharded_rebuild(state):
-    jgf, gs, md, scode, fields, fills = state
+    jgf, gs, md, scode, occ, fields, fills = state
     sharded = JaxShardedGridMD3(jgf, jax_make_mesh(2, axis_name="x"), dt=ts.DT, migrate_k_mov=K_MOV)
     out_j = sharded._rebuild_migrate(sharded.shard_state(gs))
     assert not bool(out_j.overflow)
-    out_t, flags = _halo_migrate(scode, fields, fills, 2)
+    out_t, flags = _halo_migrate(scode, occ, fields, fills, 2)
     assert not any(flags)
     out_t = out_t.numpy()
     live = md.plane

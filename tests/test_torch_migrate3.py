@@ -112,9 +112,10 @@ def test_migrate_plain_matches_jax_kernel(states):
     new_mo = jnp.max(jnp.sum(occ_j, axis=1)).astype(jnp.int32)
     out_j, of_j = kernel(gs_j.max_occ, new_mo, scode_j, *(getattr(gs_j, k).astype(jnp.float32) for k in FIELDS))
     scode_t = torch.from_numpy(np.ascontiguousarray(np.asarray(scode_j)[:, :, :live]))
+    occ_t = torch.from_numpy(np.ascontiguousarray(np.asarray(occ_j, np.float32)[:, :, :live]))
     fields_t = torch.stack([getattr(gs_t, k).to(torch.float32) for k in FIELDS])
     before = (migrate_cuda3.LAUNCHES, migrate_cuda3.FLAT_LAUNCHES)
-    out_t, of_t = migrate_cuda3.migrate3(scode_t, fields_t, fills, k_mov=K_MOV)
+    out_t, of_t = migrate_cuda3.migrate3(scode_t, fields_t, fills, k_mov=K_MOV, occ=occ_t)
     assert (migrate_cuda3.LAUNCHES, migrate_cuda3.FLAT_LAUNCHES) == before  # CPU: the plain version
     assert bool(of_t) == bool(of_j) is False
     for f, name in enumerate(FIELDS):
@@ -156,10 +157,10 @@ def test_compact_equals_flat(states):
             assert torch.equal(getattr(rb_c, name), getattr(rb_f, name)), (which, name)
         assert not bool(rb_f.overflow)
         assert bool(rb_c.overflow) == (which == "hot")
-        _, _, _, scode, _, _ = md_t._migration_dest3(gs_t)
+        _, _, _, scode, occ_new, _ = md_t._migration_dest3(gs_t)
         fields = torch.stack([gs_t.xg, gs_t.pid.float()])
-        a, of_c = migrate_cuda3.migrate3(scode, fields, [md_t.sentinel, -1.0], k_mov=K_MOV)
-        b, of_f = migrate_cuda3.migrate3(scode, fields, [md_t.sentinel, -1.0])
+        a, of_c = migrate_cuda3.migrate3(scode, fields, [md_t.sentinel, -1.0], k_mov=K_MOV, occ=occ_new)
+        b, of_f = migrate_cuda3.migrate3(scode, fields, [md_t.sentinel, -1.0], occ=occ_new)
         assert torch.equal(a, b) and not bool(of_f)
         assert bool(of_c) == (which == "hot")
 
@@ -171,7 +172,7 @@ def test_mover_overflow_raised_in_both(states):
     md_j, md_t, out = states
     gs_j, gs_t, dest_j = out["hot"]
     live, cap = md_t.plane, md_t.cap
-    scode_j = dest_j[3]
+    scode_j, occ_j = dest_j[3], dest_j[4]
     field = gs_j.vzg.astype(jnp.float32)
     _, of_j = jax_make_migrate_kernel3(md_t.cps, cap, 1, [0.0], interpret=True, k_mov=K_MOV)(cap, cap, scode_j, field)
     flat_j, of_flat_j = jax_make_migrate_kernel3(md_t.cps, cap, 1, [0.0], interpret=True, compact=False)(
@@ -179,7 +180,8 @@ def test_mover_overflow_raised_in_both(states):
     )
     assert bool(of_j) and not bool(of_flat_j)
     scode_t = torch.from_numpy(np.ascontiguousarray(np.asarray(scode_j)[:, :, :live]))
-    out_t, of_t = migrate_cuda3.migrate3(scode_t, gs_t.vzg[None].contiguous(), [0.0], k_mov=K_MOV)
+    occ_t = torch.from_numpy(np.ascontiguousarray(np.asarray(occ_j, np.float32)[:, :, :live]))
+    out_t, of_t = migrate_cuda3.migrate3(scode_t, [gs_t.vzg.contiguous()], [0.0], k_mov=K_MOV, occ=occ_t)
     assert bool(of_t) and bool(migrate_cuda3.mover_overflow(scode_t, K_MOV))
     np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(flat_j[0])[:, :, :live])
     assert bool(md_t._rebuild_migrate(gs_t).overflow)
@@ -227,19 +229,21 @@ def test_migrate_reference_is_the_permutation():
 def test_migrate_wrapper_rejects_bad_inputs():
     scode = torch.full((3, 4, 9), -1, dtype=torch.int32)
     fields = torch.zeros((2, 3, 4, 9))
+    occ = torch.zeros((3, 4, 9))
     with pytest.raises(TypeError):
-        migrate_cuda3.migrate3(scode.long(), fields, [0.0, 0.0])
+        migrate_cuda3.migrate3(scode.long(), fields, [0.0, 0.0], occ=occ)
     with pytest.raises(TypeError):
-        migrate_cuda3.migrate3(scode, fields.double(), [0.0, 0.0])
+        migrate_cuda3.migrate3(scode, fields.double(), [0.0, 0.0], occ=occ)
     with pytest.raises(ValueError, match="grid"):
-        migrate_cuda3.migrate3(scode[:, :2], fields, [0.0, 0.0])
+        migrate_cuda3.migrate3(scode[:, :2], fields, [0.0, 0.0], occ=occ)
     with pytest.raises(ValueError, match="grid"):
-        migrate_cuda3.migrate3(torch.full((3, 4, 8), -1, dtype=torch.int32), torch.zeros((2, 3, 4, 8)), [0.0, 0.0])
+        migrate_cuda3.migrate3(torch.full((3, 4, 8), -1, dtype=torch.int32), torch.zeros((2, 3, 4, 8)), [0.0, 0.0],
+                               occ=occ)
     with pytest.raises(ValueError, match="fills"):
-        migrate_cuda3.migrate3(scode, fields, [0.0])
+        migrate_cuda3.migrate3(scode, fields, [0.0], occ=occ)
     with pytest.raises(ValueError, match="contiguous"):
-        migrate_cuda3.migrate3(scode, fields.transpose(2, 3).contiguous().transpose(2, 3), [0.0, 0.0])
+        migrate_cuda3.migrate3(scode, fields.transpose(2, 3).contiguous().transpose(2, 3), [0.0, 0.0], occ=occ)
     with pytest.raises(ValueError, match="k_mov"):
-        migrate_cuda3.migrate3(scode, fields, [0.0, 0.0], k_mov=0)
+        migrate_cuda3.migrate3(scode, fields, [0.0, 0.0], k_mov=0, occ=occ)
     with pytest.raises(ValueError):
-        migrate_cuda3.migrate3(scode.to("meta"), fields.to("meta"), [0.0, 0.0])
+        migrate_cuda3.migrate3(scode.to("meta"), fields.to("meta"), [0.0, 0.0], occ=occ.to("meta"))

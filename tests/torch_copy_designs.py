@@ -1,6 +1,6 @@
 """Kernel B10 against the two other copy designs it was chosen over, on the
 card: each bit-equal to its source, then timed in 7 interleaved repeats of 20
-calls (``chip_smoke._interleaved_ms``) beside ``dst.copy_``, at 256 MiB of
+calls (``utils.profiling.interleaved_ms``) beside ``dst.copy_``, at 256 MiB of
 float32 and of bfloat16.
 
     python tests/torch_copy_designs.py OUT_DIR
@@ -177,8 +177,8 @@ def build(out_dir: Path):
 def main() -> int:
     import torch
 
-    from chip_smoke import _interleaved_ms, _spread
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import copy_cuda
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import interleaved_ms, spread
 
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
@@ -207,11 +207,11 @@ def main() -> int:
                 if not torch.equal(copy(src[:k], design), src[:k]):
                     raise AssertionError(f"{design} {dtype}: {k} elements not bit-equal")
         dst = torch.empty_like(src)
-        t = _interleaved_ms({"B10": lambda: copy_cuda.chunked_copy(src),
+        t = interleaved_ms({"B10": lambda: copy_cuda.chunked_copy(src),
                              **{d: (lambda d=d: copy(src, d)) for d in DESIGNS},
                              "copy_": lambda: dst.copy_(src)})
         print(f"{dtype} 256 MiB, bit-equal on {sizes} elements; medians of 7 interleaved repeats of 20 calls: "
-              + ", ".join(f"{name} {_spread(v)} ({v[0] / t['copy_'][0]:.4f}x copy_)" for name, v in t.items()),
+              + ", ".join(f"{name} {spread(v)} ({v[0] / t['copy_'][0]:.4f}x copy_)" for name, v in t.items()),
               flush=True)
         del src, dst
     return 0

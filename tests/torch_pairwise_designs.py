@@ -2,7 +2,7 @@
 main path's shape (N=16,384, 2D, PBC, no cutoff, on positions 100 steps
 into the melt from the lattice): each within 1e-4 * max |f| of the plain
 version (energy sums at rtol 1e-5), then both variants timed in 7
-interleaved repeats of 20 calls (``chip_smoke._interleaved_ms``).
+interleaved repeats of 20 calls (``utils.profiling.interleaved_ms``).
 
     python tests/torch_pairwise_designs.py OUT_DIR
 
@@ -137,7 +137,8 @@ def build(out_dir: Path):
 def main() -> int:
     import torch
 
-    from chip_smoke import _interleaved_ms, _pairwise_bounds, _spread
+    from chip_smoke import _pairwise_bounds
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import interleaved_ms, spread
     from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import MDConfig, override
     from jax_tpus_benchmark_physics_simulation_tpu_torch.models import lj_fluid
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import pairwise_cuda
@@ -178,14 +179,14 @@ def main() -> int:
                 se, sr = float(got[1].double().sum()), float(want[1].double().sum())
                 if not abs(se - sr) <= 1e-5 * abs(sr):
                     raise AssertionError(f"{name}: energy sum {se} vs {sr}, beyond rtol 1e-5")
-    t = _interleaved_ms({"B8": lambda: pairwise_cuda.lj_force_pairwise(pos, p),
+    t = interleaved_ms({"B8": lambda: pairwise_cuda.lj_force_pairwise(pos, p),
                          "previous": lambda: previous(False),
                          "B8 energy": lambda: pairwise_cuda.lj_force_pairwise(pos, p, True),
                          "previous energy": lambda: previous(True)})
     bound, bound_e = _pairwise_bounds(n, 2)
     print(f"N={n} 2D PBC, both designs within 1e-4 * max |f| of the plain version (energy sums at rtol 1e-5); "
           f"medians of 7 interleaved repeats of 20 calls: "
-          + ", ".join(f"{name} {_spread(v)}" for name, v in t.items())
+          + ", ".join(f"{name} {spread(v)}" for name, v in t.items())
           + f"; bound {bound[0]:.5f} ms ({bound[1]}), with the energy {bound_e[0]:.5f} ms", flush=True)
     return 0
 
