@@ -7,15 +7,24 @@ Run from the repository root. It builds the CUDA kernels from
 ``nvcc`` per source, all at once), then:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions and the kernel build time;
+   CUDA versions, the kernel build time and each kernel's registers a
+   thread and spill bytes from the build log (``-Xptxas -v``), and whether
+   this run built the library or loaded an earlier build of the same
+   sources;
 2. 2D kernels at the N=100k shapes (121 x 16 x 121 grid) on a state whose
    positions are unwrapped near the seams, each against its plain PyTorch
    version: B1 (the tile kernel) forces (max abs diff <= 1e-4 over occupied
-   slots), B1 energy variant (e and w sums at rtol 1e-5), B2 (bit-equal);
+   slots), B1 energy variant (e and w sums at rtol 1e-5), B2 (one launch:
+   fill and scatter; the 11 planes where they lie and the allocation's
+   occupancy, as the engine passes them) bit-equal, also on an overflow
+   state (a cell crowded past its capacity), and so is the previous B2
+   design (stack, fill, scatter; ``tests/torch_migrate_designs.py``);
    B1 in both variants torch.equal to B1's loop and over two launches;
    timed with CUDA events, B1 and its energy variant in 7 interleaved
    repeats beside B1's loop and at candidate tiles (the default tile and
-   block size printed);
+   block size printed), B2 in 7 interleaved repeats behind a spin of the
+   card beside the previous design, its stack, fill and scatter, and each
+   wrapper's host us a call;
 3. B1 forces on 1024 particles against the dense O(N^2) oracle computed
    from all 100k particles (atol 1e-4);
 4. a 2D run at N=4096 on the card against the same run on the CPU (the
@@ -25,7 +34,9 @@ Run from the repository root. It builds the CUDA kernels from
    counter set to 0 just before: overflow False, finite energies, energy
    drift < 1e-4, and B1, B1-energy and B2 launched and B1's loop not; then
    the card's busy share over 200 traced production steps and B1's share
-   of device time;
+   of device time; then one rebuild under the profiler: its device ops by
+   name and count, one B2 launch (``migrate_kernel``) and no fill or
+   scatter kernel, beside the same rebuild on the previous B2 design;
 6. the 3D main path, ``lj_fluid.run`` with ``dim=3`` at N=100k (the same
    configuration; skin 0.1316, 19 cells per side, fixed production
    cadence from the measured kT), with every counter set to 0 just before:
@@ -91,9 +102,10 @@ Run from the repository root. It builds the CUDA kernels from
     unpacked grids (packed back) and over two launches, and within 1e-4 of
     the plain version over occupied slots (the energy variant's e and w
     sums at rtol 1e-5); B3 and B1's loop on the unpacked grids timed in 7
-    interleaved repeats (median, min, max); B2 on the
-    packed N=1M grid bit-equal to its plain version; timed with CUDA
-    events;
+    interleaved repeats (median, min, max); packed B2 at both shapes as in
+    phase 2 (bit-equal, also at overflow, and at N=1M with movers across a
+    block seam; timed beside the previous design), and one N=1M rebuild's
+    device ops with B2 and with the previous design;
 16. B3 forces on 1024 interior particles of the N=16,384 packed state
     against the dense oracle computed from all 16,384 (atol 1e-4);
 17. the packed main paths, ``lj_fluid.run`` at N=16,384 and at N=1M with
@@ -116,7 +128,10 @@ Run from the repository root. It builds the CUDA kernels from
     the potential, every counter set to 0 just before: acceleration and phi
     within 1e-5 * max |.| of the plain version, two launches bit-equal, and
     at N=16,384 0.5 * sum(m * phi) against ``Gravity(mode="plummer")
-    .energy`` at rtol 1e-5; timed with CUDA events;
+    .energy`` at rtol 1e-5; the previous B9 design
+    (``tests/torch_gravity_designs.py``) within the same tolerance; both
+    variants timed in 7 interleaved repeats beside the previous design, and
+    the special-function unit's time for one rsqrt a pair printed;
 21. B10 (the bandwidth op's copy) through ``make_bandwidth_op(mode=
     "pallas_copy")`` at 64Mi float32 and 128Mi bfloat16 elements (256 MiB
     each): bit-equal to the source, and on direct calls of odd sizes (3
@@ -145,11 +160,14 @@ Run from the repository root. It builds the CUDA kernels from
     steps after a rebuild: over 1, 2 and 4 row blocks with the halo rows
     (the x seam added as the exchange adds it), B1 halo (the tile kernel,
     both variants, on the ``(rows + 2)`` grids and on the local grids with
-    the edge rows) and B2 halo bit-equal to B1 and B2 on the whole grid, B1
-    halo also to B1 halo's loop, and within 1e-4 (B2 halo: bit-equal) of
-    their plain halo versions; timed at one rank's shape (world size 1: 122
-    rows in, 120 out) beside B1 and B2, B1 halo in 7 interleaved repeats
-    beside its loop;
+    the edge rows) bit-equal to B1 on the whole grid and to B1 halo's loop,
+    and over 1, 2, 3 and 4 row blocks B2 halo, on the rebuild's inputs and
+    at overflow, bit-equal to B2 on the whole grid, to its plain halo
+    version and to the previous design; B1 halo within 1e-4 of its plain
+    version; timed at one rank's shape (world size 1: 122 rows in, 120 out)
+    beside B1 and B2, B1 halo in 7 interleaved repeats beside its loop, B2
+    halo in 7 interleaved repeats behind a spin beside the previous design
+    and its fill and scatter;
 25. the 3D halo kernels at N=100k rounded for devices [1, 2] (the skin
     rounded to 2 devices: 18 cells per side) on a state 90 steps into the
     melt: over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 halo
@@ -175,8 +193,9 @@ Run from the repository root. It builds the CUDA kernels from
     2D with the ``(rows + 2)`` copies the 3D engine makes and without them,
     as the 2D engine's force takes the edge rows); the 2D engine's busy
     share over 200 traced production steps and B1 halo's share of device
-    time; for the 3D engine one rebuild under the profiler (one B6 halo
-    launch, no plain mover flag), a rebuild's exchange of the code and
+    time, and one rebuild under the profiler (one B2 halo launch, beside
+    the previous design's ops); for the 3D engine one rebuild under the
+    profiler (one B6 halo launch, no plain mover flag), a rebuild's exchange of the code and
     field edge rows with the stack and the ``(rows + 2)`` copies that B6
     halo reads, its busy share and the counted
     kernel's share of device time, and its mover flag at 18 cells per side
@@ -188,7 +207,9 @@ Run from the repository root. It builds the CUDA kernels from
     grids), B1's and B1 halo's four rows with ``loop_ms`` (B1's loop, which
     no path runs, its launches in ``loop_launches``) and ``tile``, B5's and
     B5 halo's with ``loop_ms`` (B5's full loop, which no path runs) and
-    ``strip``, and as the last line
+    ``strip``, B2's three forms with the previous design's times (whole,
+    fill, scatter, stack), the wrappers' host us and one rebuild's device
+    ops, B9's with ``previous_ms``, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
@@ -208,31 +229,14 @@ import time
 
 import numpy as np
 
-from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import cuda_ms, interleaved_ms, spread
+from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import cuda_ms, host_us, interleaved_ms, spread
+from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import roofline
 
-# H100 SXM data sheet: float32 outside the tensor cores, and HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
-PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 # B8 at N=16,384 (2D, PBC, no cutoff) before its redesign (one thread an
 # i-particle, two IEEE divides a pair, no FMA): this script's phase 11 on an
 # NVIDIA H100 80GB HBM3 at 700 W; tests/torch_pairwise_designs.py builds that
 # design and times it beside the kernel in one process
 PREVIOUS_B8_MS = 0.5691
-
-
-def _host_us(fn, reps: int = 200) -> float:
-    """Host microseconds a call of ``fn()``, work on the card included:
-    ``reps`` calls after one warm call, ended by a synchronize."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return 1e6 * (time.perf_counter() - t0) / reps
 
 
 def _max_diff(got, want, occ, name: str, tol: float) -> float:
@@ -289,13 +293,6 @@ def _pair_work(grids, occ, cps: int, bound: int, box: float, cutoff2: float):
     return candidates, in_cut
 
 
-def _bound(flops: float, nbytes: float):
-    """``(bound_ms, bound_by)``: the larger of the operations over the
-    float32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def _force_bounds(work, dim: int, n_slots: int, n_in_slots=None, extra_in_bytes: int = 0):
     """Bounds of the force kernel and its energy variant: a distance test
     costs 3d - 1 operations, an in-cutoff pair 7 + 2d more (one divide,
@@ -306,42 +303,20 @@ def _force_bounds(work, dim: int, n_slots: int, n_in_slots=None, extra_in_bytes:
     candidates, in_cut = work
     tests = (3 * dim - 1) * candidates
     n_in = n_slots if n_in_slots is None else n_in_slots
-    return (_bound(tests + (7 + 2 * dim) * in_cut, 4 * dim * (n_in + n_slots) + extra_in_bytes),
-            _bound(tests + (14 + 2 * dim) * in_cut, 4 * (dim * n_in + (dim + 2) * n_slots) + extra_in_bytes))
+    return (roofline.bound(tests + (7 + 2 * dim) * in_cut, 4 * dim * (n_in + n_slots) + extra_in_bytes),
+            roofline.bound(tests + (14 + 2 * dim) * in_cut, 4 * (dim * n_in + (dim + 2) * n_slots) + extra_in_bytes))
 
 
-def _pairwise_bounds(n: int, dim: int):
-    """Bounds of B8 and its energy variant: N^2 (4d + 12) operations, the
-    JAX package's own cost estimate for the all-pairs kernel
-    (pairwise_pallas.py:139-143) with N for its padded n_pad, and 4 more a
-    pair with the energy (s12 - s6, the 4 eps product, the shift, the sum);
-    the positions in, the forces (and energies) out."""
-    pairs = float(n) * n
-    return (_bound(pairs * (4 * dim + 12), 4 * n * 2 * dim),
-            _bound(pairs * (4 * dim + 16), 4 * n * (2 * dim + 1)))
-
-
-def _gravity_bounds(n: int, dim: int):
-    """Bounds of B9 and its potential variant: N^2 (5d + 4) operations (d
-    differences, d squares and d sums with the softening, the rsqrt, two
-    products for inv_r^3, g m_j times inv_r^3, d products and d sums; g m_j
-    is formed once per j and the j == i selects are not operations), N^2
-    (5d + 6) with the potential (its product and sum); positions and masses
-    in, accelerations (and potentials) out."""
-    pairs = float(n) * n
-    return (_bound(pairs * (5 * dim + 4), 4 * n * (2 * dim + 1)),
-            _bound(pairs * (5 * dim + 6), 4 * n * (2 * dim + 2)))
-
-
-def _migrate_bound(n_fields: int, n_out: int, n_moved: int, n_in=None, extra_planes: int = 0):
+def _migrate_bound(n_fields: int, n_out: int, n_moved: int, n_in=None):
     """A permutation: the code grid read (``n_in`` slots, the halo rows
     included; default ``n_out``), the F fields of the ``n_moved`` sources
     that land in the output read (an empty slot's fields need no read), F
-    planes of ``n_out`` written, and ``extra_planes`` more planes of
-    ``n_out`` read (B6: the allocation's occupancy, which tells the kernel
-    the slots to fill)."""
+    planes of ``n_out`` written. The allocation's occupancy, which B2 and B6
+    read to tell the slots to fill, is an input of their design, not of
+    the function (the plain versions and the TPU kernels take none), and is
+    not counted."""
     n_in = n_out if n_in is None else n_in
-    return _bound(0.0, 4 * (n_in + n_moved * n_fields + n_out * (n_fields + extra_planes)))
+    return roofline.bound(0.0, 4 * (n_in + n_moved * n_fields + n_out * n_fields))
 
 
 def _counted_times(args, cov: int, halo: bool, repeats: int = 7):
@@ -431,13 +406,56 @@ def _kernel_alone_ms(fn, kernel_key: str, path: str, reps: int = 20) -> float:
     return 1e3 * dev_s / reps
 
 
-def _migrate3_designs():
-    """``tests/torch_migrate3_designs.py``: the previous B6 design's source,
-    build function and wrapper, imported from this script's ``tests/``."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    import torch_migrate3_designs
+def _designs(name: str):
+    """``tests/<name>.py``, a previous kernel design's source, build
+    function and wrapper (``torch_migrate3_designs``: B6's;
+    ``torch_migrate_designs``: B2's; ``torch_gravity_designs``: B9's),
+    imported from this script's ``tests/``."""
+    import importlib
 
-    return torch_migrate3_designs
+    here = os.path.dirname(os.path.abspath(__file__))
+    for path in (here, os.path.join(here, "tests")):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def _kernel_name(mangled: str) -> str:
+    """``migrate_kernel<true>`` for the mangled name of a kernel template in
+    a source's anonymous namespace (``_ZN<n><namespace><n><name>I...E``);
+    the first 48 characters of any other name."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    k = m.end() + int(m.group(1)) if m else 0
+    n = re.match(r"(\d+)", mangled[k:]) if m else None
+    if not n:
+        return mangled[:48]
+    start = k + n.end()
+    end = start + int(n.group(1))
+    tail = mangled[end:]
+    args = re.findall(r"L([bi])(\d+)E", tail[: tail.find("Ev")]) if tail.startswith("I") else []
+    shown = ["true" if a == ("b", "1") else "false" if a == ("b", "0") else a[1] for a in args]
+    return mangled[start:end] + (f"<{', '.join(shown)}>" if shown else "")
+
+
+def _ptxas(log_text: str) -> dict:
+    """``{kernel: (registers, spill bytes)}`` from the ``-Xptxas -v`` lines of
+    a build log, each kernel named by its name and template arguments as
+    ``migrate_kernel<true>``."""
+    out, name, spill = {}, None, 0
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), spill)
+            name, spill = None, 0
+    return out
 
 
 def _device_ops(fn) -> dict:
@@ -456,6 +474,92 @@ def _device_ops(fn) -> dict:
         if e.device_type == DeviceType.CUDA:
             counts[e.name] = counts.get(e.name, 0) + 1
     return counts
+
+
+def _short_names(ops: dict) -> dict:
+    """``_device_ops``' counts by the bare kernel or op name."""
+    short = {}
+    for k, v in ops.items():
+        bare = k.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = re.split(r"[<(]", bare, maxsplit=1)[0].split("::")[-1][:48] or k[:48]
+        short[name] = short.get(name, 0) + v
+    return short
+
+
+def _rebuild_ops_2d(md, gs, label: str, previous_migrate) -> dict:
+    """One rebuild of the 2D engine ``md`` (unpacked, packed or sharded)
+    from ``gs`` under the profiler, with B2 and again with ``md._migrate``
+    replaced by ``previous_migrate(scode, planes, fills, occ)`` (the previous
+    design: stack, fill, scatter): prints both ops by name and count, and
+    checks that B2 launched once, as one ``migrate_kernel``, with no fill or
+    scatter kernel. Returns ``{"ops": n, "previous_ops": n}``."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import migrate_cuda
+
+    def b2_launches():
+        return migrate_cuda.LAUNCHES + migrate_cuda.PACKED_LAUNCHES + migrate_cuda.HALO_LAUNCHES
+
+    before = b2_launches()
+    ops = _device_ops(lambda: md._rebuild_migrate(gs))
+    launched = b2_launches() - before
+    md._migrate = previous_migrate
+    try:
+        ops_prev = _device_ops(lambda: md._rebuild_migrate(gs))
+    finally:
+        del md._migrate
+    short, short_prev = _short_names(ops), _short_names(ops_prev)
+    b2 = short.get("migrate_kernel", 0)
+    if b2 != 1 or launched != 1 or short.get("migrate_fill_kernel") or short.get("migrate_scatter_kernel"):
+        raise AssertionError(f"{label} rebuild: {b2} migrate_kernel on the card, {launched} B2 launches; ops {ops}")
+    print(f"{label} one rebuild: {sum(ops.values())} device ops, {b2} B2 launch (migrate_kernel); with the "
+          f"previous design (stack, fill, scatter) {sum(ops_prev.values())}; ops by name: "
+          + ", ".join(f"{k} x{v}" for k, v in sorted(short.items())) + "; previous: "
+          + ", ".join(f"{k} x{v}" for k, v in sorted(short_prev.items())), flush=True)
+    return {"ops": sum(ops.values()), "previous_ops": sum(ops_prev.values())}
+
+
+def _b2_checked_times(designs, prev, md, gs, label: str):
+    """B2 (packed where ``md`` packs) on the rebuild's inputs of ``gs`` and
+    of its overflow state (``designs.overflow_state``): the kernel, the
+    planes passed where they lie, and the previous design torch.equal to
+    the plain version; then, on ``gs``'s inputs, 7 interleaved repeats of
+    20 calls behind a spin of the card: B2, the previous design (stack,
+    fill and scatter), its stack, fill and scatter alone; the host us a
+    call of B2's wrapper and of the previous design's; the plain version's
+    ms. Returns ``(times, host_us, plain_ms, inputs)``."""
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import migrate_cuda
+
+    r = md.rows_per_block
+    for name, st in (("state", gs), ("overflow state", designs.overflow_state(md, gs))):
+        scode, occ, planes, fills, overflow = designs.rebuild_inputs(md, st)
+        want = migrate_cuda.migrate_reference(scode, torch.stack(planes), fills, r)
+        if not torch.equal(migrate_cuda.migrate(scode, planes, fills, r, occ=occ), want):
+            raise AssertionError(f"B2 {label} ({name}): kernel output is not bit-equal to the plain version")
+        if not torch.equal(designs.previous(prev, scode, planes, fills, r), want):
+            raise AssertionError(f"B2 {label} ({name}): the previous design is not bit-equal to the plain version")
+        if bool(overflow) is not (name == "overflow state"):
+            raise AssertionError(f"B2 {label} ({name}): overflow {bool(overflow)}")
+    scode, occ, planes, fills, _ = designs.rebuild_inputs(md, gs)
+    stacked = torch.stack(planes)
+    fns = {
+        "B2": lambda: migrate_cuda.migrate(scode, planes, fills, r, occ=occ),
+        "previous": lambda: designs.previous(prev, scode, planes, fills, r),
+        "stack": lambda: torch.stack(planes),
+        "fill": lambda: designs.previous(prev, scode, stacked, fills, r, what=1),
+        "scatter": lambda: designs.previous(prev, scode, stacked, fills, r, what=2),
+    }
+    t = interleaved_ms(fns, lead=True)
+    host = {k: host_us(fns[k]) for k in ("B2", "previous")}
+    plain = cuda_ms(lambda: migrate_cuda.migrate_reference(scode, stacked, fills, r), 10)
+    return t, host, plain, (scode, occ, planes, fills)
+
+
+def _b2_extra(t: dict, host: dict, prefix: str = "") -> dict:
+    """The kernels line's keys of B2's previous design and host times."""
+    return {f"{prefix}previous_ms": t["previous"][0], f"{prefix}previous_fill_ms": t["fill"][0],
+            f"{prefix}previous_scatter_ms": t["scatter"][0], f"{prefix}stack_ms": t["stack"][0],
+            f"{prefix}host_us": host["B2"], f"{prefix}previous_host_us": host["previous"]}
 
 
 def _rebuild_ops(md, gs, label: str) -> None:
@@ -478,11 +582,7 @@ def _rebuild_ops(md, gs, label: str) -> None:
     if b6 != 1 or launched != 1 or calls:
         raise AssertionError(f"{label} rebuild: {b6} migrate3_kernel on the card, {launched} B6 launches, "
                              f"mover_overflow called {len(calls)} times; ops {ops}")
-    short = {}
-    for k, v in ops.items():
-        bare = k.replace("(anonymous namespace)::", "").replace("void ", "")
-        name = re.split(r"[<(]", bare, maxsplit=1)[0].split("::")[-1][:48] or k[:48]
-        short[name] = short.get(name, 0) + v
+    short = _short_names(ops)
     print(f"{label} one rebuild: {sum(ops.values())} device ops, {b6} B6 launch (migrate3_kernel), "
           f"mover_overflow called 0 times; ops by name: " + ", ".join(f"{k} x{v}" for k, v in sorted(short.items())),
           flush=True)
@@ -569,12 +669,19 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    t0 = time.perf_counter()
-    _build.library()
+    t0, wall0 = time.perf_counter(), time.time()
+    lib = _build.library()
     build_s = time.perf_counter() - t0
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
           f"torch {torch.__version__}; CUDA {torch.version.cuda}; kernel build {build_s:.2f} s",
           flush=True)
+    log = os.path.splitext(lib._name)[0] + ".log"
+    with open(log) as f:
+        regs = _ptxas(f.read())
+    # a library built earlier from the same sources and flags is loaded, not built again
+    built = "built in this run" if os.path.getmtime(log) >= wall0 else "from the log of an earlier build"
+    print(f"phase 1 registers a thread (spill bytes), -Xptxas -v, {built}: " + ", ".join(
+        f"{k} {v[0]} ({v[1]})" for k, v in sorted(regs.items())), flush=True)
 
     times, errors, bounds, launches = {}, {}, {}, {}
     extra = {}  # more keys of a kernel's entry in the kernels line
@@ -618,14 +725,14 @@ def main() -> int:
         raise AssertionError("B1: the tile kernel is not torch.equal to B1's loop")
     del again, loop2
 
-    _, _, scode, _, _, _ = md._migration_dest(gs)
-    fields = torch.stack([torch.remainder(gs.xg, md.box), torch.remainder(gs.yg, md.box),
-                          gs.vxg, gs.vyg, gs.fxg, gs.fyg, gs.pid.float(),
-                          gs.crx, gs.cry, gs.cvx, gs.cvy])
-    fills = [md.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0, 0.0, 0.0]
+    # B2 (one launch: fill and scatter) on the rebuild's inputs as the engine
+    # passes them (the planes where they lie, the allocation's occupancy)
+    # and at overflow, against the plain version and the previous design
+    # (stack, fill, scatter; tests/torch_migrate_designs.py)
+    designs2 = _designs("torch_migrate_designs")
+    prev_b2 = designs2.build(_build.BUILD_DIR / "designs")
+    t2m, host2, plain2, (scode, occ_n, planes, fills) = _b2_checked_times(designs2, prev_b2, md, gs, "N=100k")
     movers = int(((scode >= 0) & (torch.div(scode, md.cap, rounding_mode="floor") != 4)).sum())
-    if not torch.equal(migrate_cuda.migrate(scode, fields, fills), migrate_cuda.migrate_reference(scode, fields, fills)):
-        raise AssertionError("B2: kernel output is not bit-equal to the plain version")
     errors["migrate"] = 0.0
 
     t2, tile2 = _tile_times(cell_cuda, (gs.xg, gs.yg, p), md.cps, halo=False)
@@ -634,19 +741,23 @@ def main() -> int:
         t2["tile_e"][0], cuda_ms(lambda: cell_cuda.grid_force_reference(gs.xg, gs.yg, p, with_energy=True), 10))
     extra["cell_force"] = {"loop_ms": t2["loop"][0], "tile": list(tile2[0])}
     extra["cell_force_energy"] = {"loop_ms": t2["loop_e"][0], "tile": list(tile2[1])}
-    times["migrate"] = (cuda_ms(lambda: migrate_cuda.migrate(scode, fields, fills), 50),
-                        cuda_ms(lambda: migrate_cuda.migrate_reference(scode, fields, fills), 10))
+    times["migrate"] = (t2m["B2"][0], plain2)
+    extra["migrate"] = _b2_extra(t2m, host2)
     work2 = _pair_work((gs.xg, gs.yg), gs.occ, md.cps, md.cap, md.box, p.cutoff2)
     bounds["cell_force"], bounds["cell_force_energy"] = _force_bounds(work2, 2, gs.xg.numel())
-    bounds["migrate"] = _migrate_bound(fields.shape[0], gs.xg.numel(), int((scode >= 0).sum()))
+    bounds["migrate"] = _migrate_bound(len(planes), gs.xg.numel(), int(occ_n.sum()))
     print(f"phase 2 B1 forces: max abs diff {errors['cell_force']:.3e} (max |f| {fmax:.1f}); "
           f"energy variant: forces {err_ef:.3e}, e/w max abs diff {err_e:.3e}, sums within rtol 1e-5; "
           f"B1 (the tile kernel, both variants) torch.equal to B1's loop and over two launches; "
-          f"B2: bit-equal, {movers} movers; pair work: {work2[0]} distance tests, "
-          f"{work2[1]} in the cutoff", flush=True)
+          f"B2 and its previous design: bit-equal, also at overflow, {movers} movers; pair work: {work2[0]} "
+          f"distance tests, {work2[1]} in the cutoff", flush=True)
     for name in ("cell_force", "cell_force_energy", "migrate"):
         print(f"phase 2 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
+    print(f"{smi}: phase 2 B2 time (medians of 7 interleaved repeats of 20 calls, lead): B2 {spread(t2m['B2'])}, "
+          f"the previous design (stack, fill, scatter) {spread(t2m['previous'])}, its stack {spread(t2m['stack'])}, "
+          f"fill {spread(t2m['fill'])}, scatter {spread(t2m['scatter'])}; host us a call: B2 {host2['B2']:.1f}, "
+          f"previous {host2['previous']:.1f}", flush=True)
     _print_tile_times(f"{smi}: phase 2 B1", t2, tile2, bounds["cell_force"])
     alone2 = {name: _kernel_alone_ms(fn, key, os.path.join("chiprun_out", "chip_smoke_b1_alone.json"))
               for name, fn, key in (("tile kernel", lambda: cell_cuda.grid_force(gs.xg, gs.yg, p),
@@ -774,6 +885,10 @@ def main() -> int:
               profile_device(lambda: lj_fluid.production(traced2, res.state, res.cadence),
                              os.path.join("chiprun_out", "chip_smoke_2d_trace.json")),
               ("cell_force_tile_kernel",), "B1")
+    g5 = md.init(res.state.position, res.state.velocity)
+    ops5 = _rebuild_ops_2d(md, md._window_for(g5, k)(g5), f"{smi}: phase 5 2D N=100k",
+                         lambda sc, pl, fl, oc: designs2.previous(prev_b2, sc, pl, fl))
+    extra["migrate"].update(rebuild_ops=ops5["ops"], previous_rebuild_ops=ops5["previous_ops"])
 
     traced3 = override(cfg3, prod_steps=2 * cfg3.sample_every)
     busy_line("phase 6 3D N=100k", res3, cfg3,
@@ -868,7 +983,7 @@ def main() -> int:
     # passes them (the planes where they lie, the allocation's occupancy),
     # against the plain version, the plain flag and the previous design
     # (fill + scatter + plain flag, tests/torch_migrate3_designs.py)
-    designs = _migrate3_designs()
+    designs = _designs("torch_migrate3_designs")
     prev_b6 = designs.build(_build.BUILD_DIR / "designs")
     scode3, occ_new3, planes3, fills3 = designs.rebuild_inputs(md3, gs3)
     fields3 = torch.stack(planes3)
@@ -952,9 +1067,8 @@ def main() -> int:
                             "above_cov_bound_ms": bm[0]}
     extra["cell_force3_energy"] = {"loop_ms": t7["B4's loop energy"][0], "above_cov_ms": t7m["B4 energy"][0],
                                    "above_cov_loop_ms": t7m["B4's loop energy"][0], "above_cov_bound_ms": bme[0]}
-    # the occupancy grid in besides the permutation; the flag's byte is not counted
-    bounds["migrate3"] = bounds["migrate3_flat"] = _migrate_bound(len(planes3), gs3.xg.numel(), int(occ_new3.sum()),
-                                                                  extra_planes=1)
+    # the flag's byte is not counted
+    bounds["migrate3"] = bounds["migrate3_flat"] = _migrate_bound(len(planes3), gs3.xg.numel(), int(occ_new3.sum()))
     extra["migrate3"] = {"previous_ms": t7mig["previous B6"][0]}
     extra["migrate3_flat"] = {"previous_ms": t7mig["previous B7"][0]}
     print(f"phase 7 B4 forces: max abs diff {errors['cell_force3']:.3e} (max |f| {f3max:.1f}); "
@@ -1083,10 +1197,10 @@ def main() -> int:
     times["pairwise_lj_energy"] = (
         cuda_ms(lambda: pairwise_cuda.lj_force_pairwise(pos_d, pp, True), 50),
         cuda_ms(lambda: pairwise_cuda.lj_force_pairwise_reference(pos_d, pp, True), 5))
-    bounds["pairwise_lj"], bounds["pairwise_lj_energy"] = _pairwise_bounds(dense.n, 2)
-    row_blocks, slices, slice_len = pairwise_cuda._lj_geometry(dense.n)
-    print(f"phase 11 B8 launch at N={dense.n}: {row_blocks} row blocks of {pairwise_cuda.LJ_ROWS} "
-          f"i-particles ({pairwise_cuda.LJ_THREADS} threads, 4 each) x {slices} j slices of {slice_len} = "
+    bounds["pairwise_lj"], bounds["pairwise_lj_energy"] = roofline.pairwise_bounds(dense.n, 2)
+    row_blocks, slices, slice_len = pairwise_cuda._geometry(dense.n)
+    print(f"phase 11 B8 launch at N={dense.n}: {row_blocks} row blocks of {pairwise_cuda.ROWS} "
+          f"i-particles ({pairwise_cuda.THREADS} threads, 4 each) x {slices} j slices of {slice_len} = "
           f"{row_blocks * slices} blocks, then the slice sum", flush=True)
     for name in ("pairwise_lj", "pairwise_lj_energy"):
         print(f"phase 11 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
@@ -1225,30 +1339,47 @@ def main() -> int:
                   f"{t[1]:.4f} ms, bound {b[0]:.5f} ms ({b[1]}) per call", flush=True)
         del f1, f2, fr, e1, e2, er, yard, xu, yu
 
+    # B2 packed at both shapes, as in phase 2; at N=1M also the movers across
+    # a block seam and one rebuild's device ops with B2 and the previous design
+    t15m = {}
+    for label in ("N=16,384", "N=1M"):
+        mq, gq = packed[label]["md"], packed[label]["gs"]
+        t15m[label] = _b2_checked_times(designs2, prev_b2, mq, gq, label)
     m1, g1 = packed["N=1M"]["md"], packed["N=1M"]["gs"]
-    _, _, scode_p, _, _, _ = m1._migration_dest(g1)
-    fields_p = torch.stack([torch.remainder(g1.xg, m1.box), torch.remainder(g1.yg, m1.box),
-                            g1.vxg, g1.vyg, g1.fxg, g1.fyg, g1.pid.float(), g1.crx, g1.cry, g1.cvx, g1.cvy])
     r1 = m1.rows_per_block
+    tq, hostq, plainq, (scode_p, occ_p, planes_p, _) = t15m["N=1M"]
     sub = torch.div(torch.arange(m1.lanes, device=dev), m1.cps, rounding_mode="floor")
     dxp = torch.div(torch.div(scode_p, m1.cap, rounding_mode="floor"), 3, rounding_mode="floor") - 1
     crossing = int(((scode_p >= 0) & (((dxp == -1) & (sub == 0)) | ((dxp == 1) & (sub == r1 - 1)))).sum())
-    if not torch.equal(migrate_cuda.migrate(scode_p, fields_p, fills, r1),
-                       migrate_cuda.migrate_reference(scode_p, fields_p, fills, r1)):
-        raise AssertionError("B2 packed: kernel output is not bit-equal to the plain version")
+    if crossing <= 0:
+        raise AssertionError("B2 packed N=1M: no mover across a block seam")
     errors["migrate_packed"] = 0.0
-    times["migrate_packed"] = (cuda_ms(lambda: migrate_cuda.migrate(scode_p, fields_p, fills, r1), 50),
-                               cuda_ms(lambda: migrate_cuda.migrate_reference(scode_p, fields_p, fills, r1), 10))
-    bounds["migrate_packed"] = _migrate_bound(fields_p.shape[0], g1.xg.numel(), int((scode_p >= 0).sum()))
+    times["migrate_packed"] = (tq["B2"][0], plainq)
+    bounds["migrate_packed"] = _migrate_bound(len(planes_p), g1.xg.numel(), int(occ_p.sum()))
+    t16, host16, plain16, (_, occ16, planes16, _) = t15m["N=16,384"]
+    g16s = packed["N=16,384"]["gs"]
+    b16 = _migrate_bound(len(planes16), g16s.xg.numel(), int(occ16.sum()))
+    ops15 = _rebuild_ops_2d(m1, g1, f"{smi}: phase 15 N=1M packed (R={r1})",
+                          lambda sc, pl, fl, oc: designs2.previous(prev_b2, sc, pl, fl, r1))
+    extra["migrate_packed"] = {**_b2_extra(tq, hostq), "rebuild_ops": ops15["ops"],
+                               "previous_rebuild_ops": ops15["previous_ops"], "n16384_ms": t16["B2"][0],
+                               "n16384_plain_ms": plain16, "n16384_bound_ms": b16[0],
+                               **_b2_extra(t16, host16, "n16384_")}
     for i, name in enumerate(("cell_force_packed", "cell_force_packed_energy")):
         errors[name] = packed["N=1M"]["errors"][i]
         times[name] = packed["N=1M"]["times"][i]
         bounds[name] = packed["N=1M"]["bounds"][i]
         extra[name] = {"full_capacity_ms": packed["N=1M"]["full"][i]}
-    print(f"phase 15 B2 packed N=1M (R={r1}): bit-equal, {crossing} movers across a block seam; time "
-          f"kernel {times['migrate_packed'][0]:.4f} ms, plain {times['migrate_packed'][1]:.4f} ms, bound "
-          f"{bounds['migrate_packed'][0]:.5f} ms ({bounds['migrate_packed'][1]}) per call", flush=True)
-    del fields_p, scode_p
+    for label, (tt, hh, pl_ms, _) in t15m.items():
+        bb = bounds["migrate_packed"] if label == "N=1M" else b16
+        print(f"{smi}: phase 15 B2 packed {label} (R={packed[label]['md'].rows_per_block}): B2 and its previous "
+              f"design bit-equal to the plain version, also at overflow"
+              + (f", {crossing} movers across a block seam" if label == "N=1M" else "")
+              + f"; time (medians of 7 interleaved repeats of 20 calls, lead): B2 {spread(tt['B2'])}, the previous "
+              f"design (stack, fill, scatter) {spread(tt['previous'])}, its stack {spread(tt['stack'])}, fill "
+              f"{spread(tt['fill'])}, scatter {spread(tt['scatter'])}; plain {pl_ms:.4f} ms; bound {bb[0]:.5f} ms "
+              f"({bb[1]}); host us a call: B2 {hh['B2']:.1f}, previous {hh['previous']:.1f}", flush=True)
+    del t15m, scode_p, occ_p, planes_p, occ16, planes16
 
     # -- 16. B3 against the dense oracle ----------------------------------------
     m16, g16 = packed["N=16,384"]["md"], packed["N=16,384"]["gs"]
@@ -1352,6 +1483,8 @@ def main() -> int:
 
     rng = np.random.default_rng(2020)
     library = {}
+    gdesigns = _designs("torch_gravity_designs")
+    prev_b9 = gdesigns.build(_build.BUILD_DIR / "designs")
     for dim, n, tag in ((2, 16_384, ""), (3, 65_536, "3")):
         pos_g = torch.from_numpy((rng.standard_normal((n, dim)) * 10.0).astype(np.float32)).to(dev)
         m_g = torch.from_numpy((0.5 + rng.random(n)).astype(np.float32)).to(dev)
@@ -1376,6 +1509,10 @@ def main() -> int:
             if not err <= 1e-5 * scale:
                 raise AssertionError(f"B9 N={n} {label}: max abs diff {err:.3e} > 1e-5 * {scale:.3e}")
             errs.append(err / scale)
+        # the previous design, the yardstick, within the same tolerance
+        for got, want in zip(gdesigns.previous(prev_b9, pos_g, m_g, 1.0, 0.1, True), (a_r, phi_r)):
+            if not float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()):
+                raise AssertionError(f"the previous B9 design at N={n}: beyond 1e-5 * max |.| of the plain version")
         errors[names[0]], errors[names[1]] = float((a_k - a_r).abs().max()), max(
             float((a_kp - a_r).abs().max()), float((phi_k - phi_r).abs().max()))
         energy_s = ""
@@ -1385,11 +1522,23 @@ def main() -> int:
             if not abs(e_k - e_ref) <= 1e-5 * abs(e_ref):
                 raise AssertionError(f"B9 N={n}: 0.5 sum(m phi) {e_k} vs Gravity.energy {e_ref}, beyond rtol 1e-5")
             energy_s = f"; 0.5 sum(m phi) {e_k:.6e} vs Gravity.energy {e_ref:.6e} (rel {abs(e_k - e_ref) / abs(e_ref):.2e})"
-        times[names[0]] = (cuda_ms(lambda: accel(pos_g, m_g), 20),
+        t20 = interleaved_ms({
+            "B9": lambda: accel(pos_g, m_g),
+            "previous": lambda: gdesigns.previous(prev_b9, pos_g, m_g, 1.0, 0.1),
+            "B9 potential": lambda: accel_phi(pos_g, m_g),
+            "previous potential": lambda: gdesigns.previous(prev_b9, pos_g, m_g, 1.0, 0.1, True),
+        }, reps=20 if n == 16_384 else 3)
+        times[names[0]] = (t20["B9"][0],
                            cuda_ms(lambda: pairwise_cuda.gravity_accel_pairwise_reference(pos_g, m_g, 1.0, 0.1), 3))
-        times[names[1]] = (cuda_ms(lambda: accel_phi(pos_g, m_g), 20),
+        times[names[1]] = (t20["B9 potential"][0],
                            cuda_ms(lambda: pairwise_cuda.gravity_accel_pairwise_reference(pos_g, m_g, 1.0, 0.1, True), 3))
-        bounds[names[0]], bounds[names[1]] = _gravity_bounds(n, dim)
+        bounds[names[0]], bounds[names[1]] = roofline.gravity_bounds(n, dim)
+        sfu_ms = roofline.rsqrt_ms(n)
+        for name, key in ((names[0], "previous"), (names[1], "previous potential")):
+            extra[name] = {"previous_ms": t20[key][0]}
+        print(f"{smi}: phase 20 B9 N={n} {dim}D time (medians of 7 interleaved repeats): "
+              + ", ".join(f"{k} {spread(v)}" for k, v in t20.items())
+              + f"; one rsqrt a pair on the special-function unit {sfu_ms:.5f} ms", flush=True)
         print(f"phase 20 B9 N={n} {dim}D: launches {launches[names[0]]} + {launches[names[1]]} (potential); "
               f"a, a (potential variant), phi max abs diff / max |.|: {errs[0]:.2e}, {errs[1]:.2e}, "
               f"{errs[2]:.2e}; two launches bit-equal{energy_s}", flush=True)
@@ -1424,7 +1573,7 @@ def main() -> int:
         t21 = interleaved_ms({"b10": lambda: copy_cuda.chunked_copy(src), "copy_": lambda: dst.copy_(src)})
         times[name] = (t21["b10"][0], cuda_ms(lambda: copy_cuda.copy_reference(src), 20))
         library[name] = t21["copy_"][0]
-        bounds[name] = _bound(0.0, op.bytes_per_call)  # each byte read once and written once
+        bounds[name] = roofline.bound(0.0, op.bytes_per_call)  # each byte read once and written once
         ctx = runners.BenchContext(BenchConfig(warmup=1, repeats=2, steps=20), print, dev)
         reset_counts()
         avg = runners._timed_loop(ctx, op, (src,), 1, chain="direct")
@@ -1446,8 +1595,8 @@ def main() -> int:
 
     sweep = dict(warmup=1, repeats=2, steps=20, matrix_size=4096, matrix_depth=6, conv_size=128,
                  batch_size=64, conv_cin=32, conv_cout=64)
-    peak_gibs = PEAK_HBM_BYTES / 2**30
-    for precision, peak in (("float32", PEAK_FP32_FLOPS), ("bfloat16", PEAK_BF16_FLOPS)):
+    peak_gibs = roofline.PEAK_HBM_BYTES / 2**30
+    for precision, peak in (("float32", roofline.PEAK_FP32_FLOPS), ("bfloat16", roofline.PEAK_BF16_FLOPS)):
         t22 = time.perf_counter()
         rows = runners.run_sweep(BenchConfig(precision=precision, **sweep), log=lambda m: None, device=dev)
         if [r["test"] for r in rows] != [name for name, _ in runners.ALL_BENCHMARKS]:
@@ -1562,10 +1711,6 @@ def main() -> int:
     for energy in (False, True):
         if not all(torch.equal(a, b) for a, b in zip(full2[energy], cell_cuda.grid_force_loop(g2.xg, g2.yg, p2, energy))):
             raise AssertionError(f"B1 at N={cfg2s.n} (energy {energy}): not torch.equal to B1's loop")
-    _, _, scode2, _, _, _ = md2s._migration_dest(g2)
-    fields2 = torch.stack([torch.remainder(g2.xg, md2s.box), torch.remainder(g2.yg, md2s.box),
-                           g2.vxg, g2.vyg, g2.fxg, g2.fyg, g2.pid.float(), g2.crx, g2.cry, g2.cvx, g2.cvy])
-    full_m2 = migrate_cuda.migrate(scode2, fields2, fills)
     errors["cell_force_halo"] = errors["cell_force_halo_energy"] = errors["migrate_halo"] = 0.0
 
     for n_blocks in (1, 2, 4):
@@ -1585,35 +1730,66 @@ def main() -> int:
             if energy:
                 err = max(err, _sums_close(got[2:], plain[2:], name, 1e-5))
             errors[name] = max(errors[name], err)
-        cb, fb = halo_blocks(scode2, n_blocks), halo_blocks(fields2, n_blocks, dim=1)
-        got_m = torch.cat([migrate_cuda.migrate_halo(c, f, fills) for c, f in zip(cb, fb)], dim=1)
-        plain_m = torch.cat([migrate_cuda.migrate_halo_reference(c, f, fills) for c, f in zip(cb, fb)], dim=1)
-        if not (torch.equal(got_m, full_m2) and torch.equal(got_m, plain_m)):
-            raise AssertionError(f"B2 halo over {n_blocks} row blocks is not bit-equal to B2 and to its plain version")
+    # B2 halo over 1-4 row blocks (the slices of one stacked tensor of the
+    # (rows + 2) planes, as the sharded engine's exchange leaves them), on
+    # the rebuild's inputs and at overflow: bit-equal to B2 on the whole
+    # grid, to its plain halo version and to the previous design's halo form
+    for label24, st24 in (("state", g2), ("overflow state", designs2.overflow_state(md2s, g2))):
+        sc24, oc24, pl24, fl24, ovf24 = designs2.rebuild_inputs(md2s, st24)
+        stk24 = torch.stack(pl24)
+        full_m2 = migrate_cuda.migrate(sc24, pl24, fl24, occ=oc24)
+        if not torch.equal(full_m2, migrate_cuda.migrate_reference(sc24, stk24, fl24)):
+            raise AssertionError(f"B2 at N={cfg2s.n} ({label24}) is not bit-equal to its plain version")
+        for n_blocks in (1, 2, 3, 4):
+            cb, fb = halo_blocks(sc24, n_blocks), halo_blocks(stk24, n_blocks, dim=1)
+            got_m = torch.cat([migrate_cuda.migrate_halo(c, f, fl24, occ=o)
+                               for c, f, o in zip(cb, fb, oc24.chunk(n_blocks))], dim=1)
+            plain_m = torch.cat([migrate_cuda.migrate_halo_reference(c, f, fl24) for c, f in zip(cb, fb)], dim=1)
+            prev_m = torch.cat([designs2.previous(prev_b2, c, f, fl24, halo=True) for c, f in zip(cb, fb)], dim=1)
+            if not (torch.equal(got_m, full_m2) and torch.equal(got_m, plain_m) and torch.equal(prev_m, plain_m)):
+                raise AssertionError(f"B2 halo over {n_blocks} row blocks ({label24}) is not bit-equal to B2, to its "
+                                     "plain version and to the previous design")
+        if bool(ovf24) is not (label24 == "overflow state"):
+            raise AssertionError(f"phase 24 {label24}: overflow {bool(ovf24)}")
     # one rank's shapes at world size 1: all 120 rows and the two halo rows
+    scode2, occ2n, planes2, fills2, _ = designs2.rebuild_inputs(md2s, g2)
     (xh,), (yh,) = halo_blocks(g2.xg, 1, md2s.box), halo_blocks(g2.yg, 1)
-    (ch,), (fh,) = halo_blocks(scode2, 1), halo_blocks(fields2, 1, dim=1)
+    (ch,), (fh,) = halo_blocks(scode2, 1), halo_blocks(torch.stack(planes2), 1, dim=1)
     t24, tile24 = _tile_times(cell_cuda, (xh, yh, p2), md2s.cps, halo=True)
     times["cell_force_halo"] = (t24["tile"][0], cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2), 10))
     times["cell_force_halo_energy"] = (
         t24["tile_e"][0], cuda_ms(lambda: cell_cuda.grid_force_halo_reference(xh, yh, p2, True), 10))
     extra["cell_force_halo"] = {"loop_ms": t24["loop"][0], "tile": list(tile24[0])}
     extra["cell_force_halo_energy"] = {"loop_ms": t24["loop_e"][0], "tile": list(tile24[1])}
-    times["migrate_halo"] = (cuda_ms(lambda: migrate_cuda.migrate_halo(ch, fh, fills), 50),
-                             cuda_ms(lambda: migrate_cuda.migrate_halo_reference(ch, fh, fills), 10))
-    full_ms2 = (cuda_ms(lambda: cell_cuda.grid_force(g2.xg, g2.yg, p2), 50, lead=True),
-                cuda_ms(lambda: migrate_cuda.migrate(scode2, fields2, fills), 50))
+    fns24 = {
+        "B2 halo": lambda: migrate_cuda.migrate_halo(ch, fh, fills2, occ=occ2n),
+        "previous": lambda: designs2.previous(prev_b2, ch, fh, fills2, halo=True),
+        "fill": lambda: designs2.previous(prev_b2, ch, fh, fills2, halo=True, what=1),
+        "scatter": lambda: designs2.previous(prev_b2, ch, fh, fills2, halo=True, what=2),
+        "B2": lambda: migrate_cuda.migrate(scode2, planes2, fills2, occ=occ2n),
+    }
+    t24m = interleaved_ms(fns24, lead=True)
+    host24 = {k: host_us(fns24[k]) for k in ("B2 halo", "previous")}
+    times["migrate_halo"] = (t24m["B2 halo"][0], cuda_ms(lambda: migrate_cuda.migrate_halo_reference(ch, fh, fills2), 10))
+    extra["migrate_halo"] = {"previous_ms": t24m["previous"][0], "previous_fill_ms": t24m["fill"][0],
+                             "previous_scatter_ms": t24m["scatter"][0], "host_us": host24["B2 halo"],
+                             "previous_host_us": host24["previous"]}
+    full_ms2 = (cuda_ms(lambda: cell_cuda.grid_force(g2.xg, g2.yg, p2), 50, lead=True), t24m["B2"][0])
     work2s = _pair_work((g2.xg, g2.yg), g2.occ, md2s.cps, md2s.cap, md2s.box, p2.cutoff2)
     bounds["cell_force_halo"], bounds["cell_force_halo_energy"] = _force_bounds(work2s, 2, g2.xg.numel(), xh.numel())
-    # one block: every particle lands in the local rows once
-    bounds["migrate_halo"] = _migrate_bound(fields2.shape[0], g2.xg.numel(), int((scode2 >= 0).sum()), ch.numel())
+    # one block: every particle lands in the local rows once; the local
+    # occupancy in besides the permutation
+    bounds["migrate_halo"] = _migrate_bound(len(planes2), g2.xg.numel(), int(occ2n.sum()), ch.numel())
     print(f"{smi}: phase 24 2D halo kernels, N={cfg2s.n} (grid {tuple(g2.xg.shape)}): B1 (both variants) "
           f"torch.equal to B1's loop; over 1, 2 and 4 row blocks B1 halo (both variants, the (rows + 2) and the "
-          f"edge-row forms, and B1 halo's loop) and B2 halo bit-equal to B1 and B2 on the whole grid; against their "
-          f"plain versions: forces {errors['cell_force_halo']:.3e}, energy variant "
-          f"{errors['cell_force_halo_energy']:.3e}, B2 halo bit-equal; at one rank's shape B1 halo "
-          f"{times['cell_force_halo'][0]:.4f} ms against B1 {full_ms2[0]:.4f} ms, B2 halo "
-          f"{times['migrate_halo'][0]:.4f} ms against B2 {full_ms2[1]:.4f} ms", flush=True)
+          f"edge-row forms, and B1 halo's loop), and over 1-4 row blocks B2 halo, also at overflow, bit-equal to B1 "
+          f"and B2 on the whole grid; against their plain versions: forces {errors['cell_force_halo']:.3e}, energy "
+          f"variant {errors['cell_force_halo_energy']:.3e}, B2 halo bit-equal (the previous design too); at one "
+          f"rank's shape B1 halo {times['cell_force_halo'][0]:.4f} ms against B1 {full_ms2[0]:.4f} ms; B2 halo "
+          f"(medians of 7 interleaved repeats of 20 calls, lead) {spread(t24m['B2 halo'])} against B2 "
+          f"{spread(t24m['B2'])}, the previous design {spread(t24m['previous'])} (its fill {spread(t24m['fill'])}, "
+          f"scatter {spread(t24m['scatter'])}); host us a call: B2 halo {host24['B2 halo']:.1f}, previous "
+          f"{host24['previous']:.1f}", flush=True)
     for name in ("cell_force_halo", "cell_force_halo_energy", "migrate_halo"):
         print(f"phase 24 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
@@ -1716,8 +1892,7 @@ def main() -> int:
     b4h, b4he = _force_bounds(_pair_work(c3s, g3.occ, md3s.cps, mo3, md3s.box, p3s.cutoff2), 3, n_out3, n_in3)
     b5h, _ = _force_bounds(_pair_work(c3s, g3.occ, md3s.cps, cov3, md3s.box, p3s.cutoff2), 3, n_out3, n_in3)
     bounds.update(cell_force3_halo=b4h, cell_force3_halo_energy=b4he, cell_force3_counted_halo=b5h,
-                  migrate3_halo=_migrate_bound(fields3s.shape[0], n_out3, int(occ_new3s.sum()), ch3.numel(),
-                                                extra_planes=1))
+                  migrate3_halo=_migrate_bound(fields3s.shape[0], n_out3, int(occ_new3s.sum()), ch3.numel()))
     print(f"phase 25 3D halo kernels, N={cfg3s.n} (grid {tuple(g3.xg.shape)}, skin {md3s.skin:.4f}, max "
           f"occupancy {mo3}, B5 bound {cov3}): B5 (both variants) torch.equal to B5's full loop on the "
           f"whole grid; over 1, 2 and 3 x-row blocks B4 halo (both variants), B5 halo (both variants) and "
@@ -1784,10 +1959,20 @@ def main() -> int:
         # window's dmax2 takes, and one step's exchange of the edge rows
         probe = torch.zeros((), device=dev)
         coords = [torch.zeros(sharded.grid_shape, device=dev) for _ in range(c.dim)]
-        us_reduce = _host_us(lambda: sharded._all_max(probe))
-        us_halo = _host_us(lambda: sharded._with_halo(*coords))
+        us_reduce = host_us(lambda: sharded._all_max(probe))
+        us_halo = host_us(lambda: sharded._with_halo(*coords))
         # the 2D force reads the edge rows where the exchange leaves them
-        us_edges = _host_us(lambda: sharded._edge_rows(*coords)) if label == "2D" else None
+        us_edges = host_us(lambda: sharded._edge_rows(*coords)) if label == "2D" else None
+        if label == "2D":
+            # one rebuild's device ops with B2 halo and with the previous design
+            gsh = sharded.init(res_s.state.position, res_s.state.velocity)
+
+            def previous_halo(sc, pl, fl, oc, md=sharded):
+                return designs2.previous(prev_b2, *md._halo_planes(sc, torch.stack(pl)), fl, halo=True)
+
+            ops26 = _rebuild_ops_2d(sharded, sharded._window_for(gsh, k2)(gsh), f"{smi}: phase 26 sharded 2D",
+                                  previous_halo)
+            extra["migrate_halo"].update(rebuild_ops=ops26["ops"], previous_rebuild_ops=ops26["previous_ops"])
         if label == "3D":
             # one rebuild's device ops, and its exchange of the code and field
             # edge rows as B6 halo takes them (a stack of the planes, the
@@ -1796,7 +1981,7 @@ def main() -> int:
             gsh = sharded._window_for(gsh, res_s.cadence or 9)(gsh)
             _rebuild_ops(sharded, gsh, "phase 26 sharded 3D")
             sc_h, _, pl_h, _ = designs.rebuild_inputs(sharded, gsh)
-            us_mig = _host_us(lambda: sharded._halo_planes(sc_h, torch.stack(pl_h)))
+            us_mig = host_us(lambda: sharded._halo_planes(sc_h, torch.stack(pl_h)))
         steps = c.eq_steps + c.prod_steps
         ms_s = 1e3 * (res_s.time_eq_s + res_s.time_prod_s) / steps
         ms_u = 1e3 * (res_u.time_eq_s + res_u.time_prod_s) / steps

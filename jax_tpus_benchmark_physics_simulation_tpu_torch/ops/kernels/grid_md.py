@@ -349,7 +349,8 @@ class GridMD:
 
     def _rebuild_migrate(self, s: GridMDState) -> GridMDState:
         """Sort-free re-binning: allocation in plain PyTorch, then one
-        kernel-B2 launch that moves every field. A particle that moved
+        kernel-B2 launch that moves every field from where it lies and
+        fills the slots the allocation leaves empty. A particle that moved
         further than one cell raises ``overflow`` and is kept in place.
         Coordinates are wrapped back into [0, box) here, the only place
         they ever are, and empty slots are re-filled with the sentinel."""
@@ -360,7 +361,7 @@ class GridMD:
         if s.crx is not None:
             fields += [s.crx, s.cry, s.cvx, s.cvy]
             fills += [0.0, 0.0, 0.0, 0.0]
-        out = self._migrate(scode, torch.stack(fields), fills)
+        out = self._migrate(scode, fields, fills, occ)
         comp = {}
         if s.crx is not None:
             comp = dict(crx=out[7], cry=out[8], cvx=out[9], cvy=out[10])
@@ -371,9 +372,10 @@ class GridMD:
             dmax2=torch.zeros_like(s.dmax2), overflow=self._all_max(overflow), **comp,
         )
 
-    def _migrate(self, scode: torch.Tensor, fields: torch.Tensor, fills) -> torch.Tensor:
-        """The rebuild's permutation of the stacked fields: kernel B2."""
-        return migrate(scode, fields, fills, self.rows_per_block)
+    def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor) -> torch.Tensor:
+        """The rebuild's permutation of the field planes: kernel B2; ``occ``
+        is the allocation's occupancy of the output."""
+        return migrate(scode, fields, fills, self.rows_per_block, occ=occ)
 
     # -- rebuild (sort-based oracle) -------------------------------------------
     def _rebuild(self, s: GridMDState) -> GridMDState:

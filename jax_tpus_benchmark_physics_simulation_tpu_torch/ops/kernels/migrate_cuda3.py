@@ -15,8 +15,9 @@ bounds the kernel on an H100.
 ``GridMD3._migration_dest3``: ``dcode * cap + a`` for a slot moving in
 direction ``dcode = ((dx+1)*3 + (dy+1))*3 + (dz+1)`` to slot ``a`` of its
 target cell, -1 for an empty or invalid slot. ``planes`` is a sequence of F
-(ncx, cap, ncy * ncz) float32 field planes, read where they lie (a stacked
-(F, ncx, cap, ncy * ncz) tensor is such a sequence); the output is one (F,
+(ncx, cap, ncy * ncz) float32 field planes, read where they lie, or one
+stacked (F, ncx, cap, ncy * ncz) tensor, addressed from its base
+(:mod:`._planes`); the output is one (F,
 ncx, cap, ncy * ncz) tensor. ``occ`` is the allocation's occupancy of the
 output (1.0 where a source lands, 0.0 elsewhere: ``_migration_dest3``'s
 ``occ_new``): the kernel fills the slots it leaves empty.
@@ -44,11 +45,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import _build
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import _build, _planes
 
 LAUNCHES = 0
 FLAT_LAUNCHES = 0
@@ -137,43 +138,43 @@ def _sync_words(device: torch.device, stream: int) -> torch.Tensor:
     return _SYNC[key]
 
 
-def _check(scode: torch.Tensor, planes: Sequence[torch.Tensor], fills: Sequence[float], occ: torch.Tensor,
-           rows: int, what: str) -> List[torch.Tensor]:
+def _check(scode: torch.Tensor, planes: _planes.Planes, fills: Sequence[float], occ: torch.Tensor,
+           rows: int, what: str) -> int:
     """Checks ``scode`` (int32, ``(rows + 2 * halo, cap, c*c)``), the F field
-    planes (float32, the code grid's shape), ``occ`` (float32, ``(rows, cap,
-    c*c)``), all contiguous on one cpu or cuda device, and one fill a field;
-    ``what`` names the source rows in messages. Returns the planes as a
-    list."""
+    planes (float32, the code grid's shape; :mod:`._planes` takes their two
+    forms), ``occ`` (float32, ``(rows, cap, c*c)``), all contiguous on one
+    cpu or cuda device, and one fill a field; ``what`` names the source rows
+    in messages. Returns F."""
     if scode.dtype != torch.int32:
         raise TypeError(f"expected int32 scode, got {scode.dtype}")
     shape = tuple(scode.shape)
     c = math.isqrt(shape[2]) if len(shape) == 3 else 0
-    planes = list(planes)
-    if not planes:
+    n_fields = len(planes)
+    if not n_fields:
         raise ValueError("planes: no field plane")
-    for f in planes:
+    for f, plane in _planes.shaped(planes):
         if f.dtype != torch.float32:
             raise TypeError(f"expected float32 field planes, got {f.dtype}")
-        if c * c != shape[-1] or tuple(f.shape) != shape:
-            raise ValueError(f"scode {shape} and field plane {tuple(f.shape)} do not describe one cubic ({what}, "
+        if c * c != shape[-1] or plane != shape:
+            raise ValueError(f"scode {shape} and field planes {tuple(f.shape)} do not describe one cubic ({what}, "
                              "cap, ncy*ncz) grid")
         if not (f.is_contiguous() and scode.is_contiguous()):
             raise ValueError("field planes and scode must be contiguous")
         if f.device != scode.device:
             raise ValueError(f"scode on {scode.device}, field plane on {f.device}")
-    if len(fills) != len(planes):
-        raise ValueError(f"{len(fills)} fills for {len(planes)} fields")
+    if len(fills) != n_fields:
+        raise ValueError(f"{len(fills)} fills for {n_fields} fields")
     if scode.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the migrate kernels run on cpu or cuda tensors, not {scode.device}")
-    if scode.device.type == "cuda" and len(planes) > MAX_FIELDS:
-        raise ValueError(f"the migrate kernel moves at most {MAX_FIELDS} fields, got {len(planes)}")
+    if scode.device.type == "cuda" and n_fields > MAX_FIELDS:
+        raise ValueError(f"the migrate kernel moves at most {MAX_FIELDS} fields, got {n_fields}")
     occ_shape = (rows,) + shape[1:]
     if occ.dtype != torch.float32 or tuple(occ.shape) != occ_shape or not occ.is_contiguous():
         raise ValueError(f"occ: expected a contiguous float32 {occ_shape} grid, got {occ.dtype} "
                          f"{tuple(occ.shape)}")
     if occ.device != scode.device:
         raise ValueError(f"occ: on {occ.device}, expected {scode.device}")
-    return planes
+    return n_fields
 
 
 def _check_k_mov(k_mov: Optional[int]) -> None:
@@ -187,7 +188,7 @@ def _cpu_flag(scode: torch.Tensor, k_mov: Optional[int]) -> torch.Tensor:
     return mover_overflow(scode, k_mov)
 
 
-def _launch(scode: torch.Tensor, planes: List[torch.Tensor], occ: torch.Tensor, fills, k_mov, halo: bool,
+def _launch(scode: torch.Tensor, planes: _planes.Planes, occ: torch.Tensor, fills, k_mov, halo: bool,
             what: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of ``jtps_migrate3`` into a new (F, rows, cap, c * c)
     output and a 0-d bool flag."""
@@ -198,7 +199,7 @@ def _launch(scode: torch.Tensor, planes: List[torch.Tensor], occ: torch.Tensor, 
     stream = torch.cuda.current_stream(device).cuda_stream
     c = math.isqrt(plane)
     status = _launcher()(
-        scode.data_ptr(), (ctypes.c_void_p * n_fields)(*(f.data_ptr() for f in planes)), occ.data_ptr(),
+        scode.data_ptr(), _planes.pointers(planes), occ.data_ptr(),
         out.data_ptr(), flag.data_ptr(), _sync_words(device, stream).data_ptr(),
         (ctypes.c_float * n_fields)(*fills), n_fields, rows, cap, c, c, k_mov or 0, int(halo), device.index,
         stream,
@@ -209,7 +210,7 @@ def _launch(scode: torch.Tensor, planes: List[torch.Tensor], occ: torch.Tensor, 
 
 def migrate3(
     scode: torch.Tensor,
-    planes: Sequence[torch.Tensor],
+    planes: _planes.Planes,
     fills: Sequence[float],
     k_mov: Optional[int] = None,
     *,
@@ -221,10 +222,10 @@ def migrate3(
     ``mov_of`` is :func:`mover_overflow`, without it (B7) always False; on
     the card a 0-d bool the kernel wrote."""
     global LAUNCHES, FLAT_LAUNCHES
-    planes = _check(scode, planes, fills, occ, scode.shape[0], "ncx")
+    _check(scode, planes, fills, occ, scode.shape[0], "ncx")
     _check_k_mov(k_mov)
     if scode.device.type == "cpu":
-        return migrate3_reference(scode, torch.stack(planes), fills), _cpu_flag(scode, k_mov)
+        return migrate3_reference(scode, _planes.stacked(planes), fills), _cpu_flag(scode, k_mov)
     out, flag = _launch(scode, planes, occ, fills, k_mov, False, "migrate3 kernel")
     if k_mov is None:
         FLAT_LAUNCHES += 1
@@ -235,7 +236,7 @@ def migrate3(
 
 def migrate3_halo(
     scode: torch.Tensor,
-    planes: Sequence[torch.Tensor],
+    planes: _planes.Planes,
     fills: Sequence[float],
     k_mov: Optional[int] = None,
     *,
@@ -249,10 +250,10 @@ def migrate3_halo(
     rows = scode.shape[0] - 2
     if scode.dim() != 3 or rows < 1:
         raise ValueError(f"scode {tuple(scode.shape)}: expected (rows + 2, cap, c*c) with rows >= 1")
-    planes = _check(scode, planes, fills, occ, rows, "rows + 2")
+    _check(scode, planes, fills, occ, rows, "rows + 2")
     _check_k_mov(k_mov)
     if scode.device.type == "cpu":
-        return migrate3_halo_reference(scode, torch.stack(planes), fills), _cpu_flag(scode[1:-1], k_mov)
+        return migrate3_halo_reference(scode, _planes.stacked(planes), fills), _cpu_flag(scode[1:-1], k_mov)
     out, flag = _launch(scode, planes, occ, fills, k_mov, True, "migrate3 halo kernel")
     HALO_LAUNCHES += 1
     return out, flag

@@ -28,8 +28,12 @@ block are gone.
   the energy variant, counted where the wrapper launches them.
 
 B9 replaces ``_gravity_kernel`` (built by ``make_gravity_accel_pallas``);
-its source is ``csrc/pairwise_gravity.cu``, B8's design with ``(x, y[, z],
-m)`` j-tiles and ``rsqrtf`` as the TPU kernel's ``lax.rsqrt``:
+its source is ``csrc/pairwise_gravity.cu``, B8's design and launch geometry
+(four i-particles a thread, explicit FMAs, the ``j == i`` select only on
+the tiles that hold the block's own particles) with one ``float4`` ``(x, y,
+g m, 0)`` or ``(x, y, z, g m)`` a staged j and one approximate rsqrt a pair,
+as the TPU kernel's ``lax.rsqrt``; its header says what bounds it (the
+pair's float32 instructions, then the special-function unit's rsqrt):
 
 - :func:`gravity_accel_pairwise_reference`: the plain version, the Pallas
   body's own formula, in row chunks;
@@ -57,16 +61,14 @@ ENERGY_LAUNCHES = 0
 GRAVITY_LAUNCHES = 0
 GRAVITY_POTENTIAL_LAUNCHES = 0
 
-# B8 (csrc/pairwise_lj.cu): blocks of LJ_THREADS threads take LJ_ROWS
-# i-particles (four a thread); j is cut into at most LJ_MAX_SLICES slices of
-# whole LJ_TILE tiles: 32 row blocks x 32 slices = 1024 blocks at N=16,384
-LJ_THREADS = 128
-LJ_ROWS = 4 * LJ_THREADS
-LJ_TILE = 512
-LJ_MAX_SLICES = 32
-# B9 (csrc/pairwise_gravity.cu): one i-particle a thread, 256-particle tiles
-THREADS = 256  # kThreads in csrc/pairwise_gravity.cu: a block's rows and a j-tile
-MAX_SLICES = 16  # j slices: 64 row blocks x 16 = 1024 blocks at N=16,384
+# B8 and B9 (csrc/pairwise_lj.cu, csrc/pairwise_gravity.cu): blocks of
+# THREADS threads take ROWS i-particles (four a thread); j is cut into at
+# most MAX_SLICES slices of whole TILE tiles: 32 row blocks x 32 slices =
+# 1024 blocks at N=16,384
+THREADS = 128
+ROWS = 4 * THREADS
+TILE = 512
+MAX_SLICES = 32
 _REFERENCE_PAIRS = 1 << 27  # pair elements one chunk of the plain version holds
 
 
@@ -145,18 +147,12 @@ def _cut(n: int, tile: int, max_slices: int) -> Tuple[int, int]:
     return -(-tiles // per_slice), per_slice * tile
 
 
-def _slices(n: int) -> Tuple[int, int]:
-    """B9's ``(S, slice_len)``: at most ``MAX_SLICES`` slices of whole
-    ``THREADS``-particle tiles."""
-    return _cut(n, THREADS, MAX_SLICES)
-
-
-def _lj_geometry(n: int) -> Tuple[int, int, int]:
-    """B8's launch: ``(row_blocks, S, slice_len)``. Row block ``b`` takes
-    i-particles ``b * LJ_ROWS + k * LJ_THREADS + t`` (thread ``t``, ``k`` <
-    4) below ``n``; slice ``s`` takes j in ``[s * slice_len, (s + 1) *
-    slice_len)`` below ``n``, in tiles of ``LJ_TILE``."""
-    return (-(-n // LJ_ROWS),) + _cut(n, LJ_TILE, LJ_MAX_SLICES)
+def _geometry(n: int) -> Tuple[int, int, int]:
+    """The launch of B8 and B9: ``(row_blocks, S, slice_len)``. Row block
+    ``b`` takes i-particles ``b * ROWS + k * THREADS + t`` (thread ``t``,
+    ``k`` < 4) below ``n``; slice ``s`` takes j in ``[s * slice_len, (s + 1) *
+    slice_len)`` below ``n``, in tiles of ``TILE``."""
+    return (-(-n // ROWS),) + _cut(n, TILE, MAX_SLICES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -190,7 +186,7 @@ def lj_force_pairwise(
     if position.device.type != "cuda":
         raise ValueError(f"lj_force_pairwise runs on cpu or cuda tensors, not {position.device}")
     n, dim = position.shape
-    _, slices, slice_len = _lj_geometry(n)
+    _, slices, slice_len = _geometry(n)
     partial = torch.empty((slices, n, dim + 1), dtype=torch.float32, device=position.device)
     f = torch.empty_like(position)
     e = torch.empty(n, dtype=torch.float32, device=position.device) if with_energy else None
@@ -359,7 +355,7 @@ def gravity_accel_pairwise(
     if position.device.type != "cuda":
         raise ValueError(f"gravity_accel_pairwise runs on cpu or cuda tensors, not {position.device}")
     n, dim = position.shape
-    slices, slice_len = _slices(n)
+    _, slices, slice_len = _geometry(n)
     partial = torch.empty((slices, n, dim + 1), dtype=torch.float32, device=position.device)
     a = torch.empty_like(position)
     phi = torch.empty(n, dtype=torch.float32, device=position.device) if with_potential else None

@@ -196,8 +196,9 @@ class ShardedGridMD(RowSharded, GridMD):
         """B1 halo's energy variant: ``(fx, fy, e, w)`` on this rank's rows."""
         return self._halo_force(xg, yg, with_energy=True)
 
-    def _migrate(self, scode: torch.Tensor, fields: torch.Tensor, fills) -> torch.Tensor:
-        return migrate_halo(*self._halo_planes(scode, fields), fills)
+    def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor) -> torch.Tensor:
+        code, ext = self._halo_planes(scode, torch.stack(fields))
+        return migrate_halo(code, ext, fills, occ=occ)
 
     def force_once(self, s: GridMDState):
         """One sharded force evaluation: this rank's ``(fx, fy)``."""

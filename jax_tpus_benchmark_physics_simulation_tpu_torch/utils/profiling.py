@@ -9,7 +9,7 @@ drivers make once per window, :func:`rebuild_read_cost` the host read of
 ``max_occ`` that the 3D engine's hybrid kernel choice makes once per
 rebuild period. :func:`cuda_ms` times a call on the card with CUDA events,
 :func:`interleaved_ms` several calls in turns, :func:`spread` prints one
-of its results.
+of its results, :func:`host_us` times a call on the host's clock.
 """
 
 from __future__ import annotations
@@ -86,6 +86,18 @@ def interleaved_ms(
 def spread(t: Tuple[float, float, float]) -> str:
     """A ``(median, min, max)`` triple of :func:`interleaved_ms` as text."""
     return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
+
+
+def host_us(fn: Callable[[], object], reps: int = 200) -> float:
+    """Host microseconds a call of ``fn()``, work on the card included:
+    ``reps`` calls after one warm call, ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / reps
 
 
 def _paired_medians(timed: Callable[[bool], float], repeats: int) -> Tuple[float, float]:

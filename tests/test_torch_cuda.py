@@ -25,6 +25,10 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import (
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD
 
+# the rebuild's inputs and overflow states of the B2 checks, from this
+# directory (pytest puts it on sys.path; the card may lack the conftest)
+import torch_migrate_designs  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 
@@ -131,15 +135,26 @@ def test_tile_halo_kernel_bit_equal_to_whole_grid(cuda_device, p):
     assert after == (before[0] + 4 * p, before[1] + 2 * p)
 
 
+def _b2_cases(md, gs):
+    """The rebuild's inputs (``torch_migrate_designs.rebuild_inputs``: the
+    code grid, the allocation's occupancy, the 11 planes where they lie,
+    the fills, the overflow flag) on ``gs`` and on its overflow state (a
+    cell crowded past its capacity)."""
+    cases = [torch_migrate_designs.rebuild_inputs(md, gs),
+             torch_migrate_designs.rebuild_inputs(md, torch_migrate_designs.overflow_state(md, gs))]
+    assert [bool(c[4]) for c in cases] == [False, True]
+    return cases
+
+
 def test_migrate_kernel_bit_equal(cuda_device):
+    """B2 (one launch: fill and scatter) torch.equal to its plain version,
+    the planes passed as a list of separate tensors, also at overflow."""
     md, gs = _advanced_state(cuda_device)
-    _, _, scode, _, _, _ = md._migration_dest(gs)
-    fields = torch.stack([gs.xg, gs.yg, gs.vxg, gs.vyg, gs.pid.float()])
-    fills = [md.sentinel, 0.0, 0.0, 0.0, -1.0]
-    before = migrate_cuda.LAUNCHES
-    got = migrate_cuda.migrate(scode, fields, fills)
-    assert torch.equal(got, migrate_cuda.migrate_reference(scode, fields, fills))
-    assert migrate_cuda.LAUNCHES == before + 1
+    for scode, occ, planes, fills, _ in _b2_cases(md, gs):
+        before = migrate_cuda.LAUNCHES
+        got = migrate_cuda.migrate(scode, planes, fills, occ=occ)
+        assert torch.equal(got, migrate_cuda.migrate_reference(scode, torch.stack(planes), fills))
+        assert migrate_cuda.LAUNCHES == before + 1
 
 
 @pytest.mark.parametrize("rows_per_block", [4, 24])  # G = 6 and 1
@@ -174,13 +189,53 @@ def test_cell_force_packed_kernel_matches_plain(cuda_device, rows_per_block):
 @pytest.mark.parametrize("rows_per_block", [4, 24])
 def test_migrate_packed_kernel_bit_equal(cuda_device, rows_per_block):
     md, gs = _advanced_state(cuda_device, rows_per_block)
-    _, _, scode, _, _, _ = md._migration_dest(gs)
-    fields = torch.stack([gs.xg, gs.yg, gs.vxg, gs.vyg, gs.pid.float()])
-    fills = [md.sentinel, 0.0, 0.0, 0.0, -1.0]
-    before = (migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES)
-    got = migrate_cuda.migrate(scode, fields, fills, rows_per_block)
-    assert torch.equal(got, migrate_cuda.migrate_reference(scode, fields, fills, rows_per_block))
-    assert (migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES) == (before[0], before[1] + 1)
+    for scode, occ, planes, fills, _ in _b2_cases(md, gs):
+        before = (migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES)
+        got = migrate_cuda.migrate(scode, planes, fills, rows_per_block, occ=occ)
+        assert torch.equal(got, migrate_cuda.migrate_reference(scode, torch.stack(planes), fills, rows_per_block))
+        assert (migrate_cuda.LAUNCHES, migrate_cuda.PACKED_LAUNCHES) == (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("rows_per_block", [7, 49])
+def test_migrate_packed_kernel_across_block_seams(cuda_device, rows_per_block):
+    """Packed B2 at N=16,384 (49 cells per side) with R = 7 (G = 7: block
+    rows of 343 lanes, 11 blocks of 32 lanes, most of them across a seam
+    of cell rows) and R = 49 (G = 1), on a state with movers across the
+    block seams and at overflow: torch.equal to the plain version."""
+    cfg = override(CFG, n=16_384)
+    md = GridMD(lj_fluid._make_grid_md(cfg, cuda_device).grid_fn, dt=cfg.dt, compensated=True,
+                rows_per_block=rows_per_block, device=cuda_device)
+    s0 = lj_fluid.init_state(cfg, cuda_device)
+    gs = md._make_window(md.force_kernel, 20)(md.make_production_run(200, 5, gate_frac=0.35)(
+        md.init(s0.position, s0.velocity)))
+    for scode, occ, planes, fills, _ in _b2_cases(md, gs):
+        sub = torch.div(torch.arange(md.lanes, device=cuda_device), md.cps, rounding_mode="floor")
+        dx = torch.div(scode, 3 * md.cap, rounding_mode="floor") - 1
+        if rows_per_block == 7:
+            assert int(((scode >= 0) & (((dx == -1) & (sub == 0)) | ((dx == 1) & (sub == 6)))).sum()) > 0
+        got = migrate_cuda.migrate(scode, planes, fills, rows_per_block, occ=occ)
+        assert torch.equal(got, migrate_cuda.migrate_reference(scode, torch.stack(planes), fills, rows_per_block))
+
+
+def test_migrate_wrappers_reject_a_wrong_occ(cuda_device):
+    """B2 and B2 halo on the card refuse an ``occ`` of the wrong shape, type
+    or device, or not contiguous, before any launch."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import halo_blocks
+
+    md, gs = _advanced_state(cuda_device)
+    scode, occ, planes, fills, _ = _b2_cases(md, gs)[0]
+    (ch,), (fh,) = halo_blocks(scode, 1), halo_blocks(torch.stack(planes), 1, dim=1)
+    before = (migrate_cuda.LAUNCHES, migrate_cuda.HALO_LAUNCHES)
+    for bad in (occ[:, :-1].contiguous(), occ.double(), occ.cpu(), occ.transpose(0, 2), occ.bool()):
+        with pytest.raises(ValueError, match="occ"):
+            migrate_cuda.migrate(scode, planes, fills, occ=bad)
+        with pytest.raises(ValueError, match="occ"):
+            migrate_cuda.migrate_halo(ch, fh, fills, occ=bad)
+    with pytest.raises(ValueError, match="occ"):
+        migrate_cuda.migrate_halo(ch, fh, fills, occ=torch.zeros_like(ch, dtype=torch.float32))
+    with pytest.raises(TypeError, match="occ"):
+        migrate_cuda.migrate(scode, planes, fills)
+    assert (migrate_cuda.LAUNCHES, migrate_cuda.HALO_LAUNCHES) == before
 
 
 def test_cell_force3_kernels_match_plain(cuda_device):
@@ -370,7 +425,7 @@ def test_wrappers_reject_bad_cuda_inputs(cuda_device):
     fields = torch.zeros((17,) + tuple(gs.xg.shape), device=cuda_device)
     scode = torch.full(tuple(gs.xg.shape), -1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="at most"):
-        migrate_cuda.migrate(scode, fields, [0.0] * 17)
+        migrate_cuda.migrate(scode, fields, [0.0] * 17, occ=torch.zeros_like(gs.xg))
     md3, gs3 = _advanced_state3(cuda_device)
     p3 = cell_cuda3.CellForce3Params.from_grid(md3.grid_fn)
     with pytest.raises(ValueError, match="built for"):
@@ -490,17 +545,22 @@ def _bodies(device, n: int, dim: int, seed: int = 0):
     return pos, torch.from_numpy((0.5 + rng.random(n)).astype(np.float32)).to(device)
 
 
+@pytest.mark.parametrize("softening", [0.0, 0.1])
 @pytest.mark.parametrize("n,dim", [(4096, 2), (4096, 3), (3001, 2), (1000, 3)])
-def test_gravity_kernel_matches_plain(cuda_device, n, dim):
+def test_gravity_kernel_matches_plain(cuda_device, n, dim, softening):
     """B9 with and without the potential against its plain version: within
-    1e-5 x max |.| (rsqrtf's 2 ulp and the summation order), two launches
-    bit-equal (no atomics); 3001 and 1000 leave a ragged last tile."""
+    1e-5 x max |.| (the FMAs' roundings and the summation order; the rsqrt
+    is the plain version's), two launches bit-equal (no atomics); 3001 and
+    1000 are not multiples of the 512-particle blocks and tiles, so the last
+    row block and the last tile are ragged; at softening 0 the diagonal
+    tiles' j == i select keeps every value finite."""
     pos, m = _bodies(cuda_device, n, dim, seed=n + dim)
     before = (pairwise_cuda.GRAVITY_LAUNCHES, pairwise_cuda.GRAVITY_POTENTIAL_LAUNCHES)
     for with_potential in (False, True):
-        got = pairwise_cuda.gravity_accel_pairwise(pos, m, 1.0, 0.1, with_potential)
-        again = pairwise_cuda.gravity_accel_pairwise(pos, m, 1.0, 0.1, with_potential)
-        want = pairwise_cuda.gravity_accel_pairwise_reference(pos, m, 1.0, 0.1, with_potential)
+        got = pairwise_cuda.gravity_accel_pairwise(pos, m, 1.0, softening, with_potential)
+        again = pairwise_cuda.gravity_accel_pairwise(pos, m, 1.0, softening, with_potential)
+        want = pairwise_cuda.gravity_accel_pairwise_reference(pos, m, 1.0, softening, with_potential)
+        assert all(bool(torch.isfinite(a).all()) for a in got)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, again))
         for a, b in zip(got, want):
@@ -539,10 +599,11 @@ def test_copy_kernel_bit_equal(cuda_device, dtype):
     assert torch.equal(copy_cuda.chunked_copy(big), big)
 
 
-@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
 def test_halo_kernels_2d_bit_equal_to_whole_grid(cuda_device, p):
     """B1 halo (both variants) and B2 halo over p row blocks (cps 24 at
-    R = 1) against B1 and B2 on the whole grid, and each launch counted."""
+    R = 1) against B1 and B2 on the whole grid, B2 halo also at overflow,
+    the planes separate tensors, and each launch counted."""
     from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import halo_blocks
 
     md, gs = _advanced_state(cuda_device, rows_per_block=1)
@@ -553,14 +614,14 @@ def test_halo_kernels_2d_bit_equal_to_whole_grid(cuda_device, p):
         parts = [cell_cuda.grid_force_halo(x, y, params, with_energy)
                  for x, y in zip(halo_blocks(gs.xg, p, md.box), halo_blocks(gs.yg, p))]
         assert all(torch.equal(torch.cat(q), f) for q, f in zip(zip(*parts), full))
-    _, _, scode, _, _, _ = md._migration_dest(gs)
-    fields = torch.stack([gs.xg, gs.yg, gs.vxg, gs.pid.float()])
-    fills = [md.sentinel, 0.0, 0.0, -1.0]
-    got = torch.cat([migrate_cuda.migrate_halo(c, f, fills)
-                     for c, f in zip(halo_blocks(scode, p), halo_blocks(fields, p, dim=1))], 1)
-    assert torch.equal(got, migrate_cuda.migrate(scode, fields, fills))
+    for scode, occ, planes, fills, _ in _b2_cases(md, gs):
+        blocks = list(zip(*(halo_blocks(f, p) for f in planes)))
+        got = torch.cat([migrate_cuda.migrate_halo(c, list(f), fills, occ=o)
+                         for c, f, o in zip(halo_blocks(scode, p), blocks, occ.chunk(p))], 1)
+        assert torch.equal(got, migrate_cuda.migrate(scode, planes, fills, occ=occ))
+        assert torch.equal(got, migrate_cuda.migrate_reference(scode, torch.stack(planes), fills))
     assert (cell_cuda.HALO_LAUNCHES, cell_cuda.HALO_ENERGY_LAUNCHES, migrate_cuda.HALO_LAUNCHES) == (
-        before[0] + p, before[1] + p, before[2] + p)
+        before[0] + p, before[1] + p, before[2] + 2 * p)
 
 
 @pytest.mark.parametrize("p", [1, 2, 4])

@@ -65,10 +65,11 @@ def state():
 
 def _port_migration(md, s):
     """The port's allocation on the whole grid: the code grid and the
-    stacked fields of a rebuild, and their fills."""
-    xw, yw, scode, _, _, _ = md._migration_dest(s)
+    stacked fields of a rebuild, their fills and the allocation's
+    occupancy."""
+    xw, yw, scode, occ, _, _ = md._migration_dest(s)
     fields = torch.stack([xw, yw, s.vxg, s.vyg, s.fxg, s.fyg, s.pid.to(torch.float32)])
-    return scode, fields, [md.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
+    return scode, fields, [md.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0], occ
 
 
 @pytest.mark.parametrize("p", [1, 2, 4])
@@ -88,11 +89,11 @@ def test_b1_halo_over_blocks_equals_b1(state, p):
 @pytest.mark.parametrize("p", [1, 2, 4])
 def test_b2_halo_over_blocks_equals_b2(state, p):
     *_, md, _, _, s_moved = state
-    scode, fields, fills = _port_migration(md, s_moved)
+    scode, fields, fills, occ = _port_migration(md, s_moved)
     full = migrate_cuda.migrate_reference(scode, fields, fills)
     parts = [
-        migrate_cuda.migrate_halo(c, f, fills)
-        for c, f in zip(halo_blocks(scode, p), halo_blocks(fields, p, dim=1))
+        migrate_cuda.migrate_halo(c, f, fills, occ=o)
+        for c, f, o in zip(halo_blocks(scode, p), halo_blocks(fields, p, dim=1), occ.chunk(p))
     ]
     out = torch.cat(parts, dim=1)
     assert out.shape == full.shape
@@ -123,9 +124,10 @@ def test_b2_halo_matches_jax_sharded_rebuild(state):
     sharded = JaxShardedGridMD(jgf, jax_make_mesh(2, axis_name="x"), dt=ts.DT)
     out_j = sharded._rebuild_migrate(sharded.shard_state(gs_moved))
     assert not bool(out_j.overflow)
-    scode, fields, fills = _port_migration(md, s_moved)
-    out_t = torch.cat([migrate_cuda.migrate_halo(c, f, fills)
-                       for c, f in zip(halo_blocks(scode, 2), halo_blocks(fields, 2, dim=1))], dim=1).numpy()
+    scode, fields, fills, occ = _port_migration(md, s_moved)
+    out_t = torch.cat([migrate_cuda.migrate_halo(c, f, fills, occ=o)
+                       for c, f, o in zip(halo_blocks(scode, 2), halo_blocks(fields, 2, dim=1), occ.chunk(2))],
+                      dim=1).numpy()
     cps = md.cps
     grids_j = [np.asarray(getattr(out_j, k))[:, :, :cps] for k in ("xg", "yg", "vxg", "vyg", "fxg", "fyg")]
     np.testing.assert_array_equal(

@@ -84,8 +84,9 @@ def test_migrate_plain_matches_jax_kernel(advanced):
     out_j = jax_make_migrate_kernel(cps, cap, 1, len(names), fills, interpret=True)(scode_j, *fields_j)
     scode_t = torch.from_numpy(np.ascontiguousarray(np.asarray(scode_j)[:, :, :cps]))
     fields_t = torch.stack([getattr(gs_t, k).to(torch.float32) for k in names])
+    occ_t = md_t._migration_dest(gs_t)[3]
     before = migrate_cuda.LAUNCHES
-    out_t = migrate_cuda.migrate(scode_t, fields_t, fills)
+    out_t = migrate_cuda.migrate(scode_t, fields_t, fills, occ=occ_t)
     assert migrate_cuda.LAUNCHES == before  # CPU tensors take the plain version
     for f in range(len(names)):
         np.testing.assert_array_equal(out_t[f].numpy(), np.asarray(out_j[f])[:, :, :cps], err_msg=names[f])
@@ -160,6 +161,12 @@ def _random_codes(cps, cap, rng):
     return scode
 
 
+def _named(scode, r=1):
+    """The occupancy an allocation with these codes gives: 1.0 at the slots
+    the valid codes name, 0.0 elsewhere."""
+    return migrate_cuda.migrate_reference(scode, torch.ones((1,) + tuple(scode.shape)), [0.0], r)[0]
+
+
 def test_migrate_packed_plain_matches_jax_kernel():
     """B2 on the packed layout (cps 8, R 4, G 2: every direction crosses a
     block seam somewhere): the plain version bit-equal to the JAX package's
@@ -176,7 +183,7 @@ def test_migrate_packed_plain_matches_jax_kernel():
     fills = [7.0, -1.0]
     scode_p = pack(scode, r)
     fields_p = torch.stack([pack(values, r), pack(ids, r)])
-    got = migrate_cuda.migrate(scode_p, fields_p, fills, rows_per_block=r)
+    got = migrate_cuda.migrate(scode_p, fields_p, fills, rows_per_block=r, occ=_named(scode_p, r))
     assert tuple(got.shape) == (2, 2, cap, 32)
     pad = ((0, 0), (0, 0), (0, 128 - 32))
     scode_j = jnp.asarray(np.pad(scode_p.numpy(), pad, constant_values=-1))
@@ -186,24 +193,25 @@ def test_migrate_packed_plain_matches_jax_kernel():
         np.testing.assert_array_equal(got[f].numpy(), np.asarray(out_j[f])[:, :, :32])
     moved = got[1] >= 0
     assert torch.equal(got[0][moved], values.reshape(-1)[got[1][moved].long()])
-    flat = migrate_cuda.migrate(scode, torch.stack([values, ids]), fills)
+    flat = migrate_cuda.migrate(scode, torch.stack([values, ids]), fills, occ=_named(scode))
     assert torch.equal(torch.stack([unpack(g, r) for g in got]), flat)
 
 
 def test_migrate_wrapper_rejects_bad_inputs():
     scode = torch.full((4, 3, 4), -1, dtype=torch.int32)
     fields = torch.zeros((2, 4, 3, 4))
+    occ = torch.zeros((4, 3, 4))
     with pytest.raises(TypeError):
-        migrate_cuda.migrate(scode.long(), fields, [0.0, 0.0])
+        migrate_cuda.migrate(scode.long(), fields, [0.0, 0.0], occ=occ)
     with pytest.raises(TypeError):
-        migrate_cuda.migrate(scode, fields.double(), [0.0, 0.0])
+        migrate_cuda.migrate(scode, fields.double(), [0.0, 0.0], occ=occ)
     with pytest.raises(ValueError, match="grid"):
-        migrate_cuda.migrate(scode[:, :2], fields, [0.0, 0.0])
+        migrate_cuda.migrate(scode[:, :2], fields, [0.0, 0.0], occ=occ)
     with pytest.raises(ValueError, match="fills"):
-        migrate_cuda.migrate(scode, fields, [0.0])
+        migrate_cuda.migrate(scode, fields, [0.0], occ=occ)
     with pytest.raises(ValueError, match="contiguous"):
-        migrate_cuda.migrate(scode.transpose(0, 2), fields, [0.0, 0.0])
+        migrate_cuda.migrate(scode.transpose(0, 2), fields, [0.0, 0.0], occ=occ)
     with pytest.raises(ValueError):
-        migrate_cuda.migrate(scode.to("meta"), fields.to("meta"), [0.0, 0.0])
+        migrate_cuda.migrate(scode.to("meta"), fields.to("meta"), [0.0, 0.0], occ=occ.to("meta"))
     with pytest.raises(ValueError, match="R = 2"):  # 4 cell rows do not pack into 4 lanes
-        migrate_cuda.migrate(scode, fields, [0.0, 0.0], rows_per_block=2)
+        migrate_cuda.migrate(scode, fields, [0.0, 0.0], rows_per_block=2, occ=occ)

@@ -211,8 +211,8 @@ def test_one_launch_emulation_over_halo_blocks(states, which, n_blocks):
 
 
 def test_wrapper_takes_planes_and_checks_new_arguments(states):
-    """``migrate3`` takes the planes as a list or as a stacked tensor (a
-    sequence of planes), always with ``occ``, and counts no launch on the
+    """``migrate3`` takes the planes as a list or as one stacked tensor,
+    always with ``occ``, and counts no launch on the
     CPU; a missing or bad ``occ`` or plane raises."""
     md, out = states
     scode, occ_new, _, planes, fills = _inputs(md, out["hot"])

@@ -113,27 +113,30 @@ def test_reference_chunks_rows(monkeypatch):
 
 
 def test_slices_cover_every_tile():
-    for n in (1, 100, 256, 257, 2048, 4096, 5000, 16384, 100_000):
-        s, length = pairwise_cuda._slices(n)
-        assert length % pairwise_cuda.THREADS == 0 and 1 <= s <= pairwise_cuda.MAX_SLICES
+    """The j slices of B8's and B9's launch: whole tiles, none empty, all of
+    j covered, and as many row blocks as it takes ROWS i-particles each."""
+    for n in (1, 100, 256, 257, 2048, 3001, 4096, 5000, 16384, 65536, 100_000):
+        rows, s, length = pairwise_cuda._geometry(n)
+        assert length % pairwise_cuda.TILE == 0 and 1 <= s <= pairwise_cuda.MAX_SLICES
         assert (s - 1) * length < n <= s * length  # no empty slice, all of j covered
-    assert pairwise_cuda._slices(16384) == (16, 1024)
+        assert (rows - 1) * pairwise_cuda.ROWS < n <= rows * pairwise_cuda.ROWS
+    assert pairwise_cuda._geometry(65536) == (128, 32, 2048)
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 4096, 16384])
 def test_lj_geometry_covers_every_i_once_and_every_tile_once(n):
-    """B8's launch: the row blocks' threads (four i-particles each, a
-    thread's rows LJ_THREADS apart) hold every i below N exactly once, and
-    the slices (none empty, at most LJ_MAX_SLICES) hold every j tile of
-    LJ_TILE exactly once, in order: each (i, j) pair is one block's."""
-    rows, slices, length = pairwise_cuda._lj_geometry(n)
-    threads, per_block, tile = pairwise_cuda.LJ_THREADS, pairwise_cuda.LJ_ROWS, pairwise_cuda.LJ_TILE
+    """B8's and B9's launch: the row blocks' threads (four i-particles each,
+    a thread's rows THREADS apart) hold every i below N exactly once, and
+    the slices (none empty, at most MAX_SLICES) hold every j tile of TILE
+    exactly once, in order: each (i, j) pair is one block's."""
+    rows, slices, length = pairwise_cuda._geometry(n)
+    threads, per_block, tile = pairwise_cuda.THREADS, pairwise_cuda.ROWS, pairwise_cuda.TILE
     assert per_block == 4 * threads
     i = (np.arange(rows)[:, None, None] * per_block + np.arange(4)[None, :, None] * threads
          + np.arange(threads)[None, None, :]).ravel()
     i = i[i < n]
     assert i.size == n and np.array_equal(np.sort(i), np.arange(n))
-    assert length % tile == 0 and 1 <= slices <= pairwise_cuda.LJ_MAX_SLICES
+    assert length % tile == 0 and 1 <= slices <= pairwise_cuda.MAX_SLICES
     assert all(s * length < n for s in range(slices))  # no empty slice
     tiles = [j0 for s in range(slices) for j0 in range(s * length, min((s + 1) * length, n), tile)]
     assert tiles == list(range(0, n, tile))

@@ -137,8 +137,8 @@ def build(out_dir: Path):
 def main() -> int:
     import torch
 
-    from chip_smoke import _pairwise_bounds
     from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import interleaved_ms, spread
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.roofline import pairwise_bounds
     from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import MDConfig, override
     from jax_tpus_benchmark_physics_simulation_tpu_torch.models import lj_fluid
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import pairwise_cuda
@@ -183,7 +183,7 @@ def main() -> int:
                          "previous": lambda: previous(False),
                          "B8 energy": lambda: pairwise_cuda.lj_force_pairwise(pos, p, True),
                          "previous energy": lambda: previous(True)})
-    bound, bound_e = _pairwise_bounds(n, 2)
+    bound, bound_e = pairwise_bounds(n, 2)
     print(f"N={n} 2D PBC, both designs within 1e-4 * max |f| of the plain version (energy sums at rtol 1e-5); "
           f"medians of 7 interleaved repeats of 20 calls: "
           + ", ".join(f"{name} {spread(v)}" for name, v in t.items())

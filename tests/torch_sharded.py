@@ -167,3 +167,48 @@ def lj_fluid_run(cfg, undivided=None) -> dict:
         positions=res.state.position.numpy(), ke=res.ke_history.numpy(), pe=res.pe_history.numpy(),
         pressure=res.pressure, overflow=res.overflow, drift=res.energy_drift, refused=refused,
     )
+
+
+def halo_allocation(cells: float = 12.05, n: int = 900) -> dict:
+    """Rank side of the B2 halo allocation check: a box of ``cells`` cells
+    of cutoff + skin (12 cells per side divide over 2 and 3 ranks), ``n``
+    particles on a jittered lattice, every particle moved and one cell
+    crowded past its capacity (``torch_migrate_designs.overflow_state``),
+    then the sharded engine's ``_migration_dest`` on this rank's rows and
+    the rebuild's exchange of the code and field edge rows. Returns whether
+    the slots the local occupancy marks empty are exactly those no valid
+    code of the extended rows names, how many valid codes land in the local
+    rows against the named slots (equal when no slot is named twice),
+    whether the plain emulation of one B2 halo launch writes every local
+    element once and gives ``migrate_halo_reference``'s bits, the local
+    overflow flag, and whether the gathered codes and occupancy are the
+    unsharded engine's."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda import migrate_halo_reference
+    from tests.torch_migrate_designs import emulate, overflow_state, rebuild_inputs
+
+    box = cells * (CUTOFF + SKIN)
+    gf = make_cell_grid_fn(box, CUTOFF, n, dim=2, skin=SKIN, rho=n / box**2)
+    pos = np.mod(lattice_positions(n, box, seed=0, dim=2), box).astype(np.float32)
+    whole = GridMD(gf, dt=DT, rows_per_block=1, device="cpu")
+    vel = torch.from_numpy(velocities(n, kt=KT, seed=1, dim=2))
+    moved = overflow_state(whole, whole.init(torch.from_numpy(pos), vel))
+    md = ShardedGridMD(gf, make_mesh(device="cpu"), dt=DT)
+    scode, occ, planes, fills, overflow = rebuild_inputs(md, md.shard_state(moved))
+    code, ext = md._halo_planes(scode, torch.stack(planes))
+    named = migrate_halo_reference(code, torch.ones((1,) + tuple(code.shape)), [0.0])[0]
+    rows, cap = occ.shape[0], occ.shape[1]
+    tx = torch.arange(rows + 2).view(-1, 1, 1) + torch.div(code, 3 * cap, rounding_mode="floor") - 2
+    landing = (code >= 0) & (code < 9 * cap) & (tx >= 0) & (tx < rows)
+    got, writes = emulate(code, list(ext), occ, fills, halo=True)
+    w_scode, w_occ = rebuild_inputs(whole, moved)[:2]
+    return {
+        "cps": md.cps,
+        "named_is_occ": torch.equal(named, occ),
+        "landing": int(landing.sum()),
+        "named": int(named.sum()),
+        "written_once": bool((writes == 1).all()),
+        "emulation_is_plain": torch.equal(got, migrate_halo_reference(code, ext, fills)),
+        "overflow": bool(overflow),
+        "gathered_is_unsharded": torch.equal(md._gather_rows(scode), w_scode)
+        and torch.equal(md._gather_rows(occ), w_occ),
+    }
