@@ -200,7 +200,30 @@ Run from the repository root. It builds the CUDA kernels from
     halo reads, its busy share and the counted
     kernel's share of device time, and its mover flag at 18 cells per side
     (False); the group is destroyed at the end;
-27. prints a JSON line with each kernel's launches on its main path,
+27. ``em3`` (``models/em_three_particles.run``) in the default
+    configuration (3 particles, 1000 steps, dt 0.01, float32) with each
+    integrator (Boris and the reference's): finite ``(1001, 3, 2)``
+    trajectories; the first 50 steps against the same run on the CPU at
+    rtol 1e-4, atol 1e-5 (JAX's ``tests/test_em3.py``); all 1000 steps in
+    float64 against the CPU's at ``tests/test_torch_em3.py``'s measured
+    tolerances; the timed run's ms and ms a step, the device ops a step
+    (``utils/profiling.device_op_count``) and the busy share over 100
+    traced steps (no custom kernel: three particles are launch latency);
+28. ``vmc`` (``models/quantum_oscillator.run``) at full width (10,000
+    walkers, dim 3, ``n_equil`` 100, step 2.0, lr 0.02; DMC 500 steps at dt
+    0.01), only the depth cut (300 epochs instead of 3000), then DMC again
+    from the VMC ensemble with the multinomial resampler: |alpha - 0.5|,
+    |E_VMC - 1.5| and each DMC mean after burn-in 100 within 0.05 of 1.5
+    (JAX's ``tests/test_mc.py`` bounds); the anharmonic model at dim 1
+    (``tests/test_mc.py``'s configuration) within 2e-2 (VMC) and 1e-2 (DMC)
+    of its diagonalization oracle; card against CPU at draws made on the
+    CPU (rtol 1e-6): both models' local energies, ``metropolis_update``
+    (accepts away from near-ties), both resamplers (indices away from
+    near-ties of a comb point and a CDF step), one Adam update, one DMC
+    step with each resampler; ms a sweep, an epoch and a DMC step, device
+    ops a sweep, the busy share of an epoch and of DMC steps, and the
+    default 3000 epochs' time worked out from the ms an epoch;
+29. prints a JSON line with each kernel's launches on its main path,
     error, times, and bound (the larger of the operations over the card's
     float32 peak and the bytes over its memory rate, counted on this run's
     inputs), B3's with ``full_capacity_ms`` (B1's loop on the unpacked
@@ -229,7 +252,13 @@ import time
 
 import numpy as np
 
-from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import cuda_ms, host_us, interleaved_ms, spread
+from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import (
+    cuda_ms,
+    device_op_count,
+    host_us,
+    interleaved_ms,
+    spread,
+)
 from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import roofline
 
 # B8 at N=16,384 (2D, PBC, no cutoff) before its redesign (one thread an
@@ -458,26 +487,8 @@ def _ptxas(log_text: str) -> dict:
     return out
 
 
-def _device_ops(fn) -> dict:
-    """``{name: count}`` of the work ``fn()`` puts on the card (kernels,
-    memcpys, memsets), from ``torch.profiler``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    counts = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            counts[e.name] = counts.get(e.name, 0) + 1
-    return counts
-
-
 def _short_names(ops: dict) -> dict:
-    """``_device_ops``' counts by the bare kernel or op name."""
+    """``device_op_count``'s counts by the bare kernel or op name."""
     short = {}
     for k, v in ops.items():
         bare = k.replace("(anonymous namespace)::", "").replace("void ", "")
@@ -499,11 +510,11 @@ def _rebuild_ops_2d(md, gs, label: str, previous_migrate) -> dict:
         return migrate_cuda.LAUNCHES + migrate_cuda.PACKED_LAUNCHES + migrate_cuda.HALO_LAUNCHES
 
     before = b2_launches()
-    ops = _device_ops(lambda: md._rebuild_migrate(gs))
+    ops = device_op_count(lambda: md._rebuild_migrate(gs))
     launched = b2_launches() - before
     md._migrate = previous_migrate
     try:
-        ops_prev = _device_ops(lambda: md._rebuild_migrate(gs))
+        ops_prev = device_op_count(lambda: md._rebuild_migrate(gs))
     finally:
         del md._migrate
     short, short_prev = _short_names(ops), _short_names(ops_prev)
@@ -574,7 +585,7 @@ def _rebuild_ops(md, gs, label: str) -> None:
     migrate_cuda3.mover_overflow = lambda *a, **k: calls.append(1) or plain(*a, **k)
     try:
         before = migrate_cuda3.LAUNCHES + migrate_cuda3.HALO_LAUNCHES
-        ops = _device_ops(lambda: md._rebuild_migrate(gs))
+        ops = device_op_count(lambda: md._rebuild_migrate(gs))
         launched = migrate_cuda3.LAUNCHES + migrate_cuda3.HALO_LAUNCHES - before
     finally:
         migrate_cuda3.mover_overflow = plain
@@ -586,6 +597,260 @@ def _rebuild_ops(md, gs, label: str) -> None:
     print(f"{label} one rebuild: {sum(ops.values())} device ops, {b6} B6 launch (migrate3_kernel), "
           f"mover_overflow called 0 times; ops by name: " + ", ".join(f"{k} x{v}" for k, v in sorted(short.items())),
           flush=True)
+
+
+# the float64 tolerances of tests/test_torch_em3.py (ten times how far one ulp
+# of one start coordinate moves the orbit): (steps compared, max |diff|)
+EM3_F64_ATOL = {"boris": ((1000, 1e-10),), "reference": ((400, 1e-9), (1000, 5e-4))}
+
+
+def _margin(got, want, rtol: float, atol: float) -> float:
+    """The largest share of the allowance ``atol + rtol * |want|`` that
+    ``|got - want|`` uses (<= 1 passes), both moved to the CPU in float64."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _near_ties(w_cpu, w_dev, u, resampler: str):
+    """``(near, gap)``: which comb points of a resampling by the uniform(s)
+    ``u`` (a CPU tensor) lie within ``gap`` + 1e-6 of a step of the CPU's
+    CDF of the weights ``w_cpu``, ``gap`` the largest difference between
+    that CDF and the card's of ``w_dev`` (the card adds the cumsum in
+    another order). An index can differ between the two devices only at
+    such a point."""
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.mc.resampling import _sanitize
+
+    n = w_cpu.shape[0]
+    cdf = torch.cumsum(_sanitize(w_cpu), 0)
+    gap = float((torch.cumsum(_sanitize(w_dev), 0).cpu() - cdf).abs().max())
+    points = u.expand(n) if resampler == "multinomial" else (torch.arange(n, dtype=torch.float32) + u) / n
+    pos = torch.searchsorted(cdf, points).clamp(1, n - 1)
+    return torch.minimum((points - cdf[pos - 1]).abs(), (points - cdf[pos]).abs()) <= gap + 1e-6, gap
+
+
+def _busy_line(label: str, fn, wall_ms: float, units: int, unit: str, trace: str) -> float:
+    """Runs ``fn()`` (``units`` steps or sweeps) under the profiler and
+    prints its device time a unit beside ``wall_ms``, the untraced wall time
+    a unit; returns the busy share."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import profile_device
+
+    dev_s, _, _ = profile_device(fn, trace)
+    dev_ms = 1e3 * dev_s / units
+    share = dev_ms / wall_ms
+    print(f"{label}: device busy {dev_ms:.4f} ms a {unit} of {wall_ms:.4f} ms wall (untraced); busy share "
+          f"{share:.4f}, idle share {1 - share:.4f}", flush=True)
+    if os.path.exists(trace):
+        os.remove(trace)  # traces are large; the numbers are printed
+    return share
+
+
+def _em3_phase(smi: str) -> None:
+    """Phase 27: ``em3`` on the card (see the module docstring)."""
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import EM3Config, override
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.models import em_three_particles as em3
+
+    cfg = EM3Config()
+    for integrator in ("boris", "reference"):
+        c = override(cfg, integrator=integrator)
+        res = em3.run(c, device="cuda")
+        traj = res.trajectory
+        if tuple(traj.shape) != (c.n_steps + 1, 3, 2) or not bool(torch.isfinite(traj).all()):
+            raise AssertionError(f"phase 27 em3 {integrator}: trajectory {tuple(traj.shape)} not finite or misshaped")
+        _, cpu = em3.simulate(c, em3.default_initial_state(device="cpu"))
+        m50 = _margin(traj[:51], cpu[:51], 1e-4, 1e-5)
+        if not m50 <= 1.0:
+            raise AssertionError(f"phase 27 em3 {integrator} first 50 steps, card vs CPU: {m50:.3f} of the "
+                                 f"rtol 1e-4, atol 1e-5 allowance")
+        _, t64 = em3.simulate(c, em3.default_initial_state(torch.float64, "cuda"))
+        _, c64 = em3.simulate(c, em3.default_initial_state(torch.float64, "cpu"))
+        diff = (t64.cpu() - c64).abs()
+        f64 = []
+        for steps, atol in EM3_F64_ATOL[integrator]:
+            d = float(diff[: steps + 1].max())
+            if not d <= atol:
+                raise AssertionError(f"phase 27 em3 {integrator} float64, first {steps} steps card vs CPU: "
+                                     f"max |diff| {d:.3e} > {atol:g}")
+            f64.append(f"{steps} steps {d:.3e} (<= {atol:g})")
+        # one step's device ops, and the busy share over 100 traced steps
+        state = em3.default_initial_state(device="cuda")
+        init_fn, step_fn = em3.build_step(c, state)
+        s = step_fn(init_fn(state))
+        ops = device_op_count(lambda: [step_fn(s) for _ in range(10)])
+        wall_ms = 1e3 * res.wall_time_s / c.n_steps
+        print(f"{smi}: phase 27 em3 {integrator} (default: 3 particles, {c.n_steps} steps, dt {c.dt}, float32): "
+              f"timed run {res.wall_time_s * 1e3:.2f} ms = {wall_ms:.4f} ms a step, "
+              f"{sum(ops.values()) / 10:.1f} device ops a step (no custom kernel: three particles are pure "
+              f"launch latency); card vs CPU: first 50 steps {m50:.4f} of the rtol 1e-4, atol 1e-5 "
+              f"allowance; float64 max |diff| {', '.join(f64)}", flush=True)
+        short = override(c, n_steps=100)
+        _busy_line(f"{smi}: phase 27 em3 {integrator} (100 traced steps)", lambda: em3.simulate(short, state),
+                   wall_ms, 100, "step", os.path.join("chiprun_out", "chip_smoke_em3_trace.json"))
+
+
+def _vmc_phase(smi: str) -> None:
+    """Phase 28: ``vmc`` on the card at full width (see the module
+    docstring)."""
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import VMCDMCConfig, override
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.mc import adam, dmc, metropolis, models, resampling, vmc
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.models import quantum_oscillator
+
+    dev = torch.device("cuda")
+    # only the depth is cut: 300 epochs instead of the default 3000
+    cfg = override(VMCDMCConfig(), n_epochs=300)
+    res = quantum_oscillator.run(cfg, device=dev)
+    mean_s, err_s = (float(v) for v in res.dmc.mean_energy(burn_in=100))
+    t0 = time.perf_counter()
+    res_m = dmc.run_dmc(models.HarmonicOscillator(dim=cfg.dim), res.vmc.params, res.vmc.walkers,
+                        res.vmc.generator, override(cfg, resampler="multinomial"))
+    torch.cuda.synchronize()
+    dmc_m_s = time.perf_counter() - t0
+    mean_m, err_m = (float(v) for v in res_m.mean_energy(burn_in=100))
+    checks = {"|alpha - 0.5|": abs(res.vmc_alpha - 0.5), "|E_VMC - 1.5|": abs(res.vmc_energy - 1.5),
+              "|E_DMC(systematic) - 1.5|": abs(mean_s - 1.5), "|E_DMC(multinomial) - 1.5|": abs(mean_m - 1.5)}
+    bad = {k: v for k, v in checks.items() if not v < 0.05}
+    hists = (res.vmc.energy_history, res.dmc.energy_history, res_m.energy_history, res.dmc.walkers)
+    if bad or not all(bool(torch.isfinite(h).all()) for h in hists):
+        raise AssertionError(f"phase 28 vmc: {bad} (bound 0.05), histories finite "
+                             f"{[bool(torch.isfinite(h).all()) for h in hists]}")
+    if res.vmc.energy_history.shape != (cfg.n_epochs,) or res.dmc.energy_history.shape != (cfg.n_dmc,):
+        raise AssertionError(f"phase 28 vmc: histories {tuple(res.vmc.energy_history.shape)}, "
+                             f"{tuple(res.dmc.energy_history.shape)}")
+    ms_epoch = 1e3 * res.vmc_wall_s / cfg.n_epochs
+    ms_dmc = 1e3 * res.dmc_wall_s / cfg.n_dmc
+    print(f"{smi}: phase 28 vmc (widths: {cfg.n_walkers} walkers, dim {cfg.dim}, n_equil {cfg.n_equil}, step "
+          f"{cfg.step_size}, lr {cfg.lr}; depth cut: {cfg.n_epochs} epochs instead of 3000; DMC {cfg.n_dmc} steps "
+          f"at dt {cfg.dmc_dt}): alpha {res.vmc_alpha:.6f}, E_VMC {res.vmc_energy:.6f}, E_DMC systematic "
+          f"{mean_s:.6f} +- {err_s:.6f}, multinomial {mean_m:.6f} +- {err_m:.6f} (exact 1.5, bounds 0.05); VMC "
+          f"{res.vmc_wall_s:.3f} s = {ms_epoch:.4f} ms an epoch, DMC {res.dmc_wall_s:.3f} s = {ms_dmc:.4f} ms a "
+          f"step (multinomial {1e3 * dmc_m_s / cfg.n_dmc:.4f}); the default 3000 epochs worked out as 3000 x "
+          f"{ms_epoch:.4f} ms = {3000 * ms_epoch / 1e3:.1f} s (worked out, not run)", flush=True)
+
+    # the anharmonic model at dim 1 against its diagonalization oracle
+    cfg_a = override(VMCDMCConfig(), potential="anharmonic", lam=0.2, dim=1, n_walkers=1000, n_epochs=200,
+                     n_equil=10, epoch_chunk=50, lr=0.05, n_dmc=150)
+    res_a = quantum_oscillator.run(cfg_a, device=dev)
+    mean_a = float(res_a.dmc.mean_energy()[0])
+    d_vmc, d_dmc = abs(res_a.vmc_energy - res_a.exact_energy), abs(mean_a - res_a.exact_energy)
+    if not (d_vmc < 2e-2 and d_dmc < 1e-2):
+        raise AssertionError(f"phase 28 anharmonic: |E_VMC - exact| {d_vmc:.3e} (bound 2e-2), |E_DMC - exact| "
+                             f"{d_dmc:.3e} (bound 1e-2)")
+    print(f"phase 28 anharmonic (dim 1, lam 0.2, 1000 walkers, 200 epochs, 150 DMC steps): E_VMC "
+          f"{res_a.vmc_energy:.6f}, E_DMC {mean_a:.6f}, oracle {res_a.exact_energy:.6f} (|diff| {d_vmc:.2e} < 2e-2, "
+          f"{d_dmc:.2e} < 1e-2); alpha {float(res_a.vmc.params['alpha']):.6f}, beta "
+          f"{float(res_a.vmc.params['beta']):.6f}; VMC {res_a.vmc_wall_s:.3f} s, DMC {res_a.dmc_wall_s:.3f} s",
+          flush=True)
+
+    # card against CPU at fixed draws made on the CPU
+    n, dim = cfg.n_walkers, cfg.dim
+    g = torch.Generator().manual_seed(2028)
+    x = torch.randn((n, dim), generator=g) * 1.2
+    u_prop, u_acc = torch.rand((n, dim), generator=g) - 0.5, torch.rand((n,), generator=g)
+    u_multi, u_sys, noise = torch.rand((n,), generator=g), torch.rand((), generator=g), torch.randn((n, dim), generator=g)
+    harm, anh = models.HarmonicOscillator(dim=dim), models.AnharmonicOscillator(dim=dim, lam=0.2)
+    p_cpu = {"harmonic": torch.tensor(0.45), "anharmonic": {"alpha": torch.tensor(0.6), "beta": torch.tensor(0.05)}}
+    p_dev = {k: adam.tree_map(lambda t: t.to(dev), v) for k, v in p_cpu.items()}
+    margins = {}
+    for name, m in (("harmonic", harm), ("anharmonic", anh)):
+        margins[f"local_energy {name}"] = _margin(m.local_energy(p_dev[name], x.to(dev)),
+                                                  m.local_energy(p_cpu[name], x), 1e-6,
+                                                  1e-6 * float(m.local_energy(p_cpu[name], x).abs().max()))
+    update = metropolis.make_metropolis_update(harm.log_psi, cfg.step_size)
+    w_dev, _ = update(x.to(dev), p_dev["harmonic"], u_prop.to(dev), u_acc.to(dev))
+    w_cpu, _ = update(x, p_cpu["harmonic"], u_prop, u_acc)
+    prop = x + cfg.step_size * u_prop
+    thr = torch.exp(2.0 * (harm.log_psi(p_cpu["harmonic"], prop) - harm.log_psi(p_cpu["harmonic"], x)))
+    tie = (u_acc - thr).abs() <= 1e-6
+    acc_dev, acc_cpu = (w_dev.cpu() != x).any(dim=1), (w_cpu != x).any(dim=1)
+    if bool(((acc_dev != acc_cpu) & ~tie).any()):
+        raise AssertionError(f"phase 28 metropolis_update card vs CPU: {int(((acc_dev != acc_cpu) & ~tie).sum())} "
+                             f"accepts differ away from a near-tie")
+    margins["metropolis_update"] = _margin(w_dev.cpu()[~tie], w_cpu[~tie], 1e-6, 1e-6 * float(w_cpu.abs().max()))
+    e = harm.local_energy(p_cpu["harmonic"], x)
+    weights = torch.exp(-(e - e.mean()) * 0.5)
+    n_ties, gaps = 0, {}
+    for rname, u in (("multinomial", u_multi), ("systematic", u_sys)):
+        fn = resampling.RESAMPLERS_FROM[rname]
+        rows = torch.arange(n, dtype=torch.float32)[:, None]
+        i_dev = fn(rows.to(dev), weights.to(dev), u.to(dev)).cpu()[:, 0]
+        i_cpu = fn(rows, weights, u)[:, 0]
+        near, gap = _near_ties(weights, weights.to(dev), u, rname)
+        gaps[rname] = gap
+        if bool(((i_dev != i_cpu) & ~near).any()):
+            raise AssertionError(f"phase 28 {rname} resampler card vs CPU: {int(((i_dev != i_cpu) & ~near).sum())} "
+                                 f"indices differ away from a near-tie")
+        n_ties += int(near.sum())
+    grads = {"alpha": torch.tensor(0.031), "beta": torch.tensor(-0.0042)}
+    state = adam.AdamState(count=torch.tensor(41, dtype=torch.int32), mu={"alpha": torch.tensor(0.02),
+                           "beta": torch.tensor(-0.003)}, nu={"alpha": torch.tensor(4e-4), "beta": torch.tensor(1e-5)})
+    u_cpu, _ = adam.adam_update(grads, state, cfg.lr)
+    to_dev = lambda t: t.to(dev)  # noqa: E731
+    u_dev, _ = adam.adam_update(adam.tree_map(to_dev, grads), adam.AdamState(
+        count=state.count.to(dev), mu=adam.tree_map(to_dev, state.mu), nu=adam.tree_map(to_dev, state.nu)), cfg.lr)
+    margins["adam update"] = max(_margin(a, b, 1e-6, 1e-6 * cfg.lr)
+                                 for a, b in zip(adam.tree_leaves(u_dev), adam.tree_leaves(u_cpu)))
+    for rname, u in (("multinomial", u_multi), ("systematic", u_sys)):
+        step = dmc.make_dmc_update(harm, p_cpu["harmonic"], cfg.dmc_dt, rname)
+        step_dev = dmc.make_dmc_update(harm, p_dev["harmonic"], cfg.dmc_dt, rname)
+        w_c, e_c = step(x, u, noise)
+        w_d, e_d = step_dev(x.to(dev), u.to(dev), noise.to(dev))
+        margins[f"dmc step {rname} E_ref"] = _margin(e_d, e_c, 1e-6, 0.0)
+        e_l, e_ld = harm.local_energy(p_cpu["harmonic"], x), harm.local_energy(p_dev["harmonic"], x.to(dev))
+        near, gaps[f"dmc {rname}"] = _near_ties(torch.exp(-(e_l - e_c) * cfg.dmc_dt),
+                                                torch.exp(-(e_ld - e_d) * cfg.dmc_dt), u, rname)
+        keep = ~near
+        n_ties += int(near.sum())
+        margins[f"dmc step {rname} walkers"] = _margin(w_d.cpu()[keep], w_c[keep], 1e-6,
+                                                        1e-6 * float(w_c.abs().max()))
+    bad = {k: v for k, v in margins.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"phase 28 card vs CPU at fixed draws: {bad} of the allowance (rtol 1e-6)")
+    print("phase 28 card vs CPU at fixed draws (10000 walkers, dim 3; share of the rtol 1e-6 allowance used): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in margins.items())
+          + f"; resampled indices and walkers equal away from {n_ties} near-ties of a comb point and a CDF step "
+          f"(within 1e-6 + the CDFs' largest card-CPU difference: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + ")", flush=True)
+
+    # a sweep's device ops and wall time, an epoch's busy share
+    sweep = metropolis.make_metropolis_sweep(harm.log_psi, cfg.step_size)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w0 = torch.randn((n, dim), device=dev, generator=gen)
+    alpha = torch.tensor(0.5, device=dev)
+    ops = device_op_count(lambda: [sweep(w0, alpha, gen) for _ in range(10)])
+    sweep(w0, alpha, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = w0
+    for _ in range(500):
+        w, _ = sweep(w, alpha, gen)
+    torch.cuda.synchronize()
+    ms_sweep = 1e3 * (time.perf_counter() - t0) / 500
+    print(f"{smi}: phase 28 Metropolis sweep ({n} walkers, dim {dim}): {ms_sweep:.4f} ms a sweep (500 sweeps, "
+          f"host loop), {sum(ops.values()) / 10:.1f} device ops a sweep: "
+          + ", ".join(f"{k} x{v // 10}" for k, v in sorted(_short_names(ops).items())), flush=True)
+    epoch = vmc.make_epoch_step(harm, cfg)
+    opt = adam.adam_init(alpha)
+    epoch(w0, alpha, gen, opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        epoch(w0, alpha, gen, opt)
+    torch.cuda.synchronize()
+    ms_ep = 1e3 * (time.perf_counter() - t0) / 3
+    _busy_line(f"{smi}: phase 28 VMC epoch (100 sweeps + gradient + Adam, 1 traced epoch)",
+               lambda: epoch(w0, alpha, gen, opt), ms_ep, 1, "epoch",
+               os.path.join("chiprun_out", "chip_smoke_vmc_trace.json"))
+    step = dmc.make_dmc_step(harm, alpha, cfg.dmc_dt, cfg.resampler)
+    ops = device_op_count(lambda: [step(w0, gen) for _ in range(10)])
+    print(f"phase 28 DMC step ({cfg.resampler}): {sum(ops.values()) / 10:.1f} device ops a step", flush=True)
+    _busy_line(f"{smi}: phase 28 DMC step (20 traced steps; wall from the run)",
+               lambda: [step(w0, gen) for _ in range(20)], ms_dmc, 20, "step",
+               os.path.join("chiprun_out", "chip_smoke_dmc_trace.json"))
 
 
 def main() -> int:
@@ -2015,7 +2280,13 @@ def main() -> int:
           f"first rebuild)", flush=True)
     dist.destroy_process_group()
 
-    # -- 27. result --------------------------------------------------------------
+    # -- 27. em3 on the card --------------------------------------------------------
+    _em3_phase(smi)
+
+    # -- 28. vmc on the card at full width ---------------------------------------------
+    _vmc_phase(smi)
+
+    # -- 29. result --------------------------------------------------------------
     root = "jax_tpus_benchmark_physics_simulation_tpu_torch/ops/kernels/csrc/"
     ref = "jax_tpus_benchmark_physics_simulation_tpu/"
     kref = ref + "ops/kernels/"

@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: ``md``, ``mdscale``, ``nbody``,
-``bench`` and ``devices``.
+``em3``, ``vmc``, ``bench`` and ``devices``.
 
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli md \\
         --N 16384 --init lattice                          # all pairs, B8
@@ -17,16 +17,20 @@
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli mdscale --device cpu --virtual 4 \
         --N 20000                                         # 4 gloo processes on the CPU
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli nbody   # RK4 + GW + Lyapunov
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli em3     # 3 charges, Boris push
+    python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli vmc     # VMC -> DMC oscillator
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli bench   # the op suite
     python -m jax_tpus_benchmark_physics_simulation_tpu_torch.cli devices
 
 Flag names follow the JAX package's ``jtps`` subcommands (its ``cli.py``),
 plus ``--device`` (``cuda`` by default, ``cpu`` for the plain versions).
 Output is plain text lines. Not ported yet: plots, media (GIF, WAV, JSON),
-run manifests and checkpoints (``--plot``, ``--no-plot``, ``--show``,
-``--no-media``, ``--manifest``, ``--ckpt-dir``, md's ``--output`` and
-``--msd-output``), ``nbody --interactive`` (it needs ``rich``), and the
-``em3``, ``vmc`` and ``check-deps`` subcommands.
+run manifests and checkpoints (``--plot``, ``--no-plot``, ``--no-gif``,
+``--show``, ``--no-media``, ``--manifest``, ``--ckpt-dir``, md's
+``--output`` and ``--msd-output``), ``nbody --interactive`` (it needs
+``rich``), and the ``check-deps`` subcommand. ``vmc`` takes walker
+snapshots every 25 epochs and DMC steps, as JAX's does without
+``--no-gif``, though the GIF that would show them waits.
 
 Under a launcher (``torchrun``: ``WORLD_SIZE`` set) ``md`` joins the
 process group, NCCL between cards, and the grid engine runs row-sharded
@@ -377,6 +381,96 @@ def cmd_nbody(args) -> int:
     return 0
 
 
+def _add_em3(sub):
+    p = sub.add_parser("em3", help="three charged particles, gravity + EM field")
+    p.add_argument("--dt", type=float, default=0.01)
+    p.add_argument("--n_steps", type=int, default=1000)
+    p.add_argument("--G", type=float, default=1.0)
+    p.add_argument("--Bz", type=float, default=1.0)
+    p.add_argument("--Bk", type=float, default=0.0)
+    p.add_argument("--Ex", type=float, default=0.0)
+    p.add_argument("--Ey", type=float, default=0.0)
+    p.add_argument("--integrator", type=str, default="boris", choices=["boris", "reference"])
+    _add_device(p)
+
+
+def cmd_em3(args) -> int:
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import EM3Config, override
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.models import em_three_particles as em3
+
+    if not _check_device(args.device):
+        return 2
+    cfg = override(EM3Config(), dt=args.dt, n_steps=args.n_steps, g=args.G, bz=args.Bz, bk=args.Bk,
+                   ex=args.Ex, ey=args.Ey, integrator=args.integrator)
+    device = torch.device(args.device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"EM three-particle (PyTorch port) on {name}")
+    print(f"dt={cfg.dt} steps={cfg.n_steps} G={cfg.g} Bz={cfg.bz} Bk={cfg.bk} E=({cfg.ex}, {cfg.ey}) "
+          f"integrator={cfg.integrator}")
+    print("kernels: none: plain PyTorch on 3 particles")
+    res = em3.run(cfg, device=device)
+    traj = res.trajectory
+    print(f"em3: {cfg.n_steps} steps in {res.wall_time_s * 1e3:.2f} ms "
+          f"({res.wall_time_s * 1e3 / max(cfg.n_steps, 1):.4f} ms per step, eager host loop)")
+    print(f"trajectory {tuple(traj.shape)}, finite {bool(torch.isfinite(traj).all())}, "
+          f"max |r| {float(traj.abs().max()):.4f}")
+    return 0
+
+
+def _add_vmc(sub):
+    p = sub.add_parser("vmc", help="VMC + DMC quantum harmonic oscillator")
+    p.add_argument("--n_walkers", type=int, default=10000)
+    p.add_argument("--n_epochs", type=int, default=3000)
+    p.add_argument("--n_equil", type=int, default=100)
+    p.add_argument("--step_size", type=float, default=2.0)
+    p.add_argument("--lr", type=float, default=0.02)
+    p.add_argument("--n_dmc", type=int, default=500)
+    p.add_argument("--dmc_dt", type=float, default=0.01)
+    p.add_argument("--dim", type=int, default=3)
+    p.add_argument("--resampler", type=str, default="systematic", choices=["systematic", "multinomial"])
+    p.add_argument("--potential", type=str, default="harmonic", choices=["harmonic", "anharmonic"],
+                   help="anharmonic: V += lam*sum(x^4), generic autodiff local energy + "
+                        "{alpha, beta} trial wavefunction")
+    p.add_argument("--lam", type=float, default=0.2, help="quartic coupling (potential=anharmonic)")
+    _add_device(p)
+
+
+def cmd_vmc(args) -> int:
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import VMCDMCConfig, override
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.models import quantum_oscillator
+
+    if not _check_device(args.device):
+        return 2
+    cfg = override(
+        VMCDMCConfig(), n_walkers=args.n_walkers, n_epochs=args.n_epochs, n_equil=args.n_equil,
+        step_size=args.step_size, lr=args.lr, n_dmc=args.n_dmc, dmc_dt=args.dmc_dt, dim=args.dim,
+        resampler=args.resampler, potential=args.potential, lam=args.lam, snapshot_every=25,
+    )
+    device = torch.device(args.device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    pot = cfg.potential + (f" (lam={cfg.lam})" if cfg.potential == "anharmonic" else "")
+    print(f"VMC + DMC (PyTorch port) on {name}")
+    print(f"walkers={cfg.n_walkers:,} dim={cfg.dim} epochs={cfg.n_epochs:,} equil/epoch={cfg.n_equil} "
+          f"lr={cfg.lr} dmc_steps={cfg.n_dmc} dmc_dt={cfg.dmc_dt} resampler={cfg.resampler} potential={pot}")
+    print("kernels: none: plain PyTorch ops on the walkers")
+
+    def progress(epoch, energy, alpha):
+        print(f"VMC epoch {epoch:,}  E={energy:9.6f}  alpha={alpha:.6f}", flush=True)
+
+    res = quantum_oscillator.run(cfg, progress_cb=progress, device=device)
+    alpha_note = f"(exact {res.exact_alpha})" if res.exact_alpha is not None else "(no closed form)"
+    print(f"VMC  : E = {res.vmc_energy:.6f} (exact {res.exact_energy:.6f}), alpha = {res.vmc_alpha:.6f} "
+          f"{alpha_note}  [{res.vmc_wall_s:.3f} s]")
+    mean, err = res.dmc.mean_energy()
+    print(f"DMC  : E = {float(mean):.6f} +- {float(err):.6f} (exact {res.exact_energy:.6f})  "
+          f"[{res.dmc_wall_s:.3f} s]")
+    return 0
+
+
 def _add_bench(sub):
     p = sub.add_parser("bench", help="op benchmark suite (matmul/FFT/conv/bandwidth)")
     p.add_argument("-w", "--warmup", type=int, default=1,
@@ -493,10 +587,12 @@ def main(argv=None) -> int:
     _add_md(sub)
     _add_mdscale(sub)
     _add_nbody(sub)
+    _add_em3(sub)
+    _add_vmc(sub)
     _add_devices(sub)
     args = parser.parse_args(argv)
     commands = {"bench": cmd_bench, "md": cmd_md, "mdscale": cmd_mdscale, "nbody": cmd_nbody,
-                "devices": cmd_devices}
+                "em3": cmd_em3, "vmc": cmd_vmc, "devices": cmd_devices}
     return commands[args.cmd](args)
 
 

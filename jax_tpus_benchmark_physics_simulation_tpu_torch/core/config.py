@@ -1,8 +1,9 @@
 """Typed configuration for the ported workloads.
 
-Copies of ``MDConfig``, ``NBodyConfig``, ``BenchConfig`` and ``override``
-from the JAX package's ``core/config.py``, field for field with the same
-defaults, so a config means the same run in both packages. They are copied
+Copies of ``MDConfig``, ``NBodyConfig``, ``EM3Config``, ``VMCDMCConfig``,
+``BenchConfig`` and ``override`` from the JAX package's ``core/config.py``,
+field for field with the same defaults, so a config means the same run in
+both packages. They are copied
 rather than imported because importing anything from the JAX package
 imports jax. ``BenchConfig`` has no device field: the device travels as an
 argument.
@@ -69,6 +70,55 @@ class NBodyConfig:
     integrator: str = "rk4"  # rk4 (reference) | dopri5 (adaptive)
     rtol: float = 1e-6  # dopri5 tolerances
     atol: float = 1e-9
+
+
+@dataclass(frozen=True)
+class EM3Config:
+    """Three-particle gravity + non-uniform EM (three_particles...:9-17)."""
+
+    dt: float = 0.01
+    n_steps: int = 1000
+    g: float = 1.0
+    bz: float = 1.0
+    bk: float = 0.0
+    ex: float = 0.0
+    ey: float = 0.0
+    # "boris" (default, correct for the velocity-dependent magnetic force) |
+    # "reference": the reference's pseudo-Verlet (three_particles...:69-76)
+    integrator: str = "boris"
+
+
+@dataclass(frozen=True)
+class VMCDMCConfig:
+    """VMC/DMC quantum harmonic oscillator (vmc_dmc...:347-361).
+
+    ``epoch_chunk``: epochs between host reads (progress, snapshots and the
+    histories' chunks); in the JAX package also the scan length fused into
+    one device program, here every epoch is eager ops. ``prng_impl``: kept
+    so a config means the same in both packages, but it selects nothing
+    here: every draw comes from a ``torch.Generator`` (mt19937 on the CPU,
+    Philox on the card).
+    """
+
+    n_walkers: int = 10_000
+    n_epochs: int = 3000
+    n_equil: int = 100
+    step_size: float = 2.0
+    lr: float = 0.02
+    n_dmc: int = 500
+    dmc_dt: float = 0.01
+    dim: int = 3
+    seed: int = 42
+    alpha_init: float = 1.0
+    alpha_min: float = 0.01  # clamp at vmc_dmc...:94
+    resampler: str = "systematic"  # systematic | multinomial (reference)
+    epoch_chunk: int = 50
+    snapshot_every: int = 0  # 0 = no walker snapshots; >0 for GIF frames
+    prng_impl: str = "auto"  # accepted, ignored (see above)
+    # harmonic (reference) | anharmonic (V += lam*sum x^4, autodiff local
+    # energy, {alpha, beta} trial)
+    potential: str = "harmonic"
+    lam: float = 0.2  # quartic coupling for potential="anharmonic"
 
 
 @dataclass(frozen=True)

@@ -4,6 +4,7 @@ The JAX package fuses each loop into one device program (``fori_loop``
 inside ``scan``); here they are host loops over eager steps. A sample is
 whatever ``observe_fn`` returns, a tensor or a tuple of tensors; the
 samples come back ``torch.stack``ed along a new leading axis.
+:func:`synchronize` ends a timed region on the card.
 """
 
 from __future__ import annotations
@@ -71,3 +72,9 @@ def run_trajectory_with_initial(
     if isinstance(first, tuple):
         return final, tuple(torch.cat([f[None], s]) for f, s in zip(first, samples))
     return final, torch.cat([first[None], samples])
+
+
+def synchronize(device: torch.device) -> None:
+    """Waits for the card when ``device`` is one (a timed region's end)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -120,11 +120,39 @@ def cell_assignment_from_jax(arrays: Mapping[str, np.ndarray], device="cuda") ->
     )
 
 
-def particle_state_from_numpy(position: np.ndarray, velocity: np.ndarray, device="cuda") -> ParticleState:
-    """A float32 :class:`ParticleState` on ``device`` (unit masses, zero
-    charges) from (N, D) numpy positions and velocities."""
+def particle_state_from_numpy(position: np.ndarray, velocity: np.ndarray, device="cuda", mass=None,
+                              charge=None) -> ParticleState:
+    """A float32 :class:`ParticleState` on ``device`` from (N, D) numpy
+    positions and velocities, with (N,) ``mass`` and ``charge`` where given
+    (unit masses and zero charges where not)."""
 
     def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        return None if a is None else torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
-    return ParticleState.create(t(position), t(velocity))
+    return ParticleState.create(t(position), t(velocity), mass=t(mass), charge=t(charge))
+
+
+def _tree(value, device, dtype):
+    """A numpy array (or scalar) as a tensor, or a dict of them as a dict of
+    tensors."""
+    if isinstance(value, Mapping):
+        return {k: _tree(v, device, dtype) for k, v in value.items()}
+    return torch.from_numpy(np.array(value, dtype=dtype)).to(device)
+
+
+def mc_params_from_jax(params, device="cuda"):
+    """VMC parameters exported from the JAX package as numpy: a scalar
+    ``alpha`` (the harmonic model) or the ``{alpha, beta}`` dict (the
+    anharmonic one), as float32 tensors on ``device``."""
+    return _tree(params, device, np.float32)
+
+
+def adam_state_from_jax(count, mu, nu, device="cuda"):
+    """The port's :class:`~jax_tpus_benchmark_physics_simulation_tpu_torch.mc.adam.AdamState`
+    from the leaves of optax's ``ScaleByAdamState`` given as numpy arrays:
+    ``count`` (int32) and the moments ``mu`` and ``nu`` (a scalar or a dict
+    like the params)."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.mc.adam import AdamState
+
+    return AdamState(count=_tree(count, device, np.int32), mu=_tree(mu, device, np.float32),
+                     nu=_tree(nu, device, np.float32))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import NBodyConfig, override
+from jax_tpus_benchmark_physics_simulation_tpu_torch.core.runner import synchronize
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.forces.gravity import Gravity
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.integrators import rk4_step_fn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.integrators_adaptive import dopri5_integrate
@@ -138,11 +139,6 @@ class NBodyResult:
     sim_wall_s: float
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run(cfg: Optional[NBodyConfig] = None, device="cuda", dtype=torch.float32) -> NBodyResult:
     """Warm up, then time ``simulate_with_waveform``; then the Lyapunov
     exponent (untimed, as in the JAX package). The warm-up is a short run
@@ -157,11 +153,11 @@ def run(cfg: Optional[NBodyConfig] = None, device="cuda", dtype=torch.float32) -
     warm_steps = min(cfg.num_steps, 10)
     warm = override(cfg, num_steps=warm_steps, sim_time=cfg.sim_time * warm_steps / cfg.num_steps)
     simulate_with_waveform(warm, y0, masses)
-    _sync(device)
+    synchronize(device)
 
     t0 = time.perf_counter()
     ys, t, positions_t, h_plus = simulate_with_waveform(cfg, y0, masses)
-    _sync(device)
+    synchronize(device)
     wall = time.perf_counter() - t0
 
     lyap = None

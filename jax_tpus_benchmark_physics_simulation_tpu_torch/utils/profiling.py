@@ -4,7 +4,8 @@
 the card spent in kernels, memcpys and memsets. Divided by the same work's
 wall time measured *without* the profiler (whose host overhead would
 inflate the wall time), it gives the card's busy share; one minus it is the
-idle share. :func:`window_sync_cost` times the host sync that the gated
+idle share. :func:`device_op_count` counts that work by name.
+:func:`window_sync_cost` times the host sync that the gated
 drivers make once per window, :func:`rebuild_read_cost` the host read of
 ``max_occ`` that the 3D engine's hybrid kernel choice makes once per
 rebuild period. :func:`cuda_ms` times a call on the card with CUDA events,
@@ -43,6 +44,23 @@ def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, st
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
     prof.export_chrome_trace(trace_path)
     return sum(by_name.values()), table, by_name
+
+
+def device_op_count(fn: Callable[[], object]) -> Dict[str, int]:
+    """``{name: count}`` of the work ``fn()`` puts on the card (kernels,
+    memcpys, memsets), from ``torch.profiler``. Needs a CUDA device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts: Dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
 
 
 def cuda_ms(fn: Callable[[], object], reps: int, lead: bool = False) -> float:
