@@ -82,11 +82,11 @@ def _add_md(sub):
     p.add_argument("--gamma", type=float, default=1.0,
                    help="Langevin friction coefficient (1/time)")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="after the run, trace two production sample blocks with "
-                        "torch.profiler: prints the card's busy and idle share, writes "
-                        "DIR/trace.json; on the grid engine also times the host reads of "
-                        "the drivers (the per-window dmax2 read; in 3D also the "
-                        "per-rebuild max_occ read) (needs --device cuda)")
+                   help="after the run, trace two production sample blocks with the "
+                        "program's spans on (utils/trace.py): once without the profiler, "
+                        "for each span's host time and host reads a step, then under "
+                        "torch.profiler, for the card's busy and idle share and its busy "
+                        "and idle time by span; writes DIR/trace.json (needs --device cuda)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their plain versions)")
 
@@ -178,36 +178,50 @@ def cmd_md(args) -> int:
         print(f"note: g(r) estimated from a {res.rdf_subset}-particle random "
               f"subset of the {cfg.n:,} particles (unbiased, higher variance).")
     if args.profile:
-        from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import (
-            profile_device,
-            rebuild_read_cost,
-            window_sync_cost,
-        )
+        from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import trace as spans
+        from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import profile_device
 
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "trace.json")
         # two sample blocks keep the trace small; per step, they do the
         # production phase's work
         traced = override(cfg, prod_steps=min(cfg.prod_steps, 2 * cfg.sample_every))
-        dev_s, table, _ = profile_device(lambda: lj_fluid.production(traced, res.state, res.cadence), trace)
-        dev_ms = 1e3 * dev_s / max(traced.prod_steps, 1)
+        steps = max(traced.prod_steps, 1)
+
+        def block():
+            lj_fluid.production(traced, res.state, res.cadence)
+
+        spans.reset()
+        spans.enable()
+        try:
+            torch.cuda.synchronize()
+            reads = spans.SYNCS
+            block()  # host times without the profiler's inflation
+            torch.cuda.synchronize()
+            reads = spans.SYNCS - reads
+            host = spans.table(steps)
+            spans.reset()
+            dev_s, table, _ = profile_device(block, trace)  # the spans land in the trace
+        finally:
+            spans.disable()
+            spans.reset()
+        dev_ms = 1e3 * dev_s / steps
         wall_ms = 1e3 * res.time_prod_s / max(cfg.prod_steps, 1)
         print(table)
         print(f"profile (production, {traced.prod_steps} traced steps): device busy "
               f"{dev_ms:.4f} ms/step of {wall_ms:.4f} ms/step untraced wall; "
               f"busy share {dev_ms / wall_ms:.3f}, idle share {1 - dev_ms / wall_ms:.3f}; "
               f"trace: {trace}")
-        if impl == "grid":
-            gs = md.init(res.state.position, res.state.velocity)
-            synced, unsynced = window_sync_cost(md, gs, k)
-            print(f"per-window host sync ({k}-step windows): {synced:.4f} ms/step with a dmax2 "
-                  f"read after each window, {unsynced:.4f} ms/step without; the sync costs "
-                  f"{(synced - unsynced) / synced:.3f} of the step")
-            if res.cadence is not None:
-                read, unread = rebuild_read_cost(md, gs, res.cadence)
-                print(f"per-rebuild max_occ read (fixed cadence {res.cadence}): {read:.4f} ms/step "
-                      f"with the read that picks B5 or B4 after each rebuild, {unread:.4f} ms/step "
-                      f"without; the read costs {(read - unread) / read:.3f} of the step")
+        print(f"host spans (spans on, no profiler; {reads / steps:.4f} host reads a step):")
+        print(host)
+        busy, idle = spans.by_span(trace)
+        print("device by span (profiled; busy: the span open at each op's launch, "
+              "idle: the span open when each gap began), ms/step:")
+        for name in sorted(set(busy) | set(idle), key=lambda n: -idle.get(n, 0.0)):
+            print(f"  {name:<20} busy {1e3 * busy.get(name, 0.0) / steps:.4f}  "
+                  f"idle {1e3 * idle.get(name, 0.0) / steps:.4f}")
+        print(f"  {'all':<20} busy {1e3 * sum(busy.values()) / steps:.4f}  "
+              f"idle {1e3 * sum(idle.values()) / steps:.4f}")
     return 0
 
 

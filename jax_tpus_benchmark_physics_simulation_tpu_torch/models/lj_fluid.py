@@ -69,6 +69,7 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md3_sharded i
 from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md_sharded import ShardedGridMD
 from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import make_mesh
 from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.multihost import is_primary, world_size
+from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import trace
 
 SKIN_DEFAULT = 0.4  # the skin everywhere but the 3D grid engine
 IMPLS = ("dense_xla", "dense_pallas", "neighbor", "cell", "grid")
@@ -377,11 +378,20 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
             step_fn, init_fn(state), cfg.prod_steps, cfg.sample_every, observe_fn=observe
         )
         return get_state(final), hist, _carry_overflow(final)
+    with trace.span("md.block", new_block=True):
+        return _grid_production(cfg, state, cadence, md)
 
+
+def _grid_production(cfg: MDConfig, state: ParticleState, cadence: Optional[int], md):
+    """:func:`production` on the grid engine, inside its ``md.block`` span:
+    the block's binning is the ``md.block.init`` span, each sample an
+    ``md.sample`` span (``utils/trace.py``)."""
+    device = state.position.device
     md = md if md is not None else _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
     thermo = _grid_thermostat(cfg)
-    gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg))
+    with trace.span("md.block.init"):
+        gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg))
     use_fixed = cadence is not None
     if use_fixed:
         prod_block = md.make_production_run_fixed(cfg.sample_every, cadence, thermostat=thermo)
@@ -391,9 +401,10 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
     n_samples = cfg.prod_steps // cfg.sample_every
     for _ in range(n_samples):
         gs = prod_block(gs)
-        r_hist.append(md.positions(gs))
-        ke_hist.append(md.kinetic_energy(gs))
-        pe_hist.append(md.potential_energy(gs))
+        with trace.span("md.sample"):
+            r_hist.append(md.positions(gs))
+            ke_hist.append(md.kinetic_energy(gs))
+            pe_hist.append(md.potential_energy(gs))
     rem = cfg.prod_steps - n_samples * cfg.sample_every
     if rem and use_fixed:
         gs = md.make_production_run_fixed(rem, cadence, thermostat=thermo)(gs)

@@ -27,7 +27,9 @@ the x sentinel ``2.5 * box``.
 
 Host control flow: the JAX package runs the rebuild gate inside a device
 ``while_loop``. Here the drivers are Python loops that read the scalar
-``dmax2`` once per window, one host sync every ``n_inner`` steps.
+``dmax2`` once per window, one host sync every ``n_inner`` steps, through
+``utils.trace.host_read``, which counts it. Windows and rebuilds are the
+``md.window`` and ``md.rebuild`` spans of ``utils/trace.py``.
 
 Langevin noise: the state carries its stream as ``rng_seed`` (None for NVE)
 and ``rng_counter``, both Python ints. Each window seeds one
@@ -60,6 +62,7 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packe
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda import migrate
+from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import trace
 
 # the 9 migration directions, in the class order of the allocation
 _DIRS = tuple((dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1))
@@ -354,23 +357,24 @@ class GridMD:
         further than one cell raises ``overflow`` and is kept in place.
         Coordinates are wrapped back into [0, box) here, the only place
         they ever are, and empty slots are re-filled with the sentinel."""
-        xw, yw, scode, occ, overflow, counts = self._migration_dest(s)
-        dtype = s.xg.dtype
-        fields = [xw, yw, s.vxg, s.vyg, s.fxg, s.fyg, s.pid.to(dtype)]
-        fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
-        if s.crx is not None:
-            fields += [s.crx, s.cry, s.cvx, s.cvy]
-            fills += [0.0, 0.0, 0.0, 0.0]
-        out = self._migrate(scode, fields, fills, occ)
-        comp = {}
-        if s.crx is not None:
-            comp = dict(crx=out[7], cry=out[8], cvx=out[9], cvy=out[10])
-        return s.replace(
-            xg=out[0], yg=out[1], vxg=out[2], vyg=out[3], fxg=out[4], fyg=out[5],
-            occ=occ, pid=out[6].to(torch.int32), counts=counts,
-            dispx=torch.zeros_like(s.xg), dispy=torch.zeros_like(s.xg),
-            dmax2=torch.zeros_like(s.dmax2), overflow=self._all_max(overflow), **comp,
-        )
+        with trace.span("md.rebuild"):
+            xw, yw, scode, occ, overflow, counts = self._migration_dest(s)
+            dtype = s.xg.dtype
+            fields = [xw, yw, s.vxg, s.vyg, s.fxg, s.fyg, s.pid.to(dtype)]
+            fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
+            if s.crx is not None:
+                fields += [s.crx, s.cry, s.cvx, s.cvy]
+                fills += [0.0, 0.0, 0.0, 0.0]
+            out = self._migrate(scode, fields, fills, occ)
+            comp = {}
+            if s.crx is not None:
+                comp = dict(crx=out[7], cry=out[8], cvx=out[9], cvy=out[10])
+            return s.replace(
+                xg=out[0], yg=out[1], vxg=out[2], vyg=out[3], fxg=out[4], fyg=out[5],
+                occ=occ, pid=out[6].to(torch.int32), counts=counts,
+                dispx=torch.zeros_like(s.xg), dispy=torch.zeros_like(s.xg),
+                dmax2=torch.zeros_like(s.dmax2), overflow=self._all_max(overflow), **comp,
+            )
 
     def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor) -> torch.Tensor:
         """The rebuild's permutation of the field planes: kernel B2; ``occ``
@@ -524,7 +528,11 @@ class GridMD:
                 out["rng_counter"] = s.rng_counter + n_inner
             return s.replace(**out)
 
-        return window
+        def traced(s):
+            with trace.span("md.window"):
+                return window(s)
+
+        return traced
 
     def _window_for(self, s: GridMDState, n_inner: int, thermostat=None):
         """The ``n_inner``-step window (one force kernel in 2D; the 3D
@@ -540,7 +548,7 @@ class GridMD:
     def step(self, s):
         """One step with a displacement-gated rebuild before it (one host
         read of ``dmax2``). Correct for any dt."""
-        if bool(self._needs_rebuild(s)):
+        if trace.host_read(self._needs_rebuild(s), bool):
             s = self._rebuild_migrate(s)
         return self.step_nocheck(s)
 
@@ -552,7 +560,7 @@ class GridMD:
         ``thermostat=(gamma, kT)`` makes the windows BAOAB Langevin."""
 
         def chunk(s):
-            if bool(self._needs_rebuild(s, frac=gate_frac)):
+            if trace.host_read(self._needs_rebuild(s, frac=gate_frac), bool):
                 s = self._rebuild_migrate(s)
             return self._window_for(s, n_inner, thermostat)(s)
 
@@ -572,7 +580,7 @@ class GridMD:
             done = 0
             while done < n_steps:
                 window = self._window_for(s, n_inner, thermostat)
-                while done < n_steps and not bool(self._needs_rebuild(s, frac=gate_frac)):
+                while done < n_steps and not trace.host_read(self._needs_rebuild(s, frac=gate_frac), bool):
                     s = window(s)
                     done += n_inner
                 s = self._rebuild_migrate(s)

@@ -53,6 +53,7 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import 
     GridMD,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda3 import migrate3
+from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import trace
 
 # the 27 migration directions, in the class order of the allocation
 # (index == dcode = ((dx+1)*3 + (dy+1))*3 + (dz+1))
@@ -347,29 +348,30 @@ class GridMD3:
         static mode, a new ``max_occ`` above ``static_cov``. Coordinates are
         wrapped back into [0, box) here, the only place they ever are, and
         empty slots are re-filled with the sentinel."""
-        xw, yw, zw, scode, occ_new, overflow = self._migration_dest3(s)
-        dtype = s.xg.dtype
-        fields = [xw, yw, zw, s.vxg, s.vyg, s.vzg, s.fxg, s.fyg, s.fzg, s.pid.to(dtype)]
-        fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
-        if s.crx is not None:
-            fields += [s.crx, s.cry, s.crz, s.cvx, s.cvy, s.cvz]
-            fills += [0.0] * 6
-        new_mo = self._max_occ(occ_new)
-        if self._pure_static:
-            overflow = overflow | (new_mo > self.static_cov)
-        out, mov_of = self._migrate(scode, fields, fills, occ_new)
-        comp = {}
-        if s.crx is not None:
-            comp = dict(crx=out[10], cry=out[11], crz=out[12], cvx=out[13], cvy=out[14], cvz=out[15])
-        zeros = torch.zeros_like(s.xg)
-        return s.replace(
-            xg=out[0], yg=out[1], zg=out[2], vxg=out[3], vyg=out[4], vzg=out[5],
-            fxg=out[6], fyg=out[7], fzg=out[8],
-            occ=occ_new, pid=out[9].to(torch.int32),
-            dispx=zeros, dispy=zeros, dispz=zeros,
-            dmax2=torch.zeros_like(s.dmax2),
-            overflow=self._all_max(overflow | mov_of), max_occ=new_mo, **comp,
-        )
+        with trace.span("md.rebuild"):
+            xw, yw, zw, scode, occ_new, overflow = self._migration_dest3(s)
+            dtype = s.xg.dtype
+            fields = [xw, yw, zw, s.vxg, s.vyg, s.vzg, s.fxg, s.fyg, s.fzg, s.pid.to(dtype)]
+            fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
+            if s.crx is not None:
+                fields += [s.crx, s.cry, s.crz, s.cvx, s.cvy, s.cvz]
+                fills += [0.0] * 6
+            new_mo = self._max_occ(occ_new)
+            if self._pure_static:
+                overflow = overflow | (new_mo > self.static_cov)
+            out, mov_of = self._migrate(scode, fields, fills, occ_new)
+            comp = {}
+            if s.crx is not None:
+                comp = dict(crx=out[10], cry=out[11], crz=out[12], cvx=out[13], cvy=out[14], cvz=out[15])
+            zeros = torch.zeros_like(s.xg)
+            return s.replace(
+                xg=out[0], yg=out[1], zg=out[2], vxg=out[3], vyg=out[4], vzg=out[5],
+                fxg=out[6], fyg=out[7], fzg=out[8],
+                occ=occ_new, pid=out[9].to(torch.int32),
+                dispx=zeros, dispy=zeros, dispz=zeros,
+                dmax2=torch.zeros_like(s.dmax2),
+                overflow=self._all_max(overflow | mov_of), max_occ=new_mo, **comp,
+            )
 
     def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor):
         """The rebuild's permutation of the field planes and its mover
@@ -446,7 +448,7 @@ class GridMD3:
         mode: B5's while ``max_occ <= cov``, else B4's, which costs one
         host read of ``max_occ``; ``max_occ`` only changes at a rebuild, so
         the drivers call this once per rebuild period."""
-        if self._hybrid and int(s.max_occ) <= self.static_cov:
+        if self._hybrid and trace.host_read(s.max_occ, int) <= self.static_cov:
             return self._make_window(self.force_kernel_static, n_inner, thermostat)
         return self._make_window(self.force_kernel, n_inner, thermostat)
 

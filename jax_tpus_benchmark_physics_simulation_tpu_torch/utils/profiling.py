@@ -4,11 +4,9 @@
 the card spent in kernels, memcpys and memsets. Divided by the same work's
 wall time measured *without* the profiler (whose host overhead would
 inflate the wall time), it gives the card's busy share; one minus it is the
-idle share. :func:`device_op_count` counts that work by name.
-:func:`window_sync_cost` times the host sync that the gated
-drivers make once per window, :func:`rebuild_read_cost` the host read of
-``max_occ`` that the 3D engine's hybrid kernel choice makes once per
-rebuild period. :func:`cuda_ms` times a call on the card with CUDA events,
+idle share. :func:`device_op_count` counts that work by name. The host
+time of the MD path's layers and its host reads are spans
+(``utils/trace.py``). :func:`cuda_ms` times a call on the card with CUDA events,
 :func:`interleaved_ms` several calls in turns, :func:`spread` prints one
 of its results, :func:`host_us` times a call on the host's clock.
 """
@@ -27,7 +25,8 @@ def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, st
     by_name)``: the summed device time of all work on the card, the
     per-kernel table sorted by device time, and the device seconds of each
     kernel name. Writes a chrome trace to ``trace_path``. Needs a CUDA
-    device."""
+    device. A ``record_function`` range (a span of ``utils/trace.py``) has
+    a copy on the device's timeline: it is no work, and not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -39,7 +38,7 @@ def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, st
         torch.cuda.synchronize()
     by_name: Dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total * 1e-6
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
     prof.export_chrome_trace(trace_path)
@@ -58,7 +57,7 @@ def device_op_count(fn: Callable[[], object]) -> Dict[str, int]:
         torch.cuda.synchronize()
     counts: Dict[str, int] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             counts[e.name] = counts.get(e.name, 0) + 1
     return counts
 
@@ -117,57 +116,3 @@ def host_us(fn: Callable[[], object], reps: int = 200) -> float:
     torch.cuda.synchronize()
     return 1e6 * (time.perf_counter() - t0) / reps
 
-
-def _paired_medians(timed: Callable[[bool], float], repeats: int) -> Tuple[float, float]:
-    """Medians of ``timed(True)`` and ``timed(False)`` over ``repeats``
-    alternating runs, after one warm run of each."""
-    timed(True)
-    timed(False)
-    on, off = [], []
-    for _ in range(repeats):
-        on.append(timed(True))
-        off.append(timed(False))
-    return statistics.median(on), statistics.median(off)
-
-
-def window_sync_cost(md, gs, n_inner: int, n_windows: int = 25, repeats: int = 5) -> Tuple[float, float]:
-    """Wall ms per step of ``n_windows`` leapfrog windows of ``md`` from
-    state ``gs``: with the host read of ``dmax2`` after every window that
-    the gated drivers make, and with one synchronize at the end. Their
-    difference is what the per-window sync costs."""
-    window = md._window_for(gs, n_inner)
-
-    def timed(sync_each: bool) -> float:
-        s = gs
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_windows):
-            s = window(s)
-            if sync_each:
-                bool(md._needs_rebuild(s))
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / (n_windows * n_inner)
-
-    return _paired_medians(timed, repeats)
-
-
-def rebuild_read_cost(md, gs, cadence: int, n_blocks: int = 25, repeats: int = 5) -> Tuple[float, float]:
-    """Wall ms per step of ``n_blocks`` blocks of the 3D fixed-cadence
-    driver (a rebuild, then a ``cadence``-step window) from state ``gs``:
-    with the host read of ``max_occ`` after every rebuild that picks the
-    window's kernel (B5 or B4), and with the kernel picked once before the
-    run. Their difference is what the read costs; the second run is exact
-    only while no rebuild changes the pick."""
-    window = md._window_for(gs, cadence)
-
-    def timed(read_each: bool) -> float:
-        s = gs
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_blocks):
-            s = md._rebuild_migrate(s)
-            s = (md._window_for(s, cadence) if read_each else window)(s)
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / (n_blocks * cadence)
-
-    return _paired_medians(timed, repeats)
