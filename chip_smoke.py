@@ -32,7 +32,8 @@ Run from the repository root. It builds the CUDA kernels from
 5. the 2D main path, ``lj_fluid.run`` at N=100k (rho 0.8, cutoff 2.5,
    dt 1e-3, lattice init, Kahan on, 2000 + 2000 steps), with every launch
    counter set to 0 just before: overflow False, finite energies, energy
-   drift < 1e-4, and B1, B1-energy and B2 launched and B1's loop not; then
+   drift < 1e-4, and B1, B1-energy, B2 and the fused leapfrog pass
+   (``leapfrog_cuda``) launched and B1's loop not; then
    the card's busy share over 200 traced production steps and B1's share
    of device time; then one rebuild under the profiler: its device ops by
    name and count, one B2 launch (``migrate_kernel``) and no fill or
@@ -41,7 +42,8 @@ Run from the repository root. It builds the CUDA kernels from
    configuration; skin 0.1316, 19 cells per side, fixed production
    cadence from the measured kT), with every counter set to 0 just before:
    overflow False, finite histories, drift < 1e-4, finite P*, and B4,
-   B4-energy, B5 (the counted kernel) and B6 launched and B4's and B5's
+   B4-energy, B5 (the counted kernel), B6 and the fused leapfrog pass
+   launched and B4's and B5's
    full loops not; then the card's busy share over 200 traced production
    steps and the counted kernel's (B5 and B4) share of device time; then
    one rebuild under the profiler: its device ops by name and count, one
@@ -67,7 +69,8 @@ Run from the repository root. It builds the CUDA kernels from
    beside B4's loop and B5 on both states (B4 also at the full capacity on
    the melt), B6 and B7 beside the previous design, B5 and its energy
    variant beside B5's full loop and at the strip widths ceil(19 / k),
-   k = 1 to 4;
+   k = 1 to 4; L1, the fused leapfrog pass (``leapfrog_cuda``), on the
+   same state as in phase 15;
 8. B4 forces on 1024 interior particles against the dense oracle computed
    from all 100k particles (atol 1e-4);
 9. a 3D run at N=8192 (100 + 100 steps) on the card against the same run
@@ -105,7 +108,14 @@ Run from the repository root. It builds the CUDA kernels from
     interleaved repeats (median, min, max); packed B2 at both shapes as in
     phase 2 (bit-equal, also at overflow, and at N=1M with movers across a
     block seam; timed beside the previous design), and one N=1M rebuild's
-    device ops with B2 and with the previous design;
+    device ops with B2 and with the previous design; L1 (the fused
+    leapfrog pass, ``leapfrog_cuda``) on the N=1M state: the fused window
+    at 1, 4 and 7 steps torch.equal to the eager window
+    (``tests/torch_window_eager.py``) in every field it writes, ``dmax2``,
+    ``overflow`` and ``time``, the state it was given unchanged; its
+    step, first-step and closing launches timed in 7 interleaved repeats
+    beside the eager passes of the same updates, each with its byte bound
+    (22, 18 and 10 planes; ``tests/torch_leapfrog_designs.launch_times``);
 16. B3 forces on 1024 interior particles of the N=16,384 packed state
     against the dense oracle computed from all 16,384 (atol 1e-4);
 17. the packed main paths, ``lj_fluid.run`` at N=16,384 and at N=1M with
@@ -573,6 +583,33 @@ def _b2_extra(t: dict, host: dict, prefix: str = "") -> dict:
             f"{prefix}host_us": host["B2"], f"{prefix}previous_host_us": host["previous"]}
 
 
+def _leapfrog_checked_times(md, s, label: str):
+    """L1 on the engine ``md``'s state ``s``: the fused window at 1, 4 and
+    7 steps torch.equal to the eager window in every field it writes,
+    ``dmax2``, ``overflow`` and ``time``, and ``s`` unchanged by it; then
+    ``tests/torch_leapfrog_designs.launch_times``: each launch beside the
+    eager passes of the same updates, and its byte bound."""
+    import torch
+
+    eager = _designs("torch_window_eager")
+    given = {k: v.clone() for k, v in vars(s).items() if isinstance(v, torch.Tensor)}
+    for n in (1, 4, 7):
+        eager.assert_states_equal(md, md._make_window(md.force_kernel, n)(s),
+                                  eager.eager_window(md, md.force_kernel, n)(s))
+    torch.cuda.synchronize()
+    changed = [k for k, v in given.items() if not torch.equal(getattr(s, k), v)]
+    if changed:
+        raise AssertionError(f"L1 {label}: the fused window wrote the state it was given: {changed}")
+    t, b, _ = _designs("torch_leapfrog_designs").launch_times(md, s)
+    print(f"phase {label} L1: the fused window (1, 4, 7 steps) torch.equal to the eager window in every "
+          f"field, dmax2, overflow and time; the state it was given unchanged", flush=True)
+    for name in ("step", "first", "close"):
+        print(f"phase {label} time leapfrog_{name} (medians of 7 interleaved repeats of 20 calls, lead): kernel "
+              f"{spread(t[name])}, eager passes {spread(t['eager_' + name])}; bound {b[name][0]:.5f} ms "
+              f"({b[name][1]})", flush=True)
+    return t, b
+
+
 def _rebuild_ops(md, gs, label: str) -> None:
     """One rebuild of the 3D engine ``md`` from ``gs`` under the profiler:
     prints the device ops by name and count, and checks that B6 (or B6
@@ -868,6 +905,7 @@ def main() -> int:
         cell_cuda3,
         cell_cuda_packed,
         copy_cuda,
+        leapfrog_cuda,
         migrate_cuda,
         migrate_cuda3,
         pairwise_cuda,
@@ -905,6 +943,7 @@ def main() -> int:
             "cell_force_halo_loop": cell_cuda.HALO_LOOP_LAUNCHES,
             "cell_force_halo_loop_energy": cell_cuda.HALO_LOOP_ENERGY_LAUNCHES,
             "cell_force3_loop": cell_cuda3.LOOP_LAUNCHES, "cell_force3_halo_loop": cell_cuda3.HALO_LOOP_LAUNCHES,
+            "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES, "leapfrog_close": leapfrog_cuda.CLOSE_LAUNCHES,
         }
 
     def reset_counts():
@@ -922,6 +961,7 @@ def main() -> int:
         cell_cuda.LOOP_LAUNCHES = cell_cuda.LOOP_ENERGY_LAUNCHES = 0
         cell_cuda.HALO_LOOP_LAUNCHES = cell_cuda.HALO_LOOP_ENERGY_LAUNCHES = 0
         cell_cuda3.LOOP_LAUNCHES = cell_cuda3.HALO_LOOP_LAUNCHES = 0
+        leapfrog_cuda.STEP_LAUNCHES = leapfrog_cuda.CLOSE_LAUNCHES = 0
 
     def loop_launches() -> dict:
         """B1's and B4's loop launches, which no path may make."""
@@ -1100,7 +1140,7 @@ def main() -> int:
     reset_counts()
     res = lj_fluid.run(cfg, device="cuda")
     path2 = {"cell_force": cell_cuda.LAUNCHES, "cell_force_energy": cell_cuda.ENERGY_LAUNCHES,
-             "migrate": migrate_cuda.LAUNCHES}
+             "migrate": migrate_cuda.LAUNCHES, "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES}
     report_run(res, "5 lj_fluid.run", path2, path2["migrate"])
     check_run(res, "2D main path")
     for name, count in path2.items():
@@ -1116,7 +1156,8 @@ def main() -> int:
     cfg3 = override(cfg, dim=3)
     res3 = lj_fluid.run(cfg3, device="cuda")
     path3 = {"cell_force3": cell_cuda3.LAUNCHES, "cell_force3_energy": cell_cuda3.ENERGY_LAUNCHES,
-             "cell_force3_counted": cell_cuda3.COUNTED_LAUNCHES, "migrate3": migrate_cuda3.LAUNCHES}
+             "cell_force3_counted": cell_cuda3.COUNTED_LAUNCHES, "migrate3": migrate_cuda3.LAUNCHES,
+             "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES}
     report_run(res3, "6 lj_fluid.run dim=3", path3, path3["migrate3"], cfg3)
     check_run(res3, "3D main path", cfg3)
     for name, count in path3.items():
@@ -1359,6 +1400,7 @@ def main() -> int:
         print(f"phase 7 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
     _print_counted_times("phase 7 B5", t7c, strip7, bounds["cell_force3"], md3.cps)
+    t7l, b7l = _leapfrog_checked_times(md3, gs3, f"7 3D N={cfg3.n}")
     del b4, r4, b4e, r4e, b5, b5e, r5, m6, m7, mr, mp, gm, g8, md8
 
     # -- 8. B4 against the dense oracle ----------------------------------------
@@ -1645,6 +1687,14 @@ def main() -> int:
               f"{spread(tt['fill'])}, scatter {spread(tt['scatter'])}; plain {pl_ms:.4f} ms; bound {bb[0]:.5f} ms "
               f"({bb[1]}); host us a call: B2 {hh['B2']:.1f}, previous {hh['previous']:.1f}", flush=True)
     del t15m, scode_p, occ_p, planes_p, occ16, planes16
+    t15l, b15l = _leapfrog_checked_times(m1, g1, f"15 N=1M packed (R={r1})")
+    for name in ("step", "first", "close"):
+        key = f"leapfrog_{name}"
+        errors[key] = 0.0  # torch.equal to the eager window
+        times[key] = (t15l[name][0], t15l["eager_" + name][0])
+        bounds[key] = b15l[name]
+        extra[key] = {"dim3_ms": t7l[name][0], "dim3_plain_ms": t7l["eager_" + name][0],
+                      "dim3_bound_ms": b7l[name][0]}
 
     # -- 16. B3 against the dense oracle ----------------------------------------
     m16, g16 = packed["N=16,384"]["md"], packed["N=16,384"]["gs"]
@@ -1680,8 +1730,17 @@ def main() -> int:
                 raise AssertionError(f"packed main path N={c.n} never launched kernel {name}")
         if any(unpacked):
             raise AssertionError(f"packed main path N={c.n} launched B1, its loop or unpacked B2: {unpacked}")
+        windows = leapfrog_cuda.CLOSE_LAUNCHES
+        if windows <= 0 or leapfrog_cuda.STEP_LAUNCHES < windows:
+            raise AssertionError(f"packed main path N={c.n}: {leapfrog_cuda.STEP_LAUNCHES} fused step launches "
+                                 f"in {windows} windows")
+        print(f"phase 17 N={c.n}: L1 {leapfrog_cuda.STEP_LAUNCHES} step launches (one a step) and {windows} "
+              f"closing launches (one a window) over {c.eq_steps + c.prod_steps} steps of the run", flush=True)
         if c is cfg1m:
             launches.update(path_p)
+            # a window's first step and its close are one launch each
+            launches.update(leapfrog_step=leapfrog_cuda.STEP_LAUNCHES - windows, leapfrog_first=windows,
+                            leapfrog_close=windows)
 
     traced1m = override(cfg1m, prod_steps=2 * cfg1m.sample_every)
     busy_line("phase 17 N=1M", resp, cfg1m,
@@ -2317,6 +2376,10 @@ def main() -> int:
         "cell_force3_counted_halo": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
         "cell_force3_halo_energy": ("cell_force3.cu", kref + "cell_pallas3.py:722"),
         "migrate3_halo": ("migrate3.cu", kref + "migrate_pallas3.py:471"),
+        # L1 replaces no TPU kernel: XLA fuses the JAX package's window
+        "leapfrog_step": ("leapfrog.cu", kref + "grid_md.py:565"),
+        "leapfrog_first": ("leapfrog.cu", kref + "grid_md.py:565"),
+        "leapfrog_close": ("leapfrog.cu", kref + "grid_md.py:565"),
     }
     for name in ("cell_force", "cell_force_energy", "cell_force_halo", "cell_force_halo_energy"):
         loop_key = name.replace("cell_force", "cell_force_loop") if "halo" not in name else name.replace(

@@ -13,13 +13,15 @@ the x sentinel ``2.5 * box``.
 
 - The velocity-Verlet update runs in leapfrog windows: one force call and
   one elementwise pass per step, half-kick in and half-unkick out at the
-  window boundary. ``thermostat=(gamma, kT)`` makes each step BAOAB
-  Langevin (NVT).
+  window boundary. In NVE the pass is ``leapfrog_cuda.Leapfrog``: one
+  kernel launch a step on the card. ``thermostat=(gamma, kT)`` makes each
+  step BAOAB Langevin (NVT), in eager PyTorch.
 - Positions are not wrapped per step: between rebuilds a particle drifts at
   most skin/2 outside [0, box), which the kernel's per-offset seam handling
   covers. Coordinates are wrapped once per rebuild.
-- The skin monitor is a pair of displacement accumulators plus a per-slot
-  running max, reduced to the scalar ``dmax2`` once per window.
+- The skin monitor is a pair of displacement accumulators plus a running
+  max of their squared norm, the scalar ``dmax2`` of each window (on the
+  card reduced inside the window's kernel).
 - The rebuild is sort-free: every particle moves at most one cell between
   rebuilds, so an allocation in plain PyTorch (``_migration_dest``) gives
   each slot a source-frame code, and kernel B2 (``migrate_cuda``) moves the
@@ -61,6 +63,7 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packe
     unpack,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.leapfrog_cuda import Leapfrog
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda import migrate
 from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import trace
 
@@ -78,6 +81,23 @@ def _stream_seed(seed: int, counter: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return z ^ (z >> 31)
+
+
+def kadd(x, c, inc):
+    """Kahan-compensated ``x += inc`` with residual ``c``. Kept as separate
+    eager ops: an algebraic simplification would cancel the residual."""
+    y = inc - c
+    t = x + y
+    c = (t - x) - y
+    return t, c
+
+
+def sumsq(v):
+    """``v[0]^2 + v[1]^2 (+ v[2]^2)``, as separate eager ops."""
+    out = v[0] * v[0]
+    for t in v[1:]:
+        out = out + t * t
+    return out
 
 
 @dataclass
@@ -431,15 +451,6 @@ class GridMD:
         return ~(s.dmax2 <= (frac * self.skin) ** 2)
 
     # -- MD step ---------------------------------------------------------------
-    @staticmethod
-    def _kadd(x, c, inc):
-        """Kahan-compensated x += inc with residual c. Kept as separate
-        eager ops: an algebraic simplification would cancel the residual."""
-        y = inc - c
-        t = x + y
-        c = (t - x) - y
-        return t, c
-
     def _count_args(self, counts: torch.Tensor) -> tuple:
         """The count grid where the force kernel takes it (B3, R > 1)."""
         return (counts,) if self.rows_per_block > 1 else ()
@@ -449,60 +460,80 @@ class GridMD:
         return self._count_args(s.counts)
 
     def _make_window(self, force_fn, n_inner: int, thermostat=None):
-        """Leapfrog window: ``window(s) -> s`` advancing ``n_inner``
-        velocity-Verlet steps with one force call and one elementwise pass
-        per step, over the engine's ``AXES`` (shared with the 3D engine).
-        If any particle's displacement since the rebuild exceeded skin/2
-        mid-window, the state's ``overflow`` flag is raised (NaN-safe:
-        ``~(NaN <= t)`` is True).
+        """Leapfrog window: ``window(s) -> s`` advancing ``n_inner`` >= 1
+        velocity-Verlet steps with one force call per step, over the
+        engine's ``AXES`` (shared with the 3D engine). If any particle's
+        displacement since the rebuild exceeded skin/2 mid-window, the
+        state's ``overflow`` flag is raised (NaN-safe: ``~(NaN <= t)`` is
+        True).
+
+        NVE: the kick, drift, Kahan residuals and displacement max of each
+        step are one :class:`~.leapfrog_cuda.Leapfrog` pass (on the card one
+        kernel launch a step and one a window; on the CPU its plain
+        version), the window's ``dmax2`` one scalar.
 
         ``thermostat=(gamma, kT)`` makes each step BAOAB Langevin (NVT): the
         exact Ornstein-Uhlenbeck map ``vh <- c1*vh + c2*xi`` between two
         half-drifts, ``c1 = exp(-gamma*dt)``, ``c2 = sqrt(kT*(1-c1^2))``
-        (unit mass), still one force call a step. The noise is masked by
-        occupancy, so empty slots stay exactly at rest; velocity Kahan
-        compensation is bypassed (the OU map rescales vh). A state without a
-        noise stream raises ``ValueError``."""
+        (unit mass), still one force call a step, in eager PyTorch (the
+        noise is the state's ``torch.Generator`` stream). The noise is
+        masked by occupancy, so empty slots stay exactly at rest; velocity
+        Kahan compensation is bypassed (the OU map rescales vh). A state
+        without a noise stream raises ``ValueError``."""
         dt = self.dt
         comp = bool(self.compensated)
-        kadd = self._kadd
         axes = self.AXES
+
+        def finish(s, dmax2, pos, v, f, disp, **res):
+            """The window's end state: ``res`` the residual planes it wrote."""
+            dmax2 = self._all_max(dmax2)
+            violation = ~(dmax2 <= (0.5 * self.skin) ** 2)
+            out = dict(dmax2=dmax2, overflow=s.overflow | violation, time=s.time + n_inner * dt)
+            for k, a in enumerate(axes):
+                out.update({f"{a}g": pos[k], f"v{a}g": v[k], f"f{a}g": f[k], f"disp{a}": disp[k]})
+                out.update({f"{r}{a}": planes[k] for r, planes in res.items()})
+            return s.replace(**out)
+
+        def nve(s):
+            extra = self._force_args(s)
+            res = {}
+            if comp:
+                res = {r: [getattr(s, f"{r}{a}") for a in axes] for r in ("cr", "cv")}
+            lf = Leapfrog([getattr(s, f"v{a}g") for a in axes], [getattr(s, f"{a}g") for a in axes],
+                          [getattr(s, f"disp{a}") for a in axes], **res, dt=dt)
+            f = [getattr(s, f"f{a}g") for a in axes]
+            for _ in range(n_inner):
+                lf.step(f)
+                f = list(force_fn(*lf.pos, *extra))
+            lf.close(f)
+            res = dict(cr=lf.cr, cv=lf.cv) if comp else {}
+            return finish(s, lf.dmax2, lf.pos, lf.v, f, lf.disp, **res)
+
         if thermostat is not None:
             gamma, kt_target = thermostat
             c1 = float(math.exp(-gamma * dt))
             c2 = float(math.sqrt(kt_target * (1.0 - c1 * c1)))
 
-        def sumsq(v):
-            out = v[0] * v[0]
-            for t in v[1:]:
-                out = out + t * t
-            return out
-
-        def window(s):
-            if thermostat is not None:
-                if s.rng_seed is None:
-                    raise ValueError("Langevin window needs a PRNG stream: init(..., seed=...)")
-                gen = torch.Generator(device=s.xg.device)
-                gen.manual_seed(self._noise_seed(s))
-                noise_shape = (len(axes),) + tuple(s.xg.shape)
+        def langevin(s):
+            if s.rng_seed is None:
+                raise ValueError("Langevin window needs a PRNG stream: init(..., seed=...)")
+            gen = torch.Generator(device=s.xg.device)
+            gen.manual_seed(self._noise_seed(s))
+            noise_shape = (len(axes),) + tuple(s.xg.shape)
             extra = self._force_args(s)
             f = [getattr(s, f"f{a}g") for a in axes]
             vh = [getattr(s, f"v{a}g") + 0.5 * dt * fa for a, fa in zip(axes, f)]
             pos = [getattr(s, f"{a}g") for a in axes]
             cr = [getattr(s, f"cr{a}") for a in axes]
-            cv = [getattr(s, f"cv{a}") for a in axes]
             disp = [getattr(s, f"disp{a}") for a in axes]
             dm = sumsq(disp)
             for _ in range(n_inner):
-                if thermostat is None:
-                    inc = [dt * v for v in vh]
-                else:
-                    # A O A: drift half on vh, OU-refresh vh, drift half on
-                    # the refreshed vh; the increments fuse into one add
-                    xi = torch.randn(noise_shape, generator=gen, dtype=s.xg.dtype, device=s.xg.device)
-                    vp = [c1 * v + c2 * (xi[k] * s.occ) for k, v in enumerate(vh)]
-                    inc = [0.5 * dt * (v + p) for v, p in zip(vh, vp)]
-                    vh = vp
+                # A O A: drift half on vh, OU-refresh vh, drift half on the
+                # refreshed vh; the increments fuse into one add
+                xi = torch.randn(noise_shape, generator=gen, dtype=s.xg.dtype, device=s.xg.device)
+                vp = [c1 * v + c2 * (xi[k] * s.occ) for k, v in enumerate(vh)]
+                inc = [0.5 * dt * (v + p) for v, p in zip(vh, vp)]
+                vh = vp
                 for k in range(len(axes)):
                     if comp:
                         pos[k], cr[k] = kadd(pos[k], cr[k], inc[k])
@@ -511,22 +542,12 @@ class GridMD:
                     disp[k] = disp[k] + inc[k]
                 dm = torch.maximum(dm, sumsq(disp))
                 f = list(force_fn(*pos, *extra))
-                for k in range(len(axes)):
-                    if comp and thermostat is None:
-                        vh[k], cv[k] = kadd(vh[k], cv[k], dt * f[k])
-                    else:
-                        vh[k] = vh[k] + dt * f[k]
-            dmax2 = self._all_max(torch.max(dm))
-            violation = ~(dmax2 <= (0.5 * self.skin) ** 2)
-            out = dict(dmax2=dmax2, overflow=s.overflow | violation, time=s.time + n_inner * dt)
-            for k, a in enumerate(axes):
-                out.update({
-                    f"{a}g": pos[k], f"v{a}g": vh[k] - 0.5 * dt * f[k], f"f{a}g": f[k],
-                    f"cr{a}": cr[k], f"cv{a}": cv[k], f"disp{a}": disp[k],
-                })
-            if thermostat is not None:
-                out["rng_counter"] = s.rng_counter + n_inner
-            return s.replace(**out)
+                vh = [v + dt * fa for v, fa in zip(vh, f)]
+            v = [v - 0.5 * dt * fa for v, fa in zip(vh, f)]
+            res = dict(cr=cr) if comp else {}
+            return finish(s.replace(rng_counter=s.rng_counter + n_inner), torch.max(dm), pos, v, f, disp, **res)
+
+        window = nve if thermostat is None else langevin
 
         def traced(s):
             with trace.span("md.window"):

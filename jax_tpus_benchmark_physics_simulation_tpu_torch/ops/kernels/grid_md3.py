@@ -433,7 +433,6 @@ class GridMD3:
     _needs_rebuild = GridMD._needs_rebuild
 
     # -- MD step ---------------------------------------------------------------
-    _kadd = staticmethod(GridMD._kadd)
     # the leapfrog / BAOAB window over AXES, and the drivers, are the 2D
     # engine's (see GridMD._make_window)
     _make_window = GridMD._make_window
