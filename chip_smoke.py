@@ -1454,9 +1454,12 @@ def main() -> int:
                  "crx", "cry", "crz", "cvx", "cvy", "cvz", "max_occ", "dmax2"):
         if not torch.equal(getattr(finals[False], name), getattr(finals[True], name)):
             raise AssertionError(f"B7 run vs B6 run: {name} differs")
+    if int(finals[False].mover_flags) != 0:
+        raise AssertionError("the B7 run counted a mover flag")
     print(f"phase 10 {flat_steps} steps at cadence {cadence} from the equilibrated 3D state: "
           f"{launches['migrate3_flat']} B7 launches, final state bit-equal to the B6 run; overflow "
-          f"B7 {bool(finals[False].overflow)}, B6 {bool(finals[True].overflow)}", flush=True)
+          f"B7 {bool(finals[False].overflow)}, B6 {bool(finals[True].overflow)}; mover flags B6 "
+          f"{int(finals[True].mover_flags)}", flush=True)
 
     # -- 11. B8 against its plain version ---------------------------------------
     def check_pairwise(pos, p, label: str, with_energy: bool) -> float:
@@ -2335,8 +2338,8 @@ def main() -> int:
                       ("cell_force3_counted_kernel",), "B5 halo and B4 halo (the counted kernel)")
     # lj_fluid's 3D engine at 18 cells per side: its mover flag at k_mov 16
     print(f"phase 26 3D ShardedGridMD3 at {sharded.cps} cells per side with lj_fluid's k_mov "
-          f"{sharded.migrate_k_mov}: overflow {res_s.overflow} (B6's mover flag stays down through the melt's "
-          f"first rebuild)", flush=True)
+          f"{sharded.migrate_k_mov}: overflow {res_s.overflow}, B6 mover flags {res_s.mover_flags} (rebuilds "
+          f"with a cell over k_mov movers, none lost)", flush=True)
     dist.destroy_process_group()
 
     # -- 27. em3 on the card --------------------------------------------------------

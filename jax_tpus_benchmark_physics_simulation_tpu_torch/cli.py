@@ -170,6 +170,12 @@ def cmd_md(args) -> int:
     _, d_coef, d_resid = res.transport()
     d_s = f"; D* = {d_coef:.4e} (fit rms {d_resid:.1e})" if math.isfinite(d_coef) else ""
     print(f"energy drift: {drift_s}{p_s}{d_s}; kT after equilibration = {res.kt_eq:.4f}")
+    if impl == "grid":
+        movers = ""
+        if cfg.dim == 3:
+            movers = (f"; B6 mover flags {res.mover_flags} (rebuilds with a cell over k_mov "
+                      f"{md.migrate_k_mov} movers; B6 moves them all, nothing is lost)")
+        print(f"overflow: {res.overflow}{movers}")
     if res.overflow:
         print("[WARNING] spatial-structure capacity/skin OVERFLOW was flagged: "
               "pair interactions may have been missed; results are suspect "

@@ -72,13 +72,14 @@ def grid3_state_from_jax(arrays: Mapping[str, np.ndarray], md: GridMD3) -> GridM
     given as numpy arrays by field name. The TPU's padding lanes
     (``>= cps * cps``) are dropped, ``pid`` is cast to int32 and ``max_occ``
     is carried as a 0-d int32 tensor. As in 2D, the PRNG key is not carried
-    over."""
+    over; ``mover_flags``, which the JAX state lacks, starts at 0."""
     dev = md.device
     return GridMD3State(
         dmax2=_scalar(arrays, "dmax2", torch.float32, dev),
         overflow=_scalar(arrays, "overflow", torch.bool, dev),
         time=_scalar(arrays, "time", torch.float32, dev),
         max_occ=_scalar(arrays, "max_occ", torch.int32, dev),
+        mover_flags=torch.zeros((), dtype=torch.int32, device=dev),
         **_grids(arrays, _GRID3_FIELDS, md.grid_shape[:2], md.plane, dev),
     )
 

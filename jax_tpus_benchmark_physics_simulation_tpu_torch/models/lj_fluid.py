@@ -327,16 +327,29 @@ def _carry_overflow(carry) -> torch.Tensor:
     return torch.zeros((), dtype=torch.bool, device=carry.position.device)
 
 
+def _mover_flags(gs):
+    """The rebuilds in which B6 found a cell with more than ``k_mov``
+    movers, a 0-d int32 tensor of a 3D grid state; 0 for the other states,
+    which have no such flag."""
+    return getattr(gs, "mover_flags", 0)
+
+
 def equilibrate(cfg: MDConfig, state: ParticleState, md=None):
     """Equilibration (NVE, or Langevin NVT on the grid engine). Returns
     ``(state, overflow)``: the capacity/skin overflow flag (0-d bool
     tensor) is carried out, never dropped. ``md``: the grid engine to run
     (default :func:`_make_grid_md`'s), for example a row-sharded one."""
+    final, overflow, _ = _equilibrate(cfg, state, md)
+    return final, overflow
+
+
+def _equilibrate(cfg: MDConfig, state: ParticleState, md):
+    """:func:`equilibrate`, with the run's :func:`_mover_flags` last."""
     device = state.position.device
     if resolve_impl(cfg, device) != "grid":
         init_fn, step_fn, get_state = build_step(cfg, device)
         carry = run_steps(step_fn, init_fn(state), cfg.eq_steps)
-        return get_state(carry), _carry_overflow(carry)
+        return get_state(carry), _carry_overflow(carry), 0
     md = md if md is not None else _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
     thermo = _grid_thermostat(cfg)
@@ -349,7 +362,7 @@ def equilibrate(cfg: MDConfig, state: ParticleState, md=None):
     final = state.replace(
         position=md.positions(gs), velocity=md.velocities(gs), time=state.time + gs.time
     )
-    return final, gs.overflow
+    return final, gs.overflow, _mover_flags(gs)
 
 
 def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = None, md=None):
@@ -359,6 +372,12 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
     None keeps the displacement-gated driver, and the other paths ignore it.
     ``md``: the grid engine to run, as in :func:`equilibrate`.
     Returns ``(final_state, (r_history, ke_history, pe_history), overflow)``."""
+    final, hist, overflow, _ = _production(cfg, state, cadence, md)
+    return final, hist, overflow
+
+
+def _production(cfg: MDConfig, state: ParticleState, cadence: Optional[int], md):
+    """:func:`production`, with the run's :func:`_mover_flags` last."""
     if cfg.prod_steps and cfg.sample_every > cfg.prod_steps:
         raise ValueError(
             f"sample_every ({cfg.sample_every}) > prod_steps ({cfg.prod_steps}): "
@@ -377,7 +396,7 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
         final, hist = run_trajectory(
             step_fn, init_fn(state), cfg.prod_steps, cfg.sample_every, observe_fn=observe
         )
-        return get_state(final), hist, _carry_overflow(final)
+        return get_state(final), hist, _carry_overflow(final), 0
     with trace.span("md.block", new_block=True):
         return _grid_production(cfg, state, cadence, md)
 
@@ -428,7 +447,7 @@ def _grid_production(cfg: MDConfig, state: ParticleState, cadence: Optional[int]
             torch.zeros(0, dtype=dtype, device=device),
             torch.zeros(0, dtype=dtype, device=device),
         )
-    return final, hist, gs.overflow
+    return final, hist, gs.overflow, _mover_flags(gs)
 
 
 def production_cadence(cfg: MDConfig, kt_eq: float, md=None) -> Optional[int]:
@@ -471,6 +490,9 @@ class MDResult:
     # Capacity/skin overflow: True means some structural invariant was
     # violated mid-run and the physics after that point is suspect.
     overflow: bool = False
+    # rebuilds in which B6 found a cell with more than k_mov movers (3D grid
+    # engine; B6 moves them all, so nothing is lost and overflow stays down)
+    mover_flags: int = 0
     rdf_subset: int = 0  # >0: g(r) was estimated from this many particles
     # virial pressure of the final state (grid engine only; NaN elsewhere)
     pressure: float = float("nan")
@@ -547,7 +569,7 @@ def run(
     time_compile = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    state_eq, overflow_eq = equilibrate(cfg, state, md)
+    state_eq, overflow_eq, movers_eq = _equilibrate(cfg, state, md)
     overflow_eq = bool(overflow_eq)
     _sync(device)
     time_eq = time.perf_counter() - t0
@@ -560,10 +582,11 @@ def run(
     cadence = production_cadence(cfg, kt_eq, md)
 
     t0 = time.perf_counter()
-    final, (r_hist, ke_hist, pe_hist), overflow_prod = production(cfg, state_eq, cadence, md)
+    final, (r_hist, ke_hist, pe_hist), overflow_prod, movers_prod = _production(cfg, state_eq, cadence, md)
     overflow_prod = bool(overflow_prod)
     _sync(device)
     time_prod = time.perf_counter() - t0
+    mover_flags = int(movers_eq) + int(movers_prod)
     overflow = overflow_eq or overflow_prod
     if overflow and is_primary():
         import warnings
@@ -600,6 +623,7 @@ def run(
         * (cfg.eq_steps + cfg.prod_steps)
         / max(time_eq + time_prod, 1e-12),
         overflow=overflow,
+        mover_flags=mover_flags,
         rdf_subset=_RDF_MAX_PARTICLES if cfg.n > _RDF_MAX_PARTICLES else 0,
         pressure=pressure,
         kt_eq=kt_eq,

@@ -31,7 +31,8 @@ Host control flow: the JAX package runs the rebuild gate inside a device
 ``while_loop``. Here the drivers are Python loops that read the scalar
 ``dmax2`` once per window, one host sync every ``n_inner`` steps, through
 ``utils.trace.host_read``, which counts it. Windows and rebuilds are the
-``md.window`` and ``md.rebuild`` spans of ``utils/trace.py``.
+``md.window`` and ``md.rebuild`` spans of ``utils/trace.py``, a rebuild's
+allocation the ``md.alloc`` span inside it.
 
 Langevin noise: the state carries its stream as ``rng_seed`` (None for NVE)
 and ``rng_counter``, both Python ints. Each window seeds one
@@ -371,14 +372,16 @@ class GridMD:
         return xw, yw, pack(scode, r), pack(occ_new, r), overflow, tot.view(rows, cps)
 
     def _rebuild_migrate(self, s: GridMDState) -> GridMDState:
-        """Sort-free re-binning: allocation in plain PyTorch, then one
-        kernel-B2 launch that moves every field from where it lies and
-        fills the slots the allocation leaves empty. A particle that moved
-        further than one cell raises ``overflow`` and is kept in place.
+        """Sort-free re-binning: allocation in plain PyTorch (the
+        ``md.alloc`` span), then one kernel-B2 launch that moves every field
+        from where it lies and fills the slots the allocation leaves empty.
+        A particle that moved further than one cell raises ``overflow`` and
+        is kept in place.
         Coordinates are wrapped back into [0, box) here, the only place
         they ever are, and empty slots are re-filled with the sentinel."""
         with trace.span("md.rebuild"):
-            xw, yw, scode, occ, overflow, counts = self._migration_dest(s)
+            with trace.span("md.alloc"):
+                xw, yw, scode, occ, overflow, counts = self._migration_dest(s)
             dtype = s.xg.dtype
             fields = [xw, yw, s.vxg, s.vyg, s.fxg, s.fyg, s.pid.to(dtype)]
             fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]

@@ -16,9 +16,13 @@ Langevin window and its drivers:
   PyTorch (``_migration_dest3``) gives each slot a source-frame code, and
   one launch of B6 (``migrate_cuda3``; B7 with ``migrate_compact=False``)
   moves the fields from where they lie, fills the slots the allocation
-  left empty and raises the loud ``mov_of`` flag on the card when a cell
-  has more than ``migrate_k_mov`` movers, as the JAX package's compacted
-  kernel does.
+  left empty and raises its mover flag on the card when a cell has more
+  than ``migrate_k_mov`` movers, the state in which the JAX package's
+  compacted kernel drops particles. B6 here moves every particle whatever
+  the count, so the flag loses nothing: the state counts the rebuilds it
+  rose in (``mover_flags``, on the device) and keeps it out of
+  ``overflow``, which stays for lost or misplaced physics (a cell's
+  capacity, a far mover, the skin, pure static mode's bound).
 - ``max_occ``, the largest cell occupancy of the last (re)binning, is a 0-d
   int32 tensor on the device. B4 (the counted kernel at the capacity's
   shared memory) reads it there through a pointer as its bound.
@@ -66,7 +70,8 @@ def _round_up(x: int, m: int) -> int:
 @dataclass
 class GridMD3State:
     """All (ncx, cap, ncy*ncz) leaves live on ``GridMD3.device``.
-    ``dmax2``, ``overflow``, ``time`` and ``max_occ`` are 0-d tensors."""
+    ``dmax2``, ``overflow``, ``time``, ``max_occ`` and ``mover_flags`` are
+    0-d tensors."""
 
     xg: torch.Tensor
     yg: torch.Tensor
@@ -86,6 +91,7 @@ class GridMD3State:
     overflow: torch.Tensor  # bool
     time: torch.Tensor
     max_occ: torch.Tensor  # int32 max cell occupancy of the last (re)binning
+    mover_flags: torch.Tensor  # int32 rebuilds whose B6 found > migrate_k_mov movers in a cell
     # Kahan compensation residuals (compensated=True)
     crx: Optional[torch.Tensor] = None
     cry: Optional[torch.Tensor] = None
@@ -248,7 +254,8 @@ class GridMD3:
             xg=xg, yg=yg, zg=zg, vxg=vxg, vyg=vyg, vzg=vzg, fxg=fxg, fyg=fyg, fzg=fzg,
             occ=occ, pid=pid.view(self.grid_shape),
             dispx=torch.zeros_like(xg), dispy=torch.zeros_like(xg), dispz=torch.zeros_like(xg),
-            dmax2=zero, overflow=overflow, time=zero.clone(), max_occ=max_occ, rng_seed=seed, **comp,
+            dmax2=zero, overflow=overflow, time=zero.clone(), max_occ=max_occ,
+            mover_flags=torch.zeros((), dtype=torch.int32, device=self.device), rng_seed=seed, **comp,
         )
 
     # -- migration rebuild (sort-free) ----------------------------------------
@@ -340,26 +347,31 @@ class GridMD3:
         return xw, yw, zw, scode, occ_new, overflow
 
     def _rebuild_migrate(self, s: GridMD3State) -> GridMD3State:
-        """Sort-free re-binning: allocation in plain PyTorch, then one
-        migrate launch (B6, or B7 with ``migrate_compact=False``) that moves
-        every field from where it lies and raises the mover flag on the
-        card. A particle that moved further than one cell raises
-        ``overflow`` and is kept in place; so do B6's ``mov_of`` and, in pure
-        static mode, a new ``max_occ`` above ``static_cov``. Coordinates are
-        wrapped back into [0, box) here, the only place they ever are, and
-        empty slots are re-filled with the sentinel."""
+        """Sort-free re-binning: allocation in plain PyTorch (the
+        ``md.alloc`` span), then one migrate launch (B6, or B7 with
+        ``migrate_compact=False``) that moves every field from where it lies
+        and raises the mover flag on the card. A particle that moved further
+        than one cell raises ``overflow`` and is kept in place; so do a cell
+        over its capacity and, in pure static mode, a new ``max_occ`` above
+        ``static_cov``. B6's mover flag adds one to ``mover_flags`` instead:
+        no particle is lost. Coordinates are wrapped back into [0, box)
+        here, the only place they ever are, and empty slots are re-filled
+        with the sentinel."""
         with trace.span("md.rebuild"):
-            xw, yw, zw, scode, occ_new, overflow = self._migration_dest3(s)
+            with trace.span("md.alloc"):
+                xw, yw, zw, scode, occ_new, overflow = self._migration_dest3(s)
+                new_mo = self._max_occ(occ_new)
             dtype = s.xg.dtype
             fields = [xw, yw, zw, s.vxg, s.vyg, s.vzg, s.fxg, s.fyg, s.fzg, s.pid.to(dtype)]
             fills = [self.sentinel, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
             if s.crx is not None:
                 fields += [s.crx, s.cry, s.crz, s.cvx, s.cvy, s.cvz]
                 fills += [0.0] * 6
-            new_mo = self._max_occ(occ_new)
             if self._pure_static:
                 overflow = overflow | (new_mo > self.static_cov)
             out, mov_of = self._migrate(scode, fields, fills, occ_new)
+            # one reduction over the ranks for both flags
+            overflow, mov_of = self._all_max(torch.stack([overflow, mov_of]))
             comp = {}
             if s.crx is not None:
                 comp = dict(crx=out[10], cry=out[11], crz=out[12], cvx=out[13], cvy=out[14], cvz=out[15])
@@ -370,7 +382,7 @@ class GridMD3:
                 occ=occ_new, pid=out[9].to(torch.int32),
                 dispx=zeros, dispy=zeros, dispz=zeros,
                 dmax2=torch.zeros_like(s.dmax2),
-                overflow=self._all_max(overflow | mov_of), max_occ=new_mo, **comp,
+                overflow=overflow, max_occ=new_mo, mover_flags=s.mover_flags + mov_of, **comp,
             )
 
     def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor):

@@ -23,9 +23,12 @@ output (1.0 where a source lands, 0.0 elsewhere: ``_migration_dest3``'s
 ``occ_new``): the kernel fills the slots it leaves empty.
 
 - :func:`migrate3_reference`: the plain PyTorch version;
-- :func:`mover_overflow`: B6's loud flag in plain PyTorch, computed from
+- :func:`mover_overflow`: B6's mover flag in plain PyTorch, computed from
   the codes as the JAX package's ``compact_fields`` does; the CPU path's,
-  and the kernel's reference;
+  and the kernel's reference. The JAX package drops the movers past
+  ``k_mov`` where it rises; the port moves them all, so ``GridMD3`` counts
+  the rebuilds it rises in (``mover_flags``) and does not raise
+  ``overflow`` for it;
 - :func:`migrate3`: the wrapper. A CPU tensor takes the plain version, a
   CUDA tensor launches the kernel or raises;
 - :func:`migrate3_halo_reference` / :func:`migrate3_halo`: B6 halo on one

@@ -12,9 +12,9 @@ docstring first) on the x-rows of the ``(ncx, cap, ncy * ncz)`` layout.
 - **Rebuild.** ``GridMD3._migration_dest3`` on the local x-rows (two
   one-row exchanges of the per-cell counts and bases), then B6 halo
   (``migrate_cuda3.migrate3_halo``) from the local rows with the
-  neighbours' whole edge rows attached. B6's ``mov_of`` flag is computed on
-  the card from each rank's own source cells and reduced with MAX, so it
-  rises exactly where the unsharded engine's does. JAX compacts each edge
+  neighbours' whole edge rows attached. B6's mover flag is computed on
+  the card from each rank's own source cells and reduced with MAX, so
+  ``mover_flags`` counts exactly the rebuilds the unsharded engine counts. JAX compacts each edge
   row to its ``k_mov`` mover planes before the exchange; the port sends
   the rows whole (``csrc/migrate3.cu`` says why).
 """

@@ -26,6 +26,9 @@ apart from the aten ops among the profiler's events):
   and the row-sharded engines share);
 - ``md.rebuild``: one sort-free rebuild (``_rebuild_migrate``): the
   allocation and the permutation kernel (B2 or B6);
+- ``md.alloc``: inside ``md.rebuild``, its allocation in plain PyTorch
+  (``_migration_dest`` / ``_migration_dest3``; in 3D also the new
+  ``max_occ``), so that ``md.rebuild``'s own time is the permutation's;
 - ``md.sync``: one host read (:func:`host_read`): the gated drivers'
   ``dmax2`` and the 3D engine's ``max_occ``.
 """

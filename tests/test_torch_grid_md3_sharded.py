@@ -84,9 +84,12 @@ def test_flags_raised_where_unsharded_raises(runs, p):
     plain, out = runs["plain"], runs[p]
     for flag, expected in (("far_mover_overflow", True), ("skin_overflow", True), ("clean_rebuild_overflow", False)):
         assert out[flag] is plain[flag] is expected, flag
-    # k_mov 1, 2, 4, 8, cap: raised at the small bounds, never at cap
+    # k_mov 1, 2, 4, 8, cap: counted at the small bounds, never at cap, and
+    # never an overflow: B6 halo moves every particle
     assert out["mov_of"] == plain["mov_of"]
-    assert plain["mov_of"][0] and not plain["mov_of"][-1]
+    assert plain["mov_of"][0] == 1 and plain["mov_of"][-1] == 0
+    assert set(plain["mov_of"]) <= {0, 1}
+    assert not any(out["mov_overflow"]) and not any(plain["mov_overflow"])
 
 
 def test_chunked_run_matches_jax_sharded(runs):

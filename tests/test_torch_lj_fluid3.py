@@ -104,7 +104,7 @@ def test_run_3d_cpu_and_cadence_rule():
     rule's on the measured kT, the histories are finite, energy holds."""
     cfg = override(MDConfig(), **dict(SLICE3, eq_steps=60, prod_steps=100))
     res = lj_fluid.run(cfg, device="cpu")
-    assert not res.overflow
+    assert not res.overflow and res.mover_flags == 0
     md = lj_fluid._make_grid_md(cfg, "cpu")
     assert res.cadence == max(1, min(md.auto_cadence(res.kt_eq, cfg.prod_steps), cfg.sample_every))
     assert res.cadence == lj_fluid.production_cadence(cfg, res.kt_eq) == 20
@@ -141,5 +141,6 @@ def test_cli_md_3d_cpu(capsys):
     assert "B5 (cov 8) / B4 fallback, B6" in out and "4 cells per side, capacity 16" in out
     assert "throughput:" in out and "energy drift:" in out and "P* =" in out
     assert "OVERFLOW" not in out
+    assert "overflow: False; B6 mover flags 0 (rebuilds with a cell over k_mov 16 movers" in out
     assert cli.main(["md", "--N", "5000", "--dim", "3", "--cutoff", "2.5", "--force-impl", "cell",
                      "--thermostat", "langevin", "--device", "cpu"]) == 2  # grid engine only

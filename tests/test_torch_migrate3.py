@@ -2,8 +2,8 @@
 allocation (``GridMD3._migration_dest3``) integer-exact, the plain version
 of kernels B6/B7 bit-exact against ``migrate_pallas3.make_migrate_kernel3``
 in interpret mode, the whole rebuild against the JAX package's own
-row-permutation rebuild, B6 against B7, and the loud ``mov_of`` flag in
-both packages."""
+row-permutation rebuild, B6 against B7, and the mover flag ``mov_of`` in
+both packages (the port's engine counts it in ``mover_flags``)."""
 
 import pytest
 
@@ -138,6 +138,7 @@ def test_rebuild_matches_jax(states):
         )
     assert int(rb_t.max_occ) == int(rb_j.max_occ)
     assert bool(rb_t.overflow) == bool(rb_j.overflow) is False
+    assert int(rb_t.mover_flags) == 0
     assert float(rb_t.dmax2) == 0.0 and float(rb_t.dispz.abs().max()) == 0.0
     occ = rb_t.occ > 0.5
     for g in (rb_t.xg, rb_t.yg, rb_t.zg):
@@ -147,7 +148,8 @@ def test_rebuild_matches_jax(states):
 def test_compact_equals_flat(states):
     """B6 and B7 are one permutation: the engine's rebuild with
     ``migrate_compact=False`` gives the same grids, and B7 never raises
-    ``mov_of``, even where B6 does."""
+    ``mov_of``, even where B6 does. B6's flag adds to ``mover_flags`` and
+    raises no ``overflow``: nothing is lost."""
     _, md_t, out = states
     md_flat = GridMD3(md_t.grid_fn, compensated=True, static_cov="auto", migrate_compact=False, device="cpu")
     for which in ("mild", "hot"):
@@ -155,8 +157,9 @@ def test_compact_equals_flat(states):
         rb_c, rb_f = md_t._rebuild_migrate(gs_t), md_flat._rebuild_migrate(gs_t)
         for name in GRID3_FIELDS:
             assert torch.equal(getattr(rb_c, name), getattr(rb_f, name)), (which, name)
-        assert not bool(rb_f.overflow)
-        assert bool(rb_c.overflow) == (which == "hot")
+        assert not bool(rb_f.overflow) and not bool(rb_c.overflow)
+        assert int(rb_f.mover_flags) == 0
+        assert int(rb_c.mover_flags) == int(which == "hot")
         _, _, _, scode, occ_new, _ = md_t._migration_dest3(gs_t)
         fields = torch.stack([gs_t.xg, gs_t.pid.float()])
         a, of_c = migrate_cuda3.migrate3(scode, fields, [md_t.sentinel, -1.0], k_mov=K_MOV, occ=occ_new)
@@ -168,7 +171,9 @@ def test_compact_equals_flat(states):
 def test_mover_overflow_raised_in_both(states):
     """On the hot state some cell has more than k_mov movers: JAX's B6 drops
     them and raises its flag; the port raises the same flag from the same
-    codes (and drops nothing: its output is the JAX flat kernel B7's)."""
+    codes (and drops nothing: its output is the JAX flat kernel B7's), so
+    the engine counts the rebuild in ``mover_flags`` and leaves ``overflow``
+    down."""
     md_j, md_t, out = states
     gs_j, gs_t, dest_j = out["hot"]
     live, cap = md_t.plane, md_t.cap
@@ -184,7 +189,8 @@ def test_mover_overflow_raised_in_both(states):
     out_t, of_t = migrate_cuda3.migrate3(scode_t, [gs_t.vzg.contiguous()], [0.0], k_mov=K_MOV, occ=occ_t)
     assert bool(of_t) and bool(migrate_cuda3.mover_overflow(scode_t, K_MOV))
     np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(flat_j[0])[:, :, :live])
-    assert bool(md_t._rebuild_migrate(gs_t).overflow)
+    rb = md_t._rebuild_migrate(gs_t)
+    assert int(rb.mover_flags) == 1 and not bool(rb.overflow)
 
 
 def test_migrate_reference_is_the_permutation():

@@ -79,7 +79,7 @@ def test_profiler_sees_md_events_only_when_on():
     with profile(activities=[ProfilerActivity.CPU]) as on:
         _block(one_sample)
     seen = {e.name for e in on.events() if e.name.startswith("md.")}
-    assert seen == {"md.block", "md.block.init", "md.window", "md.rebuild", "md.sync", "md.sample"}
+    assert seen == {"md.block", "md.block.init", "md.window", "md.rebuild", "md.alloc", "md.sync", "md.sample"}
     assert sum(e.name == "md.sync" for e in on.events()) == _names(trace.SPANS).count("md.sync")
 
 
@@ -108,9 +108,11 @@ def test_spans_nest_as_the_path_does():
         if sp.name == "md.block":
             continue
         # init, sample, window, rebuild and the gate's reads sit directly in
-        # their block: the drivers open no span of their own
+        # their block: the drivers open no span of their own; a rebuild's
+        # allocation sits in its rebuild
         parent = spans[sp.parent]
-        assert parent.name == "md.block" and sp.block == parent.block, (i, sp.name)
+        assert parent.name == ("md.rebuild" if sp.name == "md.alloc" else "md.block"), (i, sp.name)
+        assert sp.block == parent.block, (i, sp.name)
         assert parent.start_ns <= sp.start_ns and sp.end_ns <= parent.end_ns
     inner = [sp.name for sp in spans if sp.block == 0 and sp.name != "md.block"]
     assert inner[0] == "md.block.init" and inner.count("md.sample") == 4
@@ -118,7 +120,9 @@ def test_spans_nest_as_the_path_does():
     for a, b in zip(spans, spans[1:]):
         if a.name == "md.window":
             assert a.end_ns <= b.start_ns
+    assert _names(spans).count("md.alloc") == _names(spans).count("md.rebuild") > 0
     rows = trace.summary()
+    assert rows["md.alloc"]["total_ns"] < rows["md.rebuild"]["total_ns"]
     assert rows["md.block"]["calls"] == 2 and rows["md.block"]["syncs"] == rows["md.sync"]["calls"]
     assert rows["md.window"]["self_ns"] == rows["md.window"]["total_ns"]
     assert rows["md.block"]["self_ns"] < rows["md.block"]["total_ns"]
@@ -152,7 +156,8 @@ def test_syncs_are_the_3d_max_occ_reads():
     before = trace.SYNCS
     lj_fluid.production(cfg, lj_fluid.init_state(cfg, "cpu"), 5, md=md)
     names = _names(trace.SPANS)
-    assert names.count("md.rebuild") == names.count("md.window") == 8
+    assert names.count("md.rebuild") == names.count("md.window") == names.count("md.alloc") == 8
+    assert all(trace.SPANS[sp.parent].name == "md.rebuild" for sp in trace.SPANS if sp.name == "md.alloc")
     assert trace.SYNCS - before == names.count("md.sync") == 8
 
 

@@ -112,14 +112,17 @@ def scenario(dim: int, sharded: bool) -> dict:
     if dim == 3:
         # every particle in the upper half of its cell's x range moves half a
         # cell up, into the next cell: B6's mover flag at each k_mov, as the
-        # unsharded engine raises it
+        # unsharded engine counts it, and the overflow it leaves down
         frac = torch.remainder(run.xg, cell) / cell
         moved = run.replace(xg=run.xg + (frac >= 0.5).to(run.xg.dtype) * run.occ * 0.5 * cell)
-        flags = []
+        flags, raised = [], []
         for k_mov in (1, 2, 4, 8, md.cap):
             md.migrate_k_mov = k_mov
-            flags.append(bool(md._rebuild_migrate(moved).overflow))
+            rebuilt = md._rebuild_migrate(moved)
+            flags.append(int(rebuilt.mover_flags) - int(moved.mover_flags))
+            raised.append(bool(rebuilt.overflow))
         out["mov_of"] = flags
+        out["mov_overflow"] = raised
     return out
 
 
