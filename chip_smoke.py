@@ -42,9 +42,9 @@ Run from the repository root. It builds the CUDA kernels from
    configuration; skin 0.1316, 19 cells per side, fixed production
    cadence from the measured kT), with every counter set to 0 just before:
    overflow False, finite histories, drift < 1e-4, finite P*, and B4,
-   B4-energy, B5 (the counted kernel), B6 and the fused leapfrog pass
-   launched and B4's and B5's
-   full loops not; then the card's busy share over 200 traced production
+   B4-energy, B5 (the counted kernel), B6, the fused leapfrog pass, the
+   partner list's build and the list form of the counted kernel launched
+   and B4's and B5's full loops not; then the card's busy share over 200 traced production
    steps and the counted kernel's (B5 and B4) share of device time; then
    one rebuild under the profiler: its device ops by name and count, one
    B6 launch (``migrate3_kernel``) and no call of the plain mover flag;
@@ -59,7 +59,11 @@ Run from the repository root. It builds the CUDA kernels from
    torch.equal to B5 there; on the melt 90 steps from the lattice at the
    same N (fullest cell above B5's bound: the hybrid windows run B4), B4
    in both variants torch.equal to B4's loop, over two launches and at the
-   full capacity, within 1e-4 of the plain version; B6 and B7 (one launch
+   full capacity, within 1e-4 of the plain version; the partner list at
+   B5 and at B4 on the first state: the build kernel against its plain
+   version (counts, entries, targets marked full), the list form
+   torch.equal to the counted kernel and over two launches and within
+   1e-4 of its plain version; B6 and B7 (one launch
    each: fill, scatter, flag) on the planes where they lie, and the
    previous design (fill + scatter + plain flag,
    ``tests/torch_migrate3_designs.py``), bit-equal to the plain version
@@ -69,6 +73,7 @@ Run from the repository root. It builds the CUDA kernels from
    beside B4's loop and B5 on both states (B4 also at the full capacity on
    the melt), B6 and B7 beside the previous design, B5 and its energy
    variant beside B5's full loop and at the strip widths ceil(19 / k),
+   the list form and the build at B5 and B4 beside the counted kernel,
    k = 1 to 4; L1, the fused leapfrog pass (``leapfrog_cuda``), on the
    same state as in phase 15;
 8. B4 forces on 1024 interior particles against the dense oracle computed
@@ -242,7 +247,10 @@ Run from the repository root. It builds the CUDA kernels from
     B5 halo's with ``loop_ms`` (B5's full loop, which no path runs) and
     ``strip``, B2's three forms with the previous design's times (whole,
     fill, scatter, stack), the wrappers' host us and one rebuild's device
-    ops, B9's with ``previous_ms``, and as the last line
+    ops, B9's with ``previous_ms``, the list form's (B5 list) with the
+    counted kernel's ``counted_ms`` and B4's, its bound from the listed
+    tests and the list's words, the build's (B5 list build: every
+    candidate tested, the list written) with B4's, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
@@ -344,6 +352,39 @@ def _force_bounds(work, dim: int, n_slots: int, n_in_slots=None, extra_in_bytes:
     n_in = n_slots if n_in_slots is None else n_in_slots
     return (roofline.bound(tests + (7 + 2 * dim) * in_cut, 4 * dim * (n_in + n_slots) + extra_in_bytes),
             roofline.bound(tests + (14 + 2 * dim) * in_cut, 4 * (dim * n_in + (dim + 2) * n_slots) + extra_in_bytes))
+
+
+def _list_use(plist, occ):
+    """``(words, full, entries)`` of a partner list at the occupied targets
+    ``occ`` (``(cps, bound, cps, cps)``): the 16-bit words the list form
+    reads, each strip's counts and every listed target's entries up to its
+    last group of four; the targets marked full; the entries of the
+    others."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import cell_cuda3
+
+    _, place = cell_cuda3._list_targets(occ, plist.strip, plist.stride)
+    counts = plist.counts.reshape(-1)[place]
+    full = counts == cell_cuda3.LIST_FULL
+    used = int(((counts + 3) // 4 * 4)[~full].sum())
+    return plist.n_strips * plist.stride + used, int(full.sum()), int(counts[~full].sum())
+
+
+def _lists_equal(got, want, occ) -> bool:
+    """Two partner lists of one binning hold the same counts, and the same
+    entries up to each occupied target's last group (all ``k`` where
+    full); the words past it are pad."""
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import cell_cuda3
+
+    _, place = cell_cuda3._list_targets(occ, got.strip, got.stride)
+    cg, cw = got.counts.reshape(-1)[place], want.counts.reshape(-1)[place]
+    if not torch.equal(cg, cw):
+        return False
+    n = torch.where(cg == cell_cuda3.LIST_FULL, got.k, (cg + 3) // 4 * 4)
+    used = torch.arange(got.k, device=cg.device)[None] < n[:, None]
+    eg, ew = (x.entries.reshape(-1, x.k)[place] for x in (got, want))
+    return torch.equal(torch.where(used, eg, 0), torch.where(used, ew, 0))
 
 
 def _migrate_bound(n_fields: int, n_out: int, n_moved: int, n_in=None):
@@ -944,6 +985,7 @@ def main() -> int:
             "cell_force_halo_loop_energy": cell_cuda.HALO_LOOP_ENERGY_LAUNCHES,
             "cell_force3_loop": cell_cuda3.LOOP_LAUNCHES, "cell_force3_halo_loop": cell_cuda3.HALO_LOOP_LAUNCHES,
             "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES, "leapfrog_close": leapfrog_cuda.CLOSE_LAUNCHES,
+            "cell_force3_list": cell_cuda3.LIST_LAUNCHES, "cell_list3_build": cell_cuda3.LIST_BUILD_LAUNCHES,
         }
 
     def reset_counts():
@@ -962,6 +1004,7 @@ def main() -> int:
         cell_cuda.HALO_LOOP_LAUNCHES = cell_cuda.HALO_LOOP_ENERGY_LAUNCHES = 0
         cell_cuda3.LOOP_LAUNCHES = cell_cuda3.HALO_LOOP_LAUNCHES = 0
         leapfrog_cuda.STEP_LAUNCHES = leapfrog_cuda.CLOSE_LAUNCHES = 0
+        cell_cuda3.LIST_LAUNCHES = cell_cuda3.LIST_BUILD_LAUNCHES = 0
 
     def loop_launches() -> dict:
         """B1's and B4's loop launches, which no path may make."""
@@ -1157,7 +1200,8 @@ def main() -> int:
     res3 = lj_fluid.run(cfg3, device="cuda")
     path3 = {"cell_force3": cell_cuda3.LAUNCHES, "cell_force3_energy": cell_cuda3.ENERGY_LAUNCHES,
              "cell_force3_counted": cell_cuda3.COUNTED_LAUNCHES, "migrate3": migrate_cuda3.LAUNCHES,
-             "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES}
+             "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES, "cell_force3_list": cell_cuda3.LIST_LAUNCHES,
+             "cell_list3_build": cell_cuda3.LIST_BUILD_LAUNCHES}
     report_run(res3, "6 lj_fluid.run dim=3", path3, path3["migrate3"], cfg3)
     check_run(res3, "3D main path", cfg3)
     for name, count in path3.items():
@@ -1259,6 +1303,33 @@ def main() -> int:
             raise AssertionError(f"B4 and B5 (energy {energy}) differ at max occupancy {mo} <= cov {cov}")
     strip4 = cell_cuda3.strip_width(p3, md3.cps, None, False, dev)
 
+    # the partner list on the same state, at B5 and at B4 (as the windows
+    # build it): the build kernel against its plain version (counts,
+    # entries, targets marked full), the list form torch.equal to the
+    # counted kernel on the positions the list was built on and over two
+    # launches, and within 1e-4 of its plain version
+    lists3 = {}
+    for label, lcov, lb in (("B5", cov, cov), ("B4", None, mo)):
+        pl, full = cell_cuda3.build_partner_list3(*args3, md3.list_r2, md3.list_cap, gs3.max_occ, lcov)
+        want, n_full = cell_cuda3.build_partner_list3_reference(*args3, md3.list_r2, md3.list_cap, lb, lcov or 0,
+                                                                pl.strip)
+        occ_b = coords3[0].view(md3.cps, md3.cap, md3.cps, md3.cps)[:, :lb] != p3.sentinel
+        torch.cuda.synchronize()
+        if not (_lists_equal(pl, want, occ_b) and int(full) == int(n_full)):
+            raise AssertionError(f"{label} list build: counts, entries or the {int(full)} targets marked full "
+                                 f"differ from the plain version's ({int(n_full)})")
+        got = cell_cuda3.grid_force3(*args3, gs3.max_occ, static_cov=lcov, plist=pl)
+        if not same(got, b5 if lcov else b4):
+            raise AssertionError(f"{label} list form: not torch.equal to the counted kernel")
+        if not same(got, cell_cuda3.grid_force3(*args3, gs3.max_occ, static_cov=lcov, plist=pl)):
+            raise AssertionError(f"{label} list form: two launches on one input are not bit-equal")
+        err = _max_diff(got, cell_cuda3.grid_force3_list_reference(*args3, pl, lb), occ3,
+                        f"{label} list form forces", 1e-4)
+        lists3[label] = (pl, lb, err, *_list_use(pl, occ_b))
+        del want, got
+    errors["cell_force3_list"] = max(v[2] for v in lists3.values())
+    errors["cell_list3_build"] = 0.0
+
     # the hybrid windows' other state: the melt 90 steps from the lattice at
     # the same N, its fullest cell above cov, where the windows run B4 (the
     # main path's equilibration ran B4 there); B4 in both variants, with its
@@ -1347,6 +1418,15 @@ def main() -> int:
         "B4 energy full capacity": lambda: cell_cuda3.grid_force3(*argm, with_energy=True),
         "B4's loop energy": lambda: cell_cuda3.grid_force3_loop(*argm, max_occ=gm.max_occ, with_energy=True),
     }, lead=True)
+    pl5, pl4 = lists3["B5"][0], lists3["B4"][0]
+    t7l3 = interleaved_ms({
+        "B5 list": lambda: cell_cuda3.grid_force3(*args3, static_cov=cov, plist=pl5),
+        "B5": lambda: cell_cuda3.grid_force3(*args3, static_cov=cov),
+        "B4 list": lambda: cell_cuda3.grid_force3(*args3, gs3.max_occ, plist=pl4),
+        "B4": lambda: cell_cuda3.grid_force3(*args3, max_occ=gs3.max_occ),
+        "B5 build": lambda: cell_cuda3.build_partner_list3(*args3, md3.list_r2, md3.list_cap, static_cov=cov),
+        "B4 build": lambda: cell_cuda3.build_partner_list3(*args3, md3.list_r2, md3.list_cap, gs3.max_occ),
+    }, lead=True)
     t7mig = interleaved_ms({
         "B6": lambda: migrate_cuda3.migrate3(scode3, planes3, fills3, k_mov=k_mov, occ=occ_new3),
         "previous B6": lambda: designs.previous(prev_b6, scode3, planes3, fills3, k_mov),
@@ -1377,6 +1457,21 @@ def main() -> int:
     bounds["migrate3"] = bounds["migrate3_flat"] = _migrate_bound(len(planes3), gs3.xg.numel(), int(occ_new3.sum()))
     extra["migrate3"] = {"previous_ms": t7mig["previous B6"][0]}
     extra["migrate3_flat"] = {"previous_ms": t7mig["previous B7"][0]}
+    # the list form tests the listed entries of each target (a full one:
+    # a mean target's candidates) and reads the list's words; the build
+    # tests every candidate and writes them
+    words5, full5, listed5 = lists3["B5"][3:]
+    tests5 = listed5 + full5 * work3[0] // int(occ3.sum())
+    times["cell_force3_list"] = (t7l3["B5 list"][0],
+                                 cuda_ms(lambda: cell_cuda3.grid_force3_list_reference(*args3, pl5, cov), 5))
+    times["cell_list3_build"] = (t7l3["B5 build"][0], cuda_ms(
+        lambda: cell_cuda3.build_partner_list3_reference(*args3, md3.list_r2, md3.list_cap, cov, cov, pl5.strip), 5))
+    bounds["cell_force3_list"] = _force_bounds((tests5, work3[1]), 3, gs3.xg.numel(), extra_in_bytes=2 * words5)[0]
+    bounds["cell_list3_build"] = roofline.bound(8 * work3[0], 12 * gs3.xg.numel() + 2 * words5)
+    extra["cell_force3_list"] = {"counted_ms": t7l3["B5"][0], "b4_ms": t7l3["B4 list"][0],
+                                 "b4_counted_ms": t7l3["B4"][0], "k": md3.list_cap, "strip": pl5.strip,
+                                 "tests": tests5, "full": full5, "b4_full": lists3["B4"][4]}
+    extra["cell_list3_build"] = {"b4_ms": t7l3["B4 build"][0], "words": words5}
     print(f"phase 7 B4 forces: max abs diff {errors['cell_force3']:.3e} (max |f| {f3max:.1f}); "
           f"B4 energy variant: forces {err4ef:.3e}, e/w max abs diff {err4e:.3e}, sums within rtol "
           f"1e-5; B5: vs plain {errors['cell_force3_counted']:.3e}, energy variant vs B4's {err5e:.3e}, "
@@ -1389,19 +1484,26 @@ def main() -> int:
           f"torch.equal to B4's loop, over two launches and at the full capacity ({md3.cap}), within 1e-4 of the "
           f"plain version; pair work {workm[0]} distance tests, {workm[1]} in the cutoff; bound {bm[0]:.5f} ms, "
           f"energy {bme[0]:.5f} ms", flush=True)
+    print(f"phase 7 partner list (k {md3.list_cap}, radius {math.sqrt(md3.list_r2):.5f}, strip {pl5.strip}): "
+          f"B5's and B4's builds bit-equal to the plain version (targets marked full: B5 {full5}, B4 "
+          f"{lists3['B4'][4]}); the list form at B5 and B4 torch.equal to the counted kernel and over two "
+          f"launches, within {errors['cell_force3_list']:.3e} of its plain version; {tests5} listed tests "
+          f"against {work3[0]} candidates ({work3[0] / max(tests5, 1):.2f}x), {words5} list words", flush=True)
     for label, tt in ((f"phase 7 B4 (max occupancy {mo} <= cov {cov})", t7),
+                      ("phase 7 the list form and its build against the counted kernel", t7l3),
                       (f"phase 7 B4 on the melt state (max occupancy {mo_m} > cov {cov})", t7m),
                       ("phase 7 B6, B7 and the previous design", t7mig)):
         print(f"{smi}: {label} (medians of 7 interleaved repeats of 20 calls, lead): "
               + ", ".join(f"{k} {spread(v)}" for k, v in tt.items()), flush=True)
     print(f"phase 7 B4 against B5 on one state within cov: {t7['B4'][0]:.4f} against {t7['B5'][0]:.4f} ms "
           f"({t7['B4'][0] / t7['B5'][0] - 1:+.1%})", flush=True)
-    for name in ("cell_force3", "cell_force3_energy", "cell_force3_counted", "migrate3", "migrate3_flat"):
+    for name in ("cell_force3", "cell_force3_energy", "cell_force3_counted", "cell_force3_list", "cell_list3_build",
+                 "migrate3", "migrate3_flat"):
         print(f"phase 7 time {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) per call", flush=True)
     _print_counted_times("phase 7 B5", t7c, strip7, bounds["cell_force3"], md3.cps)
     t7l, b7l = _leapfrog_checked_times(md3, gs3, f"7 3D N={cfg3.n}")
-    del b4, r4, b4e, r4e, b5, b5e, r5, m6, m7, mr, mp, gm, g8, md8
+    del b4, r4, b4e, r4e, b5, b5e, r5, m6, m7, mr, mp, gm, g8, md8, lists3, pl5, pl4
 
     # -- 8. B4 against the dense oracle ----------------------------------------
     f3 = md3.forces(gs3.replace(**dict(zip(("fxg", "fyg", "fzg"), md3.force_kernel(*coords3, gs3.max_occ)))))
@@ -2362,6 +2464,10 @@ def main() -> int:
         "cell_force3": ("cell_force3.cu", kref + "cell_pallas3.py:99"),
         "cell_force3_energy": ("cell_force3.cu", kref + "cell_pallas3.py:99"),
         "cell_force3_counted": ("cell_force3.cu", kref + "cell_pallas3.py:336"),
+        # the list form and its build are B5's and B4's redesign on the card:
+        # they do B5's job, and no TPU kernel builds a list
+        "cell_force3_list": ("cell_force3.cu", kref + "cell_pallas3.py:336"),
+        "cell_list3_build": ("cell_force3.cu", kref + "cell_pallas3.py:336"),
         "migrate3": ("migrate3.cu", kref + "migrate_pallas3.py:158"),
         "migrate3_flat": ("migrate3.cu", kref + "migrate_pallas3.py:94"),
         "pairwise_lj": ("pairwise_lj.cu", kref + "pairwise_pallas.py:48"),

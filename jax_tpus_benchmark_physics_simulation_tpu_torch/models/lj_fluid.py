@@ -327,11 +327,13 @@ def _carry_overflow(carry) -> torch.Tensor:
     return torch.zeros((), dtype=torch.bool, device=carry.position.device)
 
 
-def _mover_flags(gs):
-    """The rebuilds in which B6 found a cell with more than ``k_mov``
-    movers, a 0-d int32 tensor of a 3D grid state; 0 for the other states,
-    which have no such flag."""
-    return getattr(gs, "mover_flags", 0)
+def _counters(gs):
+    """``(mover_flags, list_overflows)`` of a 3D grid state, 0-d int32
+    tensors: the rebuilds in which B6 found a cell with more than ``k_mov``
+    movers, and the targets whose partners overflowed a partner list; 0 for
+    the other states, which count neither."""
+    lists = getattr(gs, "list_overflows", None)
+    return getattr(gs, "mover_flags", 0), 0 if lists is None else lists
 
 
 def equilibrate(cfg: MDConfig, state: ParticleState, md=None):
@@ -344,12 +346,12 @@ def equilibrate(cfg: MDConfig, state: ParticleState, md=None):
 
 
 def _equilibrate(cfg: MDConfig, state: ParticleState, md):
-    """:func:`equilibrate`, with the run's :func:`_mover_flags` last."""
+    """:func:`equilibrate`, with the run's :func:`_counters` last."""
     device = state.position.device
     if resolve_impl(cfg, device) != "grid":
         init_fn, step_fn, get_state = build_step(cfg, device)
         carry = run_steps(step_fn, init_fn(state), cfg.eq_steps)
-        return get_state(carry), _carry_overflow(carry), 0
+        return get_state(carry), _carry_overflow(carry), (0, 0)
     md = md if md is not None else _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
     thermo = _grid_thermostat(cfg)
@@ -362,7 +364,7 @@ def _equilibrate(cfg: MDConfig, state: ParticleState, md):
     final = state.replace(
         position=md.positions(gs), velocity=md.velocities(gs), time=state.time + gs.time
     )
-    return final, gs.overflow, _mover_flags(gs)
+    return final, gs.overflow, _counters(gs)
 
 
 def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = None, md=None):
@@ -377,7 +379,7 @@ def production(cfg: MDConfig, state: ParticleState, cadence: Optional[int] = Non
 
 
 def _production(cfg: MDConfig, state: ParticleState, cadence: Optional[int], md):
-    """:func:`production`, with the run's :func:`_mover_flags` last."""
+    """:func:`production`, with the run's :func:`_counters` last."""
     if cfg.prod_steps and cfg.sample_every > cfg.prod_steps:
         raise ValueError(
             f"sample_every ({cfg.sample_every}) > prod_steps ({cfg.prod_steps}): "
@@ -396,7 +398,7 @@ def _production(cfg: MDConfig, state: ParticleState, cadence: Optional[int], md)
         final, hist = run_trajectory(
             step_fn, init_fn(state), cfg.prod_steps, cfg.sample_every, observe_fn=observe
         )
-        return get_state(final), hist, _carry_overflow(final), 0
+        return get_state(final), hist, _carry_overflow(final), (0, 0)
     with trace.span("md.block", new_block=True):
         return _grid_production(cfg, state, cadence, md)
 
@@ -447,7 +449,7 @@ def _grid_production(cfg: MDConfig, state: ParticleState, cadence: Optional[int]
             torch.zeros(0, dtype=dtype, device=device),
             torch.zeros(0, dtype=dtype, device=device),
         )
-    return final, hist, gs.overflow, _mover_flags(gs)
+    return final, hist, gs.overflow, _counters(gs)
 
 
 def production_cadence(cfg: MDConfig, kt_eq: float, md=None) -> Optional[int]:
@@ -493,6 +495,9 @@ class MDResult:
     # rebuilds in which B6 found a cell with more than k_mov movers (3D grid
     # engine; B6 moves them all, so nothing is lost and overflow stays down)
     mover_flags: int = 0
+    # targets whose partners overflowed a partner list (3D grid engine; they
+    # ran the counted loop, so nothing is lost)
+    list_overflows: int = 0
     rdf_subset: int = 0  # >0: g(r) was estimated from this many particles
     # virial pressure of the final state (grid engine only; NaN elsewhere)
     pressure: float = float("nan")
@@ -569,7 +574,7 @@ def run(
     time_compile = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    state_eq, overflow_eq, movers_eq = _equilibrate(cfg, state, md)
+    state_eq, overflow_eq, counters_eq = _equilibrate(cfg, state, md)
     overflow_eq = bool(overflow_eq)
     _sync(device)
     time_eq = time.perf_counter() - t0
@@ -582,11 +587,11 @@ def run(
     cadence = production_cadence(cfg, kt_eq, md)
 
     t0 = time.perf_counter()
-    final, (r_hist, ke_hist, pe_hist), overflow_prod, movers_prod = _production(cfg, state_eq, cadence, md)
+    final, (r_hist, ke_hist, pe_hist), overflow_prod, counters_prod = _production(cfg, state_eq, cadence, md)
     overflow_prod = bool(overflow_prod)
     _sync(device)
     time_prod = time.perf_counter() - t0
-    mover_flags = int(movers_eq) + int(movers_prod)
+    mover_flags, list_overflows = (int(a) + int(b) for a, b in zip(counters_eq, counters_prod))
     overflow = overflow_eq or overflow_prod
     if overflow and is_primary():
         import warnings
@@ -624,6 +629,7 @@ def run(
         / max(time_eq + time_prod, 1e-12),
         overflow=overflow,
         mover_flags=mover_flags,
+        list_overflows=list_overflows,
         rdf_subset=_RDF_MAX_PARTICLES if cfg.n > _RDF_MAX_PARTICLES else 0,
         pressure=pressure,
         kt_eq=kt_eq,

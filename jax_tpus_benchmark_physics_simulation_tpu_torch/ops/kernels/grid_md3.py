@@ -26,6 +26,17 @@ Langevin window and its drivers:
 - ``max_occ``, the largest cell occupancy of the last (re)binning, is a 0-d
   int32 tensor on the device. B4 (the counted kernel at the capacity's
   shared memory) reads it there through a pointer as its bound.
+- The partner list (``partner_list``, on by default on the card): the
+  first window of at least 2 steps after a (re)binning builds the list of
+  each target's partners within the list radius (``cutoff + skin``, widened
+  for float32 rounding: ``cell_cuda3.list_radius2``) for the kernel that
+  window runs, and the binning's windows call the list form of B5 or B4,
+  which tests those partners only. While no particle has moved skin/2
+  since the binning (the window's flag), every pair within the cutoff is
+  on the list and the forces are the counted loop's bits. One-step
+  windows (3D equilibration's gated windows) build none: a list would be
+  used once. A target whose partners overflow the list's capacity runs
+  the counted loop and is counted in ``list_overflows``, on the device.
 
 Host control flow: the JAX package's ``lax.cond``/``while_loop`` drivers
 are Python loops here. The gated driver reads ``dmax2`` once per window. In
@@ -49,6 +60,14 @@ from typing import Optional, Tuple, Union
 import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda3 import (
+    LIST_STEPS,
+    CellForce3Params,
+    PartnerList3,
+    build_partner_list3,
+    grid_force3,
+    list_bound_ok,
+    list_capacity,
+    list_radius2,
     make_grid_force_kernel3,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
@@ -70,8 +89,8 @@ def _round_up(x: int, m: int) -> int:
 @dataclass
 class GridMD3State:
     """All (ncx, cap, ncy*ncz) leaves live on ``GridMD3.device``.
-    ``dmax2``, ``overflow``, ``time``, ``max_occ`` and ``mover_flags`` are
-    0-d tensors."""
+    ``dmax2``, ``overflow``, ``time``, ``max_occ``, ``mover_flags`` and
+    ``list_overflows`` are 0-d tensors."""
 
     xg: torch.Tensor
     yg: torch.Tensor
@@ -102,6 +121,13 @@ class GridMD3State:
     # the Langevin noise stream (grid_md's module docstring)
     rng_seed: Optional[int] = None
     rng_counter: int = 0
+    # int32 targets whose partners overflowed a partner list's capacity
+    # (they ran the counted loop: nothing is lost)
+    list_overflows: Optional[torch.Tensor] = None
+    plist: Optional[PartnerList3] = None  # the partner list of this binning
+    # steps run since the binning (host-side); None: unknown, as in a state
+    # that neither init nor a rebuild made, which builds no partner list
+    since_binning: Optional[int] = None
 
     def replace(self, **changes) -> "GridMD3State":
         return dataclasses.replace(self, **changes)
@@ -120,6 +146,10 @@ class GridMD3:
         otherwise, exactly, with no flag. Energy and virial run B4.
     The TPU's lane and VMEM gates of this choice are not ported: they have
     no counterpart on the card.
+
+    ``partner_list``: whether windows of at least 2 steps run the list form
+    (module docstring); None: on the card. ``list_cap`` (an attribute) is
+    the entries a target, ``cell_cuda3.list_capacity``'s.
     """
 
     AXES = ("x", "y", "z")
@@ -135,6 +165,7 @@ class GridMD3:
         migrate_k_mov: int = 16,
         static_cov: Optional[Union[int, str]] = None,
         device="cuda",
+        partner_list: Optional[bool] = None,
     ):
         if grid_fn.dim != 3:
             raise ValueError("GridMD3 is 3D (grid_md.GridMD covers 2D)")
@@ -175,6 +206,10 @@ class GridMD3:
             )
             self.force_kernel_static = None
         self._roll_index = {}
+        self._params = CellForce3Params.from_grid(grid_fn, sigma, epsilon)
+        self.partner_list = self.device.type == "cuda" if partner_list is None else bool(partner_list)
+        self.list_r2 = list_radius2(grid_fn.cutoff, self.skin, self.box)
+        self.list_cap = list_capacity(self.n, self.box, self.list_r2)
 
     @property
     def _pure_static(self) -> bool:
@@ -255,7 +290,8 @@ class GridMD3:
             occ=occ, pid=pid.view(self.grid_shape),
             dispx=torch.zeros_like(xg), dispy=torch.zeros_like(xg), dispz=torch.zeros_like(xg),
             dmax2=zero, overflow=overflow, time=zero.clone(), max_occ=max_occ,
-            mover_flags=torch.zeros((), dtype=torch.int32, device=self.device), rng_seed=seed, **comp,
+            mover_flags=torch.zeros((), dtype=torch.int32, device=self.device), rng_seed=seed,
+            list_overflows=torch.zeros((), dtype=torch.int32, device=self.device), since_binning=0, **comp,
         )
 
     # -- migration rebuild (sort-free) ----------------------------------------
@@ -382,7 +418,8 @@ class GridMD3:
                 occ=occ_new, pid=out[9].to(torch.int32),
                 dispx=zeros, dispy=zeros, dispz=zeros,
                 dmax2=torch.zeros_like(s.dmax2),
-                overflow=overflow, max_occ=new_mo, mover_flags=s.mover_flags + mov_of, **comp,
+                overflow=overflow, max_occ=new_mo, mover_flags=s.mover_flags + mov_of,
+                plist=None, since_binning=0, **comp,
             )
 
     def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor):
@@ -439,7 +476,8 @@ class GridMD3:
             fxg=scat(s.fxg), fyg=scat(s.fyg), fzg=scat(s.fzg),
             occ=occ_new, pid=scat(s.pid, fill=-1),
             dispx=zeros, dispy=zeros, dispz=zeros,
-            dmax2=torch.zeros_like(s.dmax2), overflow=overflow, max_occ=new_mo, **comp,
+            dmax2=torch.zeros_like(s.dmax2), overflow=overflow, max_occ=new_mo,
+            plist=None, since_binning=0, **comp,
         )
 
     _needs_rebuild = GridMD._needs_rebuild
@@ -447,7 +485,17 @@ class GridMD3:
     # -- MD step ---------------------------------------------------------------
     # the leapfrog / BAOAB window over AXES, and the drivers, are the 2D
     # engine's (see GridMD._make_window)
-    _make_window = GridMD._make_window
+    def _make_window(self, force_fn, n_inner: int, thermostat=None):
+        """``GridMD._make_window``; the window also counts the steps run
+        since the binning (``since_binning``), which the partner list's
+        lifetime reads."""
+        window = GridMD._make_window(self, force_fn, n_inner, thermostat)
+
+        def counted(s):
+            since = None if s.since_binning is None else s.since_binning + n_inner
+            return window(s).replace(since_binning=since)
+
+        return counted
 
     def _force_args(self, s: GridMD3State) -> tuple:
         """B4 reads the occupancy bound on the device; it is constant
@@ -458,16 +506,48 @@ class GridMD3:
         """The ``n_inner``-step window for the state's binning. In hybrid
         mode: B5's while ``max_occ <= cov``, else B4's, which costs one
         host read of ``max_occ``; ``max_occ`` only changes at a rebuild, so
-        the drivers call this once per rebuild period."""
-        if self._hybrid and trace.host_read(s.max_occ, int) <= self.static_cov:
-            return self._make_window(self.force_kernel_static, n_inner, thermostat)
-        return self._make_window(self.force_kernel, n_inner, thermostat)
+        the drivers call this once per rebuild period. With the partner
+        list on and ``n_inner >= 2``, the window runs that kernel's list
+        form: on a state fresh from its binning it builds the list first
+        (the ``md.list`` span), and it falls back to the counted loop where
+        the state has no list for its binning or the window would end past
+        the list's lifetime (``cell_cuda3.LIST_STEPS``)."""
+        static = self._hybrid and trace.host_read(s.max_occ, int) <= self.static_cov
+        window = self._make_window(self.force_kernel_static if static else self.force_kernel, n_inner, thermostat)
+        cov = self.static_cov if static or self._pure_static else None
+        if not (self.partner_list and n_inner >= 2 and list_bound_ok(cov, self.cap)):
+            return window
+
+        def listed(s):
+            if s.plist is None and s.since_binning == 0:
+                with trace.span("md.list"):
+                    plist, full = build_partner_list3(s.xg, s.yg, s.zg, self._params, self.list_r2, self.list_cap,
+                                                      s.max_occ, cov, full=s.list_overflows)
+                s = s.replace(plist=plist, list_overflows=full)
+            if s.plist is None or s.since_binning + n_inner > LIST_STEPS:
+                return window(s)
+            plist = s.plist
+
+            def force(xg, yg, zg, max_occ):
+                return grid_force3(xg, yg, zg, self._params, max_occ, static_cov=cov, plist=plist)
+
+            return self._make_window(force, n_inner, thermostat)(s)
+
+        return listed
 
     step_nocheck = GridMD.step_nocheck
     step = GridMD.step
     make_chunk_step = GridMD.make_chunk_step
     make_production_run = GridMD.make_production_run
-    make_production_run_fixed = GridMD.make_production_run_fixed
+
+    def make_production_run_fixed(self, n_steps: int, cadence: int, thermostat=None):
+        """``GridMD.make_production_run_fixed``; the state it returns holds
+        no partner list. Its next call rebins first, so the list is dead,
+        and a caller holding the state across that call would keep it
+        alive beside the next binning's."""
+        run = GridMD.make_production_run_fixed(self, n_steps, cadence, thermostat)
+        return lambda s: run(s).replace(plist=None)
+
     auto_cadence = GridMD.auto_cadence
     auto_chunk_params = GridMD.auto_chunk_params
     auto_inner_steps = GridMD.auto_inner_steps

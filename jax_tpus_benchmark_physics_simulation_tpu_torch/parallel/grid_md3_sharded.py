@@ -25,10 +25,7 @@ from typing import Optional, Union
 
 import torch
 
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda3 import (
-    CellForce3Params,
-    grid_force3_halo,
-)
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda3 import grid_force3_halo
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md3 import GridMD3, GridMD3State
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda3 import migrate3_halo
@@ -57,10 +54,9 @@ class ShardedGridMD3(RowSharded, GridMD3):
         super().__init__(
             grid_fn, sigma=sigma, epsilon=epsilon, dt=dt, compensated=compensated,
             migrate_compact=True, migrate_k_mov=migrate_k_mov,
-            static_cov=static_cov, device=mesh.device,
+            static_cov=static_cov, device=mesh.device, partner_list=False,  # the halo form has no list form
         )
         self._shard(mesh)
-        self._params = CellForce3Params.from_grid(grid_fn, sigma, epsilon)
         # the kernels GridMD3 chose, in their halo form
         static = None if self._hybrid else self.static_cov
         self.force_kernel = self._halo_kernel(False, static)

@@ -29,6 +29,10 @@ apart from the aten ops among the profiler's events):
 - ``md.alloc``: inside ``md.rebuild``, its allocation in plain PyTorch
   (``_migration_dest`` / ``_migration_dest3``; in 3D also the new
   ``max_occ``), so that ``md.rebuild``'s own time is the permutation's;
+- ``md.list``: the 3D engine's partner-list build, once a binning, at the
+  first window of 2 or more steps after it (``GridMD3._window_for``): the
+  rest of the rebuild's work, launched just after ``md.rebuild`` in the
+  fixed-cadence driver;
 - ``md.sync``: one host read (:func:`host_read`): the gated drivers'
   ``dmax2`` and the 3D engine's ``max_occ``.
 """
