@@ -563,7 +563,7 @@ def _rebuild_ops_2d(md, gs, label: str, previous_migrate) -> dict:
     before = b2_launches()
     ops = device_op_count(lambda: md._rebuild_migrate(gs))
     launched = b2_launches() - before
-    md._migrate = previous_migrate
+    md._migrate = lambda *args: (previous_migrate(*args), None)
     try:
         ops_prev = device_op_count(lambda: md._rebuild_migrate(gs))
     finally:

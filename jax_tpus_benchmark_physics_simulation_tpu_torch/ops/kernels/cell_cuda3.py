@@ -70,9 +70,8 @@ from typing import Optional, Tuple
 import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import _build
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import check_grid
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import SENTINEL_FACTOR, check_grid
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import SENTINEL_FACTOR
 # the list build's two words of last-block scratch: B6's pair for the
 # (device, stream), which each launch leaves zeroed for the next
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda3 import _sync_words

@@ -13,10 +13,11 @@ on an H100 (bytes: 22 planes a 2D Kahan step) and how the running max of
   after the steps, kicks and half-unkicks out, after which ``v``, ``pos``,
   ``cr``, ``cv``, ``disp`` and ``dmax2`` are the window's results. CPU
   planes take the plain version, the eager ops of the window in their
-  order (``grid_md.kadd`` and ``grid_md.sumsq``, a per-slot
-  ``torch.maximum`` plane and one ``torch.max``); float32 CUDA planes
-  launch the kernel or raise. Nothing the window was given is written: a
-  field's first write goes to a new buffer, later ones in place;
+  order (:func:`kadd` and :func:`sumsq`, which the engine's Langevin
+  window shares, a per-slot ``torch.maximum`` plane and one
+  ``torch.max``); float32 CUDA planes launch the kernel or raise.
+  Nothing the window was given is written: a field's first write goes to
+  a new buffer, later ones in place;
 - ``STEP_LAUNCHES`` / ``CLOSE_LAUNCHES``: kernel launches, counted where
   :class:`Leapfrog` launches them.
 """
@@ -39,6 +40,23 @@ _MAX_DIM = 3  # kMaxDim
 # Field in csrc/leapfrog.cu: (f, v in, v out, pos in, pos out, cr in, cr out,
 # cv in, cv out, disp in, disp out), _MAX_DIM pointers each
 _FIELDS = 11
+
+
+def kadd(x, c, inc):
+    """Kahan-compensated ``x += inc`` with residual ``c``. Kept as separate
+    eager ops: an algebraic simplification would cancel the residual."""
+    y = inc - c
+    t = x + y
+    c = (t - x) - y
+    return t, c
+
+
+def sumsq(v):
+    """``v[0]^2 + v[1]^2 (+ v[2]^2)``, as separate eager ops."""
+    out = v[0] * v[0]
+    for t in v[1:]:
+        out = out + t * t
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,9 +147,6 @@ class Leapfrog:
 
     # -- plain version: the eager ops, in their order --------------------------
     def _kick(self, f) -> None:
-        # imported here, as in _plain_step: grid_md imports this module
-        from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import kadd
-
         dt = self.dt
         for k in range(self.dim):
             if self.compensated:
@@ -140,8 +155,6 @@ class Leapfrog:
                 self.v[k] = self.v[k] + dt * f[k]
 
     def _plain_step(self, f) -> None:
-        from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import kadd, sumsq
-
         dt = self.dt
         if self._steps == 0:
             self.v = [v + 0.5 * dt * fa for v, fa in zip(self.v, f)]

@@ -12,14 +12,14 @@ header says why the TPU's mover compaction buys nothing there and what
 bounds the kernel on an H100.
 
 ``scode`` is the (ncx, cap, ncy * ncz) int32 source-frame code grid from
-``GridMD3._migration_dest3``: ``dcode * cap + a`` for a slot moving in
+``GridMD3._migration_dest``: ``dcode * cap + a`` for a slot moving in
 direction ``dcode = ((dx+1)*3 + (dy+1))*3 + (dz+1)`` to slot ``a`` of its
 target cell, -1 for an empty or invalid slot. ``planes`` is a sequence of F
 (ncx, cap, ncy * ncz) float32 field planes, read where they lie, or one
 stacked (F, ncx, cap, ncy * ncz) tensor, addressed from its base
 (:mod:`._planes`); the output is one (F,
 ncx, cap, ncy * ncz) tensor. ``occ`` is the allocation's occupancy of the
-output (1.0 where a source lands, 0.0 elsewhere: ``_migration_dest3``'s
+output (1.0 where a source lands, 0.0 elsewhere: ``_migration_dest``'s
 ``occ_new``): the kernel fills the slots it leaves empty.
 
 - :func:`migrate3_reference`: the plain PyTorch version;

@@ -9,7 +9,7 @@ docstring first) on the x-rows of the ``(ncx, cap, ncy * ncz)`` layout.
   ``static_cov="auto"`` while ``max_occ <= cov``, B5 halo. ``max_occ`` is
   reduced with MAX at every (re)binning, so every rank picks the same
   kernel and B4 covers the same slots on every rank.
-- **Rebuild.** ``GridMD3._migration_dest3`` on the local x-rows (two
+- **Rebuild.** ``GridEngine._migration_dest`` on the local x-rows (two
   one-row exchanges of the per-cell counts and bases), then B6 halo
   (``migrate_cuda3.migrate3_halo``) from the local rows with the
   neighbours' whole edge rows attached. B6's mover flag is computed on

@@ -5,8 +5,9 @@ Port of the JAX package's ``parallel/grid_md_sharded.py``
 :class:`~..parallel.mesh.RowMesh`: each rank holds ``cps / P`` contiguous
 rows of every grid and drives its own device. Where JAX runs the window
 under ``shard_map`` and the rebuild on GSPMD-global arrays, here every rank
-runs the single-device engine's code on its own rows, and the engine's
-sharding hooks (``GridMD._all_max`` and the rest) become collectives:
+runs the single-device engine's code on its own rows, and the sharding
+hooks of the engines' shared core (``grid_engine.GridEngine._all_max`` and
+the rest) become collectives:
 
 - **Force.** One exchange a step brings the previous rank's last row and
   the next rank's first row of x and y (with -box / +box on x across the
@@ -14,13 +15,13 @@ sharding hooks (``GridMD._all_max`` and the rest) become collectives:
   sums every local slot's 9 cells, reading the edge rows where the
   exchange left them (no ``(rows + 2)`` copy of the grids). The port's B1 does no Newton halving, so
   there are no reaction rows to send back (JAX's ``_shift_reaction``).
-- **Window.** ``GridMD._make_window`` with the halo force; its ``dmax2``
+- **Window.** ``GridEngine._make_window`` with the halo force; its ``dmax2``
   is reduced with an all-reduce MAX, then read on the host once a window
   as on one device, so every rank takes the same branch of the drivers.
   Langevin noise: each rank seeds its generator from
   ``(rng_seed, rng_counter, rank)``, as JAX folds the shard index into
   its key.
-- **Rebuild.** ``GridMD._migration_dest`` on the local rows: the global
+- **Rebuild.** ``GridEngine._migration_dest`` on the local rows: the global
   row index carries the rank's row offset, and the two row rolls read one
   row past each end (the neighbours' per-cell ``counts``, then their
   ``bases_t``), two one-row exchanges. A third exchange brings the
@@ -48,11 +49,8 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda impor
     grid_force_halo_edges,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import (
-    GridMD,
-    GridMDState,
-    _stream_seed,
-)
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_engine import GridEngine, _stream_seed
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD, GridMDState
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda import migrate_halo
 from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import RowMesh, make_mesh, shard_along
 
@@ -103,7 +101,7 @@ class RowSharded:
         return self.mesh.all_gather_rows(t)
 
     def _noise_seed(self, s) -> int:
-        return _stream_seed(GridMD._noise_seed(s), self.mesh.rank)
+        return _stream_seed(GridEngine._noise_seed(s), self.mesh.rank)
 
     def _edge_rows(self, *grids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(prev, nxt)``: the previous rank's last row and the next rank's
@@ -196,9 +194,9 @@ class ShardedGridMD(RowSharded, GridMD):
         """B1 halo's energy variant: ``(fx, fy, e, w)`` on this rank's rows."""
         return self._halo_force(xg, yg, with_energy=True)
 
-    def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor) -> torch.Tensor:
+    def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor):
         code, ext = self._halo_planes(scode, torch.stack(fields))
-        return migrate_halo(code, ext, fills, occ=occ)
+        return migrate_halo(code, ext, fills, occ=occ), None
 
     def force_once(self, s: GridMDState):
         """One sharded force evaluation: this rank's ``(fx, fy)``."""

@@ -363,7 +363,7 @@ def test_migrate3_kernels_bit_equal(cuda_device):
     with the flag of the CPU's ``mover_overflow`` at k_mov 8 and at 1
     (which trips it)."""
     md, gs = _advanced_state3(cuda_device)
-    _, _, _, scode, occ_new, _ = md._migration_dest3(gs)
+    _, _, _, scode, occ_new, _, _ = md._migration_dest(gs)
     planes = [gs.xg, gs.yg, gs.zg, gs.vxg, gs.pid.float()]
     fields = torch.stack(planes)
     fills = [md.sentinel, 0.0, 0.0, 0.0, -1.0]
@@ -391,7 +391,7 @@ def test_migrate3_flags_back_to_back(cuda_device):
 
     cases = []
     for md, gs in (_advanced_state3(cuda_device, n=2048), _advanced_state3(cuda_device)):
-        _, _, _, scode, occ, _ = md._migration_dest3(gs)
+        _, _, _, scode, occ, _, _ = md._migration_dest(gs)
         planes = [gs.xg, gs.pid.float()]
         fills = [md.sentinel, -1.0]
         (ch,), (fh,) = halo_blocks(scode, 1), halo_blocks(torch.stack(planes), 1, dim=1)
@@ -637,7 +637,7 @@ def test_halo_kernels_3d_bit_equal_to_whole_grid(cuda_device, p):
         full = cell_cuda3.grid_force3(gs.xg, gs.yg, gs.zg, params, **kw)
         parts = [cell_cuda3.grid_force3_halo(*b, params, **kw) for b in blocks]
         assert all(torch.equal(torch.cat(q), f) for q, f in zip(zip(*parts), full))
-    _, _, _, scode, occ_new, _ = md._migration_dest3(gs)
+    _, _, _, scode, occ_new, _, _ = md._migration_dest(gs)
     fields = torch.stack([gs.xg, gs.yg, gs.zg, gs.pid.float()])
     fills = [md.sentinel, 0.0, 0.0, -1.0]
     fblocks = halo_blocks(fields, p, dim=1)

@@ -132,7 +132,7 @@ def test_slots_compact_at_init_and_every_rebuild(shift):
     moved = 0
     for k in range(8):
         s = md._window_for(s, 8)(s)
-        _, _, _, scode, _, _ = md._migration_dest3(s)
+        _, _, _, scode, _, _, _ = md._migration_dest(s)
         moved += int(((scode >= 0) & (torch.div(scode, md.cap, rounding_mode="floor") != migrate_cuda3.STAY)).sum())
         s = md._rebuild_migrate(s)
         _check_compact(md, s, f"rebuild {k}")

@@ -1,7 +1,8 @@
 """The grid-resident MD engine of the PyTorch port against the JAX
 package's ``GridMD`` (unpacked layout, kernels B1/B2 in interpret mode):
 the same initial slots, the same trajectory over windows and rebuilds, and
-the port's forces against its dense oracle."""
+the port's forces against its dense oracle. The checks of the core both
+engines share are in ``test_torch_grid_engine.py``."""
 
 import pytest
 
@@ -107,19 +108,6 @@ def test_grid_forces_match_dense_oracle(runs):
     np.testing.assert_allclose(f_grid[rows].numpy(), f_dense.numpy(), atol=1e-4)
 
 
-def test_chunk_driver_matches_production_driver(runs):
-    """``make_chunk_step`` (gate checked before every window) follows the
-    same trajectory as ``make_production_run``, per particle."""
-    _, md_t, _, init_t, _, run_t, _, _ = runs
-    chunk = md_t.make_chunk_step(K, gate_frac=GATE)
-    s = init_t
-    for _ in range(STEPS // K):
-        s = chunk(s)
-    d = periodic_distance(md_t.positions(s).numpy(), md_t.positions(run_t).numpy(), md_t.box)
-    assert d.max() <= 1e-5
-    np.testing.assert_allclose(md_t.velocities(s).numpy(), md_t.velocities(run_t).numpy(), atol=1e-6)
-
-
 def test_violation_flag_on_oversized_window():
     """A window far longer than the skin allows raises the overflow flag."""
     box = float(np.sqrt(400 / 0.5))
@@ -128,21 +116,6 @@ def test_violation_flag_on_oversized_window():
     gs = md.init(torch.from_numpy(pos), torch.from_numpy(velocities(400, kt=2.0, seed=11)))
     assert not bool(gs.overflow)
     assert bool(md.make_chunk_step(300)(gs).overflow)
-
-
-def test_auto_params_match_jax():
-    for n in (4000, 16384, 100_000):
-        box = float(np.sqrt(n / 0.8))
-        for dt in (1e-4, 1e-3, 5e-3, 2e-2):
-            md_j = JaxGridMD(jax_make_cell_grid_fn(box, 2.5, n, dim=2), dt=dt, rows_per_block=1)
-            md_t = GridMD(make_cell_grid_fn(box, 2.5, n, dim=2), dt=dt, rows_per_block=1)
-            for kt in (0.25, 1.0, 2.0):
-                assert md_t.auto_chunk_params(kt) == md_j.auto_chunk_params(kt), (n, dt, kt)
-                assert md_t.auto_inner_steps(kt) == md_j.auto_inner_steps(kt), (n, dt, kt)
-    assert md_t.auto_chunk_params(1.0) == (1, 0.25)
-    gf = make_cell_grid_fn(float(np.sqrt(100_000 / 0.8)), 2.5, 100_000, dim=2)
-    assert (gf.cells_per_side, gf.capacity) == (121, 16)
-    assert GridMD(gf).auto_chunk_params(1.0) == (4, 0.4)
 
 
 def test_unported_layouts_raise():

@@ -2,7 +2,8 @@
 package's ``GridMD3`` (hybrid static/dynamic forces, kernels B4/B5 in
 interpret mode): the same initial slots, one window, the gated and the
 fixed-cadence drivers over windows and rebuilds, compared per particle;
-plus the flags that must stay loud and the carried JAX state.
+plus the flags that must stay loud and the carried JAX state. The checks
+of the core both engines share are in ``test_torch_grid_engine.py``.
 
 On the JAX side the drivers rebuild with the JAX package's own
 ``_rebuild_migrate_rows`` (the same allocation and permutation in plain
@@ -157,21 +158,6 @@ def test_hybrid_falls_back_to_dynamic_kernel():
     assert torch.equal(md_h.positions(out_h), md_d.positions(out_d))
 
 
-def test_chunk_driver_matches_production_driver(runs):
-    """``make_chunk_step`` (gate checked before every window) follows the
-    same trajectory as ``make_production_run``, per particle."""
-    md_t = runs["md_t"]
-    _, init_t = runs["init"]
-    chunk = md_t.make_chunk_step(K, gate_frac=GATE)
-    s = init_t
-    for _ in range(STEPS // K):
-        s = chunk(s)
-    gated_t = runs["gated"][1]
-    d = periodic_distance(md_t.positions(s).numpy(), md_t.positions(gated_t).numpy(), md_t.box)
-    assert d.max() <= 1e-5
-    np.testing.assert_allclose(md_t.velocities(s).numpy(), md_t.velocities(gated_t).numpy(), atol=1e-6)
-
-
 def test_grid3_state_from_jax(runs):
     """A JAX state carried into the port drops the padding lanes and keeps
     every particle's values, ``pid`` as int32 and ``max_occ`` as a 0-d
@@ -209,22 +195,6 @@ def test_oversized_cadence_trips_flag():
     assert bool(md.make_production_run_fixed(120, 60)(gs).overflow)
 
 
-def test_auto_params_match_jax():
-    for n in (8192, 100_000):
-        box = (n / 0.8) ** (1.0 / 3.0)
-        for skin in (0.1316, 0.2, 0.4):
-            for dt in (1e-4, 1e-3, 5e-3):
-                md_j = JaxGridMD3(jax_make_cell_grid_fn(box, 2.5, n, dim=3, skin=skin), dt=dt,
-                                  static_cov="auto")
-                md_t = GridMD3(make_cell_grid_fn(box, 2.5, n, dim=3, skin=skin), dt=dt, static_cov="auto")
-                assert md_t.static_cov == md_j.static_cov, (n, skin)
-                for kt in (0.5, 1.0, 2.0):
-                    assert md_t.auto_chunk_params(kt) == md_j.auto_chunk_params(kt), (n, skin, dt, kt)
-                    assert md_t.auto_inner_steps(kt) == md_j.auto_inner_steps(kt), (n, skin, dt, kt)
-                    for steps in (100, 2000, 10**6):
-                        assert md_t.auto_cadence(kt, steps) == md_j.auto_cadence(kt, steps)
-
-
 def test_unported_and_invalid_raise():
     gf = make_cell_grid_fn(BOX, 2.5, N, dim=3)
     md = GridMD3(gf)
@@ -249,19 +219,3 @@ def test_unported_and_invalid_raise():
     with pytest.raises(ValueError):
         GridMD(gf)
     assert md.device == torch.device("cuda")  # the card unless the caller asks for the CPU
-
-
-def test_sort_rebuild_oracle_matches_migrate_rebuild():
-    """The sort-based ``_rebuild`` oracle puts every particle at the
-    position and velocity the sort-free rebuild gives it, with the same
-    occupancy bound (its slots within a cell follow another order)."""
-    md = GridMD3(make_cell_grid_fn(BOX, 2.5, N, dim=3), dt=DT, compensated=True, device="cpu")
-    pos = np.mod(lattice_positions(N, BOX, seed=3, dim=3), BOX)
-    s = md.init(torch.from_numpy(pos), torch.from_numpy(velocities(N, kt=1.0, seed=4, dim=3)))
-    s = md._make_window(md.force_kernel, 25)(s)
-    srt, mig = md._rebuild(s), md._rebuild_migrate(s)
-    assert not bool(srt.overflow) and not bool(mig.overflow)
-    assert int(srt.occ.sum()) == N and int(srt.max_occ) == int(mig.max_occ)
-    np.testing.assert_array_equal(md.positions(srt).numpy(), md.positions(mig).numpy())
-    np.testing.assert_array_equal(md.velocities(srt).numpy(), md.velocities(mig).numpy())
-    assert float(srt.dmax2) == 0.0 and bool((srt.xg[srt.occ < 0.5] == md.sentinel).all())

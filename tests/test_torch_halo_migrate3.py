@@ -48,7 +48,7 @@ def state():
     gs = gs.replace(xg=gs.xg + 0.3 * cell, yg=gs.yg - 0.2 * cell, zg=gs.zg + 0.1 * cell)
     md = ts.engine(3, sharded=False)
     s = grid3_state_from_jax(jax_grid_arrays(gs, GRID3_STATE_FIELDS), md)
-    xw, yw, zw, scode, occ, overflow = md._migration_dest3(s)
+    xw, yw, zw, scode, occ, overflow, _ = md._migration_dest(s)
     assert not bool(overflow)
     fields = torch.stack([xw, yw, zw, s.vxg, s.vyg, s.vzg, s.fxg, s.fyg, s.fzg, s.pid.to(torch.float32)])
     fills = [md.sentinel] + [0.0] * 8 + [-1.0]

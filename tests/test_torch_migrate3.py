@@ -1,5 +1,5 @@
 """The 3D rebuild of the PyTorch port against the JAX package: the
-allocation (``GridMD3._migration_dest3``) integer-exact, the plain version
+allocation (``GridMD3._migration_dest``) integer-exact, the plain version
 of kernels B6/B7 bit-exact against ``migrate_pallas3.make_migrate_kernel3``
 in interpret mode, the whole rebuild against the JAX package's own
 row-permutation rebuild, B6 against B7, and the mover flag ``mov_of`` in
@@ -85,7 +85,7 @@ def test_migration_dest_matches_jax(states, which):
     gs_j, gs_t, dest_j = out[which]
     live, cap = md_t.plane, md_t.cap
     xw_j, yw_j, zw_j, scode_j, occ_j, _, ovf_j = dest_j
-    xw_t, yw_t, zw_t, scode_t, occ_t, ovf_t = md_t._migration_dest3(gs_t)
+    xw_t, yw_t, zw_t, scode_t, occ_t, ovf_t, _ = md_t._migration_dest(gs_t)
     scode_j = np.asarray(scode_j)[:, :, :live]
     assert scode_t.dtype == torch.int32
     np.testing.assert_array_equal(scode_t.numpy(), scode_j)
@@ -160,7 +160,7 @@ def test_compact_equals_flat(states):
         assert not bool(rb_f.overflow) and not bool(rb_c.overflow)
         assert int(rb_f.mover_flags) == 0
         assert int(rb_c.mover_flags) == int(which == "hot")
-        _, _, _, scode, occ_new, _ = md_t._migration_dest3(gs_t)
+        _, _, _, scode, occ_new, _, _ = md_t._migration_dest(gs_t)
         fields = torch.stack([gs_t.xg, gs_t.pid.float()])
         a, of_c = migrate_cuda3.migrate3(scode, fields, [md_t.sentinel, -1.0], k_mov=K_MOV, occ=occ_new)
         b, of_f = migrate_cuda3.migrate3(scode, fields, [md_t.sentinel, -1.0], occ=occ_new)

@@ -1,6 +1,6 @@
 """The invariants B6's one-launch design rests on (``csrc/migrate3.cu``),
 on the CPU: the slots the codes name are exactly the slots the allocation
-fills (``a < tot`` of each target cell, ``_migration_dest3``'s
+fills (``a < tot`` of each target cell, ``_migration_dest``'s
 ``occ_new``), so the kernel's fill (where ``occ_new`` is 0) and its
 scatter write disjoint slots that cover the grid; and a plain emulation of
 the launch -- fill, scatter, per-cell mover counts, in its order, every
@@ -78,7 +78,7 @@ def states():
 
 def _inputs(md, s):
     """The allocation and the rebuild's 16 field planes and fills."""
-    xw, yw, zw, scode, occ_new, overflow = md._migration_dest3(s)
+    xw, yw, zw, scode, occ_new, overflow, _ = md._migration_dest(s)
     planes = [xw, yw, zw, s.vxg, s.vyg, s.vzg, s.fxg, s.fyg, s.fzg, s.pid.float(),
               s.crx, s.cry, s.crz, s.cvx, s.cvy, s.cvz]
     fills = [md.sentinel] + [0.0] * 8 + [-1.0] + [0.0] * 6

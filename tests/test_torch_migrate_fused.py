@@ -199,8 +199,9 @@ def test_sharded_allocation_names_exactly_the_local_slots(sharded, p):
 def test_unsharded_rebuild_passes_the_planes_where_they_lie(states, monkeypatch):
     """``GridMD._rebuild_migrate`` hands B2 its 11 field planes as a list of
     the state's own tensors (the wrapper's argument on the card), and
-    stacks nothing of the grid's shape itself (the allocation's small
-    stacks of its 9 direction classes have other shapes)."""
+    stacks nothing of the grid's shape itself (the allocation's gather
+    index, built afresh here, stacks its cell coordinates, of other
+    shapes)."""
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import grid_md
 
     md, st = states[4]
@@ -218,6 +219,7 @@ def test_unsharded_rebuild_passes_the_planes_where_they_lie(states, monkeypatch)
 
     monkeypatch.setattr(grid_md, "migrate", spy_migrate)
     monkeypatch.setattr(torch, "stack", spy_stack)
+    md._roll_index.clear()
     md._rebuild_migrate(s)
     (planes,) = seen
     assert isinstance(planes, list) and len(planes) == 11

@@ -49,7 +49,7 @@ def _start(md):
 
 
 def _max_movers(md, s) -> int:
-    scode = md._migration_dest3(s)[3]
+    scode = md._migration_dest(s)[3]
     return int(((scode >= 0) & (torch.div(scode, md.cap, rounding_mode="floor") != migrate_cuda3.STAY)).sum(1).max())
 
 

@@ -53,7 +53,7 @@ def _run(cfg, md, device, first: dict) -> dict:
     rebuild = md._rebuild_migrate
 
     def hooked(s):
-        _, _, _, scode, _, _ = md._migration_dest3(s)
+        _, _, _, scode, _, _, _ = md._migration_dest(s)
         m = _movers_per_cell(scode, md.cap)
         counts[phase[0]].append(m)
         if m > K_MOV and not first:

@@ -204,7 +204,7 @@ def rebuild_inputs(md, gs):
     (Kahan residuals included) and their fills."""
     import torch
 
-    xw, yw, zw, scode, occ_new, _ = md._migration_dest3(gs)
+    xw, yw, zw, scode, occ_new, _, _ = md._migration_dest(gs)
     planes = [xw, yw, zw, gs.vxg, gs.vyg, gs.vzg, gs.fxg, gs.fyg, gs.fzg, gs.pid.to(torch.float32),
               gs.crx, gs.cry, gs.crz, gs.cvx, gs.cvy, gs.cvz]
     fills = [md.sentinel] + [0.0] * 8 + [-1.0] + [0.0] * 6
