@@ -33,7 +33,8 @@ Run from the repository root. It builds the CUDA kernels from
    dt 1e-3, lattice init, Kahan on, 2000 + 2000 steps), with every launch
    counter set to 0 just before: overflow False, finite energies, energy
    drift < 1e-4, and B1, B1-energy, B2 and the fused leapfrog pass
-   (``leapfrog_cuda``) launched and B1's loop not; then
+   (``leapfrog_cuda``) launched and B1's loop not, and A1 (the
+   allocation's kernels, ``alloc_cuda``) once a rebuild; then
    the card's busy share over 200 traced production steps and B1's share
    of device time; then one rebuild under the profiler: its device ops by
    name and count, one B2 launch (``migrate_kernel``) and no fill or
@@ -44,7 +45,7 @@ Run from the repository root. It builds the CUDA kernels from
    overflow False, finite histories, drift < 1e-4, finite P*, and B4,
    B4-energy, B5 (the counted kernel), B6, the fused leapfrog pass, the
    partner list's build and the list form of the counted kernel launched
-   and B4's and B5's full loops not; then the card's busy share over 200 traced production
+   and B4's and B5's full loops not, and A1 once a rebuild; then the card's busy share over 200 traced production
    steps and the counted kernel's (B5 and B4) share of device time; then
    one rebuild under the profiler: its device ops by name and count, one
    B6 launch (``migrate3_kernel``) and no call of the plain mover flag;
@@ -238,7 +239,16 @@ Run from the repository root. It builds the CUDA kernels from
     step with each resampler; ms a sweep, an epoch and a DMC step, device
     ops a sweep, the busy share of an epoch and of DMC steps, and the
     default 3000 epochs' time worked out from the ms an epoch;
-29. prints a JSON line with each kernel's launches on its main path,
+29. A1, the rebuild's allocation as three kernel passes (``alloc_cuda``),
+    at both benchmark cells' states (``port_bench``'s adapter from a seed:
+    ``lj2d-n1m``, N=1M packed at R=7, and ``lj3d-inlj-2m``, in.lj's
+    2,048,000 atoms; ``tests/torch_alloc_designs.cell_report``): torch.equal
+    to the eager allocation in every output after 1, 4 and 6 steps of a
+    window and with its edge cases planted (overflow raised there only),
+    timed in 7 interleaved repeats beside the eager allocation, with its
+    byte bound, the device ops of one allocation, and its launches over one
+    production block, one a rebuild;
+30. prints a JSON line with each kernel's launches on its main path,
     error, times, and bound (the larger of the operations over the card's
     float32 peak and the bytes over its memory rate, counted on this run's
     inputs), B3's with ``full_capacity_ms`` (B1's loop on the unpacked
@@ -250,7 +260,9 @@ Run from the repository root. It builds the CUDA kernels from
     ops, B9's with ``previous_ms``, the list form's (B5 list) with the
     counted kernel's ``counted_ms`` and B4's, its bound from the listed
     tests and the list's words, the build's (B5 list build: every
-    candidate tested, the list written) with B4's, and as the last line
+    candidate tested, the list written) with B4's, A1's at both cells
+    (``alloc``, ``alloc3``) with the eager allocation as ``plain_ms``, its
+    device ops and a block's launches, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
@@ -561,8 +573,9 @@ def _rebuild_ops_2d(md, gs, label: str, previous_migrate) -> dict:
         return migrate_cuda.LAUNCHES + migrate_cuda.PACKED_LAUNCHES + migrate_cuda.HALO_LAUNCHES
 
     before = b2_launches()
-    ops = device_op_count(lambda: md._rebuild_migrate(gs))
+    md._rebuild_migrate(gs)
     launched = b2_launches() - before
+    ops = device_op_count(lambda: md._rebuild_migrate(gs))
     md._migrate = lambda *args: (previous_migrate(*args), None)
     try:
         ops_prev = device_op_count(lambda: md._rebuild_migrate(gs))
@@ -663,8 +676,9 @@ def _rebuild_ops(md, gs, label: str) -> None:
     migrate_cuda3.mover_overflow = lambda *a, **k: calls.append(1) or plain(*a, **k)
     try:
         before = migrate_cuda3.LAUNCHES + migrate_cuda3.HALO_LAUNCHES
-        ops = device_op_count(lambda: md._rebuild_migrate(gs))
+        md._rebuild_migrate(gs)
         launched = migrate_cuda3.LAUNCHES + migrate_cuda3.HALO_LAUNCHES - before
+        ops = device_op_count(lambda: md._rebuild_migrate(gs))
     finally:
         migrate_cuda3.mover_overflow = plain
     b6 = sum(v for k, v in ops.items() if "migrate3_kernel" in k)
@@ -942,6 +956,7 @@ def main() -> int:
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.forces.lennard_jones import LennardJones
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import (
         _build,
+        alloc_cuda,
         cell_cuda,
         cell_cuda3,
         cell_cuda_packed,
@@ -986,6 +1001,7 @@ def main() -> int:
             "cell_force3_loop": cell_cuda3.LOOP_LAUNCHES, "cell_force3_halo_loop": cell_cuda3.HALO_LOOP_LAUNCHES,
             "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES, "leapfrog_close": leapfrog_cuda.CLOSE_LAUNCHES,
             "cell_force3_list": cell_cuda3.LIST_LAUNCHES, "cell_list3_build": cell_cuda3.LIST_BUILD_LAUNCHES,
+            "alloc": alloc_cuda.LAUNCHES,
         }
 
     def reset_counts():
@@ -1005,6 +1021,7 @@ def main() -> int:
         cell_cuda3.LOOP_LAUNCHES = cell_cuda3.HALO_LOOP_LAUNCHES = 0
         leapfrog_cuda.STEP_LAUNCHES = leapfrog_cuda.CLOSE_LAUNCHES = 0
         cell_cuda3.LIST_LAUNCHES = cell_cuda3.LIST_BUILD_LAUNCHES = 0
+        alloc_cuda.LAUNCHES = 0
 
     def loop_launches() -> dict:
         """B1's and B4's loop launches, which no path may make."""
@@ -1183,9 +1200,12 @@ def main() -> int:
     reset_counts()
     res = lj_fluid.run(cfg, device="cuda")
     path2 = {"cell_force": cell_cuda.LAUNCHES, "cell_force_energy": cell_cuda.ENERGY_LAUNCHES,
-             "migrate": migrate_cuda.LAUNCHES, "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES}
+             "migrate": migrate_cuda.LAUNCHES, "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES,
+             "alloc": alloc_cuda.LAUNCHES}
     report_run(res, "5 lj_fluid.run", path2, path2["migrate"])
     check_run(res, "2D main path")
+    if path2["alloc"] != path2["migrate"]:
+        raise AssertionError(f"2D main path: {path2['alloc']} allocations on the card, {path2['migrate']} rebuilds")
     for name, count in path2.items():
         if count <= 0:
             raise AssertionError(f"2D main path never launched kernel {name}")
@@ -1201,9 +1221,11 @@ def main() -> int:
     path3 = {"cell_force3": cell_cuda3.LAUNCHES, "cell_force3_energy": cell_cuda3.ENERGY_LAUNCHES,
              "cell_force3_counted": cell_cuda3.COUNTED_LAUNCHES, "migrate3": migrate_cuda3.LAUNCHES,
              "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES, "cell_force3_list": cell_cuda3.LIST_LAUNCHES,
-             "cell_list3_build": cell_cuda3.LIST_BUILD_LAUNCHES}
+             "cell_list3_build": cell_cuda3.LIST_BUILD_LAUNCHES, "alloc3": alloc_cuda.LAUNCHES}
     report_run(res3, "6 lj_fluid.run dim=3", path3, path3["migrate3"], cfg3)
     check_run(res3, "3D main path", cfg3)
+    if path3["alloc3"] != path3["migrate3"]:
+        raise AssertionError(f"3D main path: {path3['alloc3']} allocations on the card, {path3['migrate3']} rebuilds")
     for name, count in path3.items():
         if count <= 0:
             raise AssertionError(f"3D main path never launched kernel {name}")
@@ -2450,7 +2472,18 @@ def main() -> int:
     # -- 28. vmc on the card at full width ---------------------------------------------
     _vmc_phase(smi)
 
-    # -- 29. result --------------------------------------------------------------
+    # -- 29. A1, the allocation's kernels, at both benchmark cells' states -------------
+    alloc_designs = _designs("torch_alloc_designs")
+    for key, cell_name, seed in (("alloc", "lj2d-n1m", 2900000011), ("alloc3", "lj3d-inlj-2m", 2900000023)):
+        r = alloc_designs.cell_report(cell_name, seed, f"{smi}: phase 29")
+        times[key] = (r["kernel_ms"][0], r["plain_ms"][0])
+        errors[key] = 0.0
+        bounds[key] = (r["bound_ms"], r["bound_by"])
+        extra[key] = {"cell": cell_name, "kernel_ms_min_max": r["kernel_ms"][1:], "plain_ms_min_max": r["plain_ms"][1:],
+                      "bytes": r["bytes"], "ops": r["ops"], "eager_ops": r["eager_ops"],
+                      "block_launches": r["block_launches"], "block_rebuilds": r["block_rebuilds"]}
+
+    # -- 30. result --------------------------------------------------------------
     root = "jax_tpus_benchmark_physics_simulation_tpu_torch/ops/kernels/csrc/"
     ref = "jax_tpus_benchmark_physics_simulation_tpu/"
     kref = ref + "ops/kernels/"
@@ -2489,6 +2522,9 @@ def main() -> int:
         "leapfrog_step": ("leapfrog.cu", kref + "grid_md.py:565"),
         "leapfrog_first": ("leapfrog.cu", kref + "grid_md.py:565"),
         "leapfrog_close": ("leapfrog.cu", kref + "grid_md.py:565"),
+        # A1 replaces no TPU kernel: XLA fuses the JAX package's allocation
+        "alloc": ("alloc.cu", kref + "grid_md.py:253"),
+        "alloc3": ("alloc.cu", kref + "grid_md3.py:308"),
     }
     for name in ("cell_force", "cell_force_energy", "cell_force_halo", "cell_force_halo_energy"):
         loop_key = name.replace("cell_force", "cell_force_loop") if "halo" not in name else name.replace(

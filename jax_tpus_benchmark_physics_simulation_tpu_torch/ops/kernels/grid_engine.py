@@ -22,10 +22,10 @@ slots hold the x sentinel ``2.5 * box``.
   max of their squared norm, the scalar ``dmax2`` of each window (on the
   card reduced inside the window's kernel).
 - The rebuild is sort-free: every particle moves at most one cell between
-  rebuilds, so an allocation over the 3^D migration classes in plain
-  PyTorch (``_migration_dest``) gives each slot a source-frame code, and
-  one migrate kernel launch (2D: B2, 3D: B6) moves the fields. ``_rebuild``
-  is the sort-based oracle.
+  rebuilds, so an allocation over the 3^D migration classes
+  (``_migration_dest``, ``alloc_cuda``: three kernel passes on the card)
+  gives each slot a source-frame code, and one migrate kernel launch (2D:
+  B2, 3D: B6) moves the fields. ``_rebuild`` is the sort-based oracle.
 
 Host control flow: the JAX package runs the rebuild gate inside a device
 ``while_loop``. Here the drivers are Python loops that read the scalar
@@ -44,8 +44,7 @@ give different numbers, so Langevin runs on the card and on the CPU agree
 only in distribution.
 
 An engine keeps what is its own dimension's in the hooks it overrides:
-its kernels and state class, ``_pack`` / ``_unpack`` (the layout, the
-identity at R = 1), ``_counters`` (the counts ``init`` zeroes),
+its kernels and state class, ``_counters`` (the counts ``init`` zeroes),
 ``_binning`` (what a (re)binning sets from its count grid),
 ``_force_args``, ``_window_for`` (the window a driver runs), ``_stepped``
 (what a window counts beside the grids), ``_migrate`` and
@@ -56,14 +55,15 @@ engines (``parallel/``) override the sharding hooks below.
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.alloc_cuda import allocate
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import SENTINEL_FACTOR
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packed import unpack
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.leapfrog_cuda import Leapfrog, kadd, sumsq
 from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import trace
@@ -132,7 +132,6 @@ class GridEngine:
         self.lanes = rows_per_block * self.plane
         self.grid_shape = (self.n_blocks, self.cap, self.lanes)
         self.size = self.n_blocks * self.cap * self.lanes
-        self._roll_index = {}
 
     # -- hooks that the row-sharded engines (parallel/) override: here one
     # engine holds every cell row ---------------------------------------------
@@ -170,14 +169,6 @@ class GridEngine:
         return _stream_seed(s.rng_seed, s.rng_counter)
 
     # -- hooks of the dimension -------------------------------------------------
-    def _pack(self, t: torch.Tensor) -> torch.Tensor:
-        """The state's layout of an unpacked ``(rows, cap, plane)`` grid."""
-        return t
-
-    def _unpack(self, t: torch.Tensor) -> torch.Tensor:
-        """The unpacked ``(rows, cap, plane)`` view of a state grid."""
-        return t
-
     def _counters(self) -> dict:
         """The state's counters, zeroed by ``init``."""
         return {}
@@ -245,7 +236,7 @@ class GridEngine:
 
     def _counts(self, occ: torch.Tensor) -> torch.Tensor:
         """The ``(rows, plane)`` int32 count grid of an occupancy grid."""
-        return (self._unpack(occ) > 0.5).sum(1, dtype=torch.int32)
+        return (unpack(occ, self.rows_per_block) > 0.5).sum(1, dtype=torch.int32)
 
     def prepare(self, state):
         """Placement hook (parity with the JAX package's ``prepare``)."""
@@ -284,112 +275,23 @@ class GridEngine:
         return s.replace(**{f"f{a}g": fa for a, fa in zip(axes, f)})
 
     # -- migration rebuild (sort-free) ----------------------------------------
-    def _roll_cells_index(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Flat gather indices from a (3^D, rows + 2, plane) per-cell array
-        (the held rows with one row past each end, ``_row_ext``) into the
-        (3^D, rows, plane) one: the first rolls class j's cells forward by
-        its direction (``out[j, X] = v[j, X - d_j]``), the second back
-        (``out[j, X] = v[j, X + d_j]``), the in-plane axes periodically. One
-        gather replaces the JAX package's 3^D rolls (``roll_cells``) and
-        gives the same integers."""
-        key = str(device)
-        if key not in self._roll_index:
-            c, rows, d = self.cps, self.n_rows, len(self.AXES)
-            dirs = torch.tensor(list(itertools.product((-1, 0, 1), repeat=d)), device=device)
-            k = dirs.shape[0]
-            axes = [torch.arange(rows, device=device)] + [torch.arange(c, device=device)] * (d - 1)
-            xyz = torch.stack(torch.meshgrid(*axes, indexing="ij"))[None]  # (1, D, rows, c, ...)
-            dirs = dirs.view((k, d) + (1,) * d)
-            j = torch.arange(k, device=device).view((k,) + (1,) * d) * ((rows + 2) * self.plane)
-
-            def flat(p):
-                # x is row 1 + X -+ dx of the extended rows; the plane wraps
-                out = j + (1 + p[:, 0]) * self.plane
-                for a in range(1, d):
-                    out = out + (p[:, a] % c) * c ** (d - 1 - a)
-                return out
-
-            self._roll_index[key] = (flat(xyz - dirs).reshape(-1), flat(xyz + dirs).reshape(-1))
-        return self._roll_index[key]
-
     def _migration_dest(self, s):
-        """Allocation phase of the rebuild. Returns the wrapped coordinates
-        (one grid an axis), the source-frame code grid ``dcode * cap +
-        target_a`` (-1 where empty or invalid) that the migrate kernel
-        consumes, the post-rebuild occupancy grid, the overflow flag and the
-        post-rebuild count grid (``(rows, plane)`` int32; the occupancy grid
-        is 1 on exactly the slots below the count of their cell).
+        """Allocation phase of the rebuild (``alloc_cuda.allocate``: three
+        kernel passes on the card, the eager PyTorch allocation on the CPU).
+        Returns the wrapped coordinates (one grid an axis), the source-frame
+        code grid ``dcode * cap + target_a`` (-1 where empty or invalid) that
+        the migrate kernel consumes, the post-rebuild occupancy grid, the
+        overflow flag and the post-rebuild count grid (``(rows, plane)``
+        int32; the occupancy grid is 1 on exactly the slots below the count
+        of their cell), all in the state's layout. Every particle gets the
+        cell and slot the JAX package's allocation gives it.
 
-        The allocation depends only on physical cells and slot order, so it
-        runs on the unpacked ``(rows, cap, plane)`` view of the grids (one
-        copy each way where R > 1) and gives every particle the cell and
-        slot the JAX package's allocation gives it: class by class in the
-        same order, so the codes are the same integers.
-
-        The rolls of the per-cell counts and bases along the rows read one
-        row past each end through ``_row_ext``: the periodic neighbour rows
-        here, the neighbour ranks' rows in the row-sharded engines, whose
-        ``_row0`` also offsets the row index."""
-        cps, cap, box, plane, d = self.cps, self.cap, self.box, self.plane, len(self.AXES)
-        rows = self.n_rows
-        dev = s.xg.device
-        i32 = torch.int32
-
-        # unwrapped drift is < skin/2 since the last rebuild; sentinel slots
-        # give garbage here, gated by occ_b everywhere below
-        wrapped = [torch.remainder(getattr(s, f"{a}g"), box) for a in self.AXES]
-        occ_b = self._unpack(s.occ) > 0.5
-
-        # each slot's cell: its row, then its column split over the plane's axes
-        cell_c = [torch.arange(self._row0, self._row0 + rows, dtype=i32, device=dev).view(rows, 1, 1)]
-        col = torch.arange(plane, dtype=i32, device=dev).view(1, 1, plane)
-        cell_c += [torch.div(col, cps, rounding_mode="floor"), col % cps] if d == 3 else [col]
-        cell = box / cps
-        dirs = []
-        for w, c in zip(wrapped, cell_c):
-            t = torch.div(self._unpack(w), cell, rounding_mode="floor").to(i32).clamp(0, cps - 1)
-            dirs.append((t - c + 1 + cps) % cps - 1)  # migration direction in {-1, 0, 1}, periodic
-        far = dirs[0].abs() > 1
-        for dk in dirs[1:]:
-            far = far | (dk.abs() > 1)
-        moved_far = occ_b & far
-        overflow = s.overflow | torch.any(moved_far)
-        # a far-mover (flagged above) stays in its source cell
-        dirs = [torch.where(moved_far, 0, dk) for dk in dirs]
-
-        # Allocation: per target cell, the classes (stayers and each
-        # direction) land in fixed order, each class's slots starting after
-        # the counts of all earlier classes. A target receives movers of
-        # direction d from exactly one source cell (t - d), so a mover's
-        # in-class rank at the target is its rank within its source cell.
-        dcode = dirs[0] + 1
-        for dk in dirs[1:]:
-            dcode = dcode * 3 + (dk + 1)  # class in 0 .. 3^D - 1
-        k = 3**d
-        dm = (torch.arange(k, dtype=i32, device=dev).view(k, 1, 1, 1) == dcode[None]) & occ_b[None]
-        dmi = dm.to(i32)
-        inc = torch.cumsum(dmi, dim=2, dtype=i32)  # along the slot axis
-        ranks = inc - dmi  # exclusive in-cell rank within the class
-        counts = self._row_ext(inc[:, :, cap - 1, :], 1)  # (k, rows + 2, plane)
-        fwd, back = self._roll_cells_index(dev)
-        # per-class counts at the TARGET cell, exclusive-prefixed in class
-        # order: the first free slot before each class arrives
-        rc = counts.reshape(-1)[fwd].view(k, rows, 1, plane)
-        bases_t = torch.cumsum(rc, dim=0, dtype=i32) - rc
-        base_src = self._row_ext(bases_t, 1).reshape(-1)[back].view(k, rows, 1, plane)
-        picked = torch.where(dm, base_src + ranks, 0).sum(0, dtype=i32)
-        target_a = torch.where(occ_b, picked, -1)
-
-        overflow = overflow | torch.any((target_a >= cap) & occ_b)
-        valid = occ_b & (target_a >= 0) & (target_a < cap)
-        # classes occupy disjoint code ranges [j*cap, (j+1)*cap)
-        scode = torch.where(valid, dcode * cap + target_a, -1).to(i32)
-
-        # post-rebuild occupancy: slots fill compactly from 0
-        tot = torch.clamp(rc.sum(0, dtype=i32), max=cap)  # (rows, 1, plane)
-        slot_i = torch.arange(cap, dtype=i32, device=dev).view(1, cap, 1)
-        occ_new = (slot_i < tot).to(s.occ.dtype)
-        return (*wrapped, self._pack(scode), self._pack(occ_new), overflow, tot.view(rows, plane))
+        The per-cell counts and bases read one row past each end through
+        ``_row_ext``: the periodic neighbour rows here, the neighbour ranks'
+        rows in the row-sharded engines, whose ``_row0`` also offsets the
+        row index."""
+        return allocate([getattr(s, f"{a}g") for a in self.AXES], s.occ, s.overflow, cps=self.cps, box=self.box,
+                        rows_per_block=self.rows_per_block, row0=self._row0, row_ext=self._row_ext)
 
     def _moved(self, s) -> Tuple[list, list]:
         """Names of the fields a rebuild moves, positions first, in the
@@ -410,8 +312,8 @@ class GridEngine:
         return s.replace(**out, dmax2=torch.zeros_like(s.dmax2), **changes)
 
     def _rebuild_migrate(self, s):
-        """Sort-free re-binning: allocation in plain PyTorch (the
-        ``md.alloc`` span), then one migrate launch that moves every field
+        """Sort-free re-binning: the allocation (the ``md.alloc`` span),
+        then one migrate launch that moves every field
         from where it lies and fills the slots the allocation leaves empty.
         A particle that moved further than one cell raises ``overflow`` and
         is kept in place; so does a cell over its capacity.

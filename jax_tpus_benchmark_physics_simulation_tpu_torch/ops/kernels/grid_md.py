@@ -9,7 +9,7 @@ rebuild and observables are the core it shares with the 3D engine
   consecutive cell rows share a block, slot ``(g, a, lane)`` holds slot
   ``a`` of cell ``(g * R + lane // cps, lane % cps)``. R defaults to the
   JAX package's ``choose_rows_per_block``, without its 128-lane padding.
-  The allocation runs on the unpacked view (``pack`` / ``unpack``).
+  The allocation reads and writes this layout where it lies.
 - The force kernel: B1 (``cell_cuda``) at R = 1, B3 (``cell_cuda_packed``)
   at R > 1, which takes the state's count grid ``counts``.
 - The rebuild's migrate kernel B2 (``migrate_cuda``).
@@ -26,8 +26,6 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda impor
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packed import (
     choose_rows_per_block,
     make_grid_force_kernel_packed,
-    pack,
-    unpack,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_engine import GridEngine, GridState
@@ -96,12 +94,6 @@ class GridMD(GridEngine):
                 return make_grid_force_kernel(grid_fn, sigma, epsilon, **kw)
         self.force_kernel = mk()
         self.energy_kernel = mk(with_energy=True)
-
-    def _pack(self, t: torch.Tensor) -> torch.Tensor:
-        return pack(t, self.rows_per_block)
-
-    def _unpack(self, t: torch.Tensor) -> torch.Tensor:
-        return unpack(t, self.rows_per_block)
 
     def _binning(self, counts: torch.Tensor, overflow: torch.Tensor) -> dict:
         """The count grid is the state's own (B3 reads it)."""

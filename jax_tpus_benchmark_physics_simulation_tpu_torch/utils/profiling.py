@@ -19,6 +19,40 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+# On the H100 a profiler session has come back without its first device
+# records (a rebuild's first launches missing from a capture of one
+# rebuild), or with none, after other sessions in the same process. A
+# capture therefore queues _PAD marker launches (``torch.cuda._sleep``'s
+# spin kernel, a few cycles each) before ``fn`` and one after it; the
+# markers are left out of what it reports.
+_MARKER = "spin_kernel"
+_PAD = 64
+_TRIES = 4
+
+
+def _capture(fn: Callable[[], object]):
+    """``(prof, events, complete)``: a profiler session of ``fn()``
+    between the markers, its device events (kernels, memcpys, memsets)
+    without them, and whether the capture holds all of ``fn``'s: a leading
+    marker and the trailing one (the last to start) both in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the profiler measures the card: no CUDA device")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(_PAD):
+            torch.cuda._sleep(1)
+        fn()
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    work = [e for e in events if _MARKER not in e.name]
+    last = max(events, key=lambda e: e.time_range.start, default=None)
+    complete = len(events) - len(work) >= 2 and last is not None and _MARKER in last.name
+    return prof, work, complete
+
 
 def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, str, Dict[str, float]]:
     """Runs ``fn()`` once under the profiler. Returns ``(device_s, table,
@@ -27,19 +61,10 @@ def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, st
     kernel name. Writes a chrome trace to ``trace_path``. Needs a CUDA
     device. A ``record_function`` range (a span of ``utils/trace.py``) has
     a copy on the device's timeline: it is no work, and not counted."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_device measures the card: no CUDA device")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, events, _ = _capture(fn)
     by_name: Dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total * 1e-6
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total * 1e-6
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
     prof.export_chrome_trace(trace_path)
     return sum(by_name.values()), table, by_name
@@ -47,19 +72,17 @@ def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, st
 
 def device_op_count(fn: Callable[[], object]) -> Dict[str, int]:
     """``{name: count}`` of the work ``fn()`` puts on the card (kernels,
-    memcpys, memsets), from ``torch.profiler``. Needs a CUDA device."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    counts: Dict[str, int] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            counts[e.name] = counts.get(e.name, 0) + 1
-    return counts
+    memcpys, memsets), from ``torch.profiler``; a capture that came back
+    incomplete is made again (``fn`` runs again), at most ``_TRIES``
+    times. Needs a CUDA device."""
+    for _ in range(_TRIES):
+        _, events, complete = _capture(fn)
+        if complete:
+            counts: Dict[str, int] = {}
+            for e in events:
+                counts[e.name] = counts.get(e.name, 0) + 1
+            return counts
+    raise RuntimeError(f"the profiler lost device records in {_TRIES} captures in a row")
 
 
 def cuda_ms(fn: Callable[[], object], reps: int, lead: bool = False) -> float:

@@ -26,8 +26,9 @@ apart from the aten ops among the profiler's events):
   the 2D, 3D and row-sharded engines share);
 - ``md.rebuild``: one sort-free rebuild (``_rebuild_migrate``): the
   allocation and the permutation kernel (B2 or B6);
-- ``md.alloc``: inside ``md.rebuild``, its allocation in plain PyTorch
-  (``_migration_dest``; in 3D also the new ``max_occ``), so that ``md.rebuild``'s own time is the permutation's;
+- ``md.alloc``: inside ``md.rebuild``, its allocation (``_migration_dest``:
+  on the card the three kernel passes of ``alloc_cuda``; in 3D also the new
+  ``max_occ``), so that ``md.rebuild``'s own time is the permutation's;
 - ``md.list``: the 3D engine's partner-list build, once a binning, at the
   first window of 2 or more steps after it (``GridMD3._window_for``): the
   rest of the rebuild's work, launched just after ``md.rebuild`` in the

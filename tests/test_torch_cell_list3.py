@@ -418,18 +418,19 @@ def test_card_block_with_list_on_and_off(cuda_device, inlj_states):
 @pytest.mark.cuda
 def test_card_list_form_keeps_its_profiled_name(cuda_device, inlj_states):
     """The list form is the counted kernel under its own symbol, which
-    ``force_kernel_roofline`` reads; the build has a name of its own."""
+    ``force_kernel_roofline`` reads; the build has a name of its own. The
+    capture is ``utils.profiling.device_op_count``'s, which retakes one
+    that came back without its first records."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.utils.profiling import device_op_count
     from port_bench.counts.timing import kernel_name
 
     md, states = inlj_states
     gs = states["block"]
     plist, _ = cell_cuda3.build_partner_list3(gs.xg, gs.yg, gs.zg, md._params, md.list_r2, md.list_cap,
                                               static_cov=32)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        cell_cuda3.grid_force3(gs.xg, gs.yg, gs.zg, md._params, static_cov=32, plist=plist)
-        cell_cuda3.build_partner_list3(gs.xg, gs.yg, gs.zg, md._params, md.list_r2, md.list_cap, static_cov=32)
-        torch.cuda.synchronize()
-    names = {kernel_name(e.name) for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    ops = device_op_count(lambda: (
+        cell_cuda3.grid_force3(gs.xg, gs.yg, gs.zg, md._params, static_cov=32, plist=plist),
+        cell_cuda3.build_partner_list3(gs.xg, gs.yg, gs.zg, md._params, md.list_r2, md.list_cap, static_cov=32)))
+    names = {kernel_name(name) for name in ops}
     assert "cell_force3_counted_kernel<32, false>" in names
     assert "cell_list3_build_kernel<32>" in names

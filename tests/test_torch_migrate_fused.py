@@ -202,7 +202,7 @@ def test_unsharded_rebuild_passes_the_planes_where_they_lie(states, monkeypatch)
     stacks nothing of the grid's shape itself (the allocation's gather
     index, built afresh here, stacks its cell coordinates, of other
     shapes)."""
-    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import grid_md
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import alloc_cuda, grid_md
 
     md, st = states[4]
     s = st["mild"]
@@ -219,7 +219,7 @@ def test_unsharded_rebuild_passes_the_planes_where_they_lie(states, monkeypatch)
 
     monkeypatch.setattr(grid_md, "migrate", spy_migrate)
     monkeypatch.setattr(torch, "stack", spy_stack)
-    md._roll_index.clear()
+    alloc_cuda.roll_cells_index.cache_clear()
     md._rebuild_migrate(s)
     (planes,) = seen
     assert isinstance(planes, list) and len(planes) == 11
