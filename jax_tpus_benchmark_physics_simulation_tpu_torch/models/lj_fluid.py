@@ -387,20 +387,33 @@ def _production(cfg: MDConfig, state: ParticleState, cadence: Optional[int], md)
             "Lower sample_every or raise prod_steps."
         )
     device = state.position.device
-    if resolve_impl(cfg, device) != "grid":
-        init_fn, step_fn, get_state = build_step(cfg, device)
-        energy_fn = make_energy_fn(cfg, device)
+    with trace.span("md.block", new_block=True):
+        if resolve_impl(cfg, device) != "grid":
+            return _stepped_production(cfg, state, device)
+        return _grid_production(cfg, state, cadence, md)
 
-        def observe(carry):
+
+def _stepped_production(cfg: MDConfig, state: ParticleState, device):
+    """:func:`production` on the dense and list paths, inside its
+    ``md.block`` span: each run of ``sample_every`` steps (and the unsampled
+    tail) an ``md.window`` span, each sample an ``md.sample`` span."""
+    init_fn, step_fn, get_state = build_step(cfg, device)
+    energy_fn = make_energy_fn(cfg, device)
+
+    def window(carry, steps=cfg.sample_every):
+        with trace.span("md.window"):
+            return run_steps(step_fn, carry, steps)
+
+    def observe(carry):
+        with trace.span("md.sample"):
             s = get_state(carry)
             return s.position, kinetic_energy(s), energy_fn(carry)
 
-        final, hist = run_trajectory(
-            step_fn, init_fn(state), cfg.prod_steps, cfg.sample_every, observe_fn=observe
-        )
-        return get_state(final), hist, _carry_overflow(final), (0, 0)
-    with trace.span("md.block", new_block=True):
-        return _grid_production(cfg, state, cadence, md)
+    n_samples, rem = divmod(cfg.prod_steps, cfg.sample_every)
+    final, hist = run_trajectory(window, init_fn(state), n_samples, observe_fn=observe)
+    if rem:
+        final = window(final, rem)
+    return get_state(final), hist, _carry_overflow(final), (0, 0)
 
 
 def _grid_production(cfg: MDConfig, state: ParticleState, cadence: Optional[int], md):

@@ -1,4 +1,4 @@
-"""Spans and a host-read counter on the grid MD path.
+"""Spans and a host-read counter on the MD paths.
 
 The tracer is off unless :func:`enable` turns it on. Off, :func:`span`
 returns one shared null context: no clock read, no torch call, no
@@ -18,12 +18,17 @@ off.
 The spans, each where its work happens (the prefix ``md.`` keeps them
 apart from the aten ops among the profiler's events):
 
-- ``md.block``: one ``lj_fluid.production`` call; each opens a new block id,
-  which the spans inside it carry;
-- ``md.block.init``: the block's binning of its particles (``md.init``);
-- ``md.sample``: one sample's positions, kinetic and potential energy;
-- ``md.window``: one leapfrog window (``GridEngine._make_window``, which
-  the 2D, 3D and row-sharded engines share);
+- ``md.block``: one ``lj_fluid.production`` call, on every force path;
+  each opens a new block id, which the spans inside it carry;
+- ``md.block.init``: the grid block's binning of its particles
+  (``md.init``);
+- ``md.sample``: one sample's positions, kinetic and potential energy (on
+  the dense paths B8's energy variant or ``LennardJones.energy``);
+- ``md.window``: on the grid engines one leapfrog window
+  (``GridEngine._make_window``, which the 2D, 3D and row-sharded engines
+  share); on the dense and list paths one run of ``sample_every``
+  velocity-Verlet steps, or the unsampled tail after the last sample
+  (``lj_fluid._stepped_production``);
 - ``md.rebuild``: one sort-free rebuild (``_rebuild_migrate``): the
   allocation and the permutation kernel (B2 or B6);
 - ``md.alloc``: inside ``md.rebuild``, its allocation (``_migration_dest``:

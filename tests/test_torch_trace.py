@@ -1,7 +1,7 @@
 """The port's spans and host-read counter (``utils/trace.py``) on the grid
-MD path: free when off, bit-neutral when on, nested as the path is, the
-counter equal to the drivers' gate reads, and the attribution of a
-profiler's device time and idle gaps to spans. Imports no jax: on the card,
+MD path and the dense paths: free when off, bit-neutral when on, nested as
+the path is, the counter equal to the drivers' gate reads, and the
+attribution of a profiler's device time and idle gaps to spans. Imports no jax: on the card,
 
     python -m pytest tests/test_torch_trace.py --noconftest -q
 
@@ -159,6 +159,61 @@ def test_syncs_are_the_3d_max_occ_reads():
     assert names.count("md.rebuild") == names.count("md.window") == names.count("md.alloc") == 8
     assert all(trace.SPANS[sp.parent].name == "md.rebuild" for sp in trace.SPANS if sp.name == "md.alloc")
     assert trace.SYNCS - before == names.count("md.sync") == 8
+
+
+# all pairs at N=256 (16 x 16 lattice, box 17.9), no cutoff: 3 samples of 20
+# steps
+DENSE = dict(n=256, rho=0.8, cutoff=None, init="lattice", eq_steps=0, prod_steps=60, sample_every=20, dt=1e-3)
+
+
+def _dense_block(impl, state=None, **kw):
+    cfg = override(MDConfig(), **{**DENSE, "force_impl": impl, **kw})
+    state = lj_fluid.init_state(cfg, "cpu") if state is None else state
+    return lj_fluid.production(cfg, state)
+
+
+@pytest.mark.parametrize("impl", ["dense_pallas", "dense_xla"])
+def test_dense_paths_open_block_window_and_sample_spans(impl):
+    trace.enable()
+    first, _, _ = _dense_block(impl)
+    _dense_block(impl, state=first, prod_steps=70)  # an unsampled 10-step tail
+    spans = trace.SPANS
+    blocks = [i for i, sp in enumerate(spans) if sp.name == "md.block"]
+    assert [spans[i].block for i in blocks] == [0, 1]
+    assert all(spans[i].parent == -1 for i in blocks)
+    for sp in spans:
+        assert sp.end_ns is not None and sp.start_ns <= sp.end_ns
+        if sp.name == "md.block":
+            continue
+        parent = spans[sp.parent]
+        assert parent.name == "md.block" and sp.block == parent.block, sp.name
+        assert parent.start_ns <= sp.start_ns and sp.end_ns <= parent.end_ns
+    # prod_steps / sample_every windows, each followed by its sample; the
+    # tail is one more window
+    inner = [[sp.name for sp in spans if sp.block == b and sp.name != "md.block"] for b in (0, 1)]
+    assert inner[0] == ["md.window", "md.sample"] * 3
+    assert inner[1] == ["md.window", "md.sample"] * 3 + ["md.window"]
+    for a, b in zip(spans, spans[1:]):
+        if a.name in ("md.window", "md.sample"):
+            assert a.end_ns <= b.start_ns
+    rows = trace.summary()
+    assert rows["md.block"]["calls"] == 2 and rows["md.window"]["calls"] == 7 and rows["md.sample"]["calls"] == 6
+    assert rows["md.block"]["syncs"] == 0
+
+
+@pytest.mark.parametrize("impl", ["dense_pallas", "dense_xla"])
+def test_dense_paths_on_and_off_give_bit_equal_blocks(impl):
+    final_off, hist_off, of_off = _dense_block(impl, prod_steps=70)
+    assert trace.SPANS == []
+    trace.enable()
+    final_on, hist_on, of_on = _dense_block(impl, prod_steps=70)
+    assert torch.equal(final_on.position, final_off.position)
+    assert torch.equal(final_on.velocity, final_off.velocity)
+    assert torch.equal(final_on.force, final_off.force)
+    for got, want in zip(hist_on, hist_off):
+        assert got.shape[0] == 3 and torch.equal(got, want)
+    assert bool(of_on) == bool(of_off) is False
+    assert trace.SPANS
 
 
 def test_attribute_splits_busy_and_idle_by_span():
