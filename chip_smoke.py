@@ -111,7 +111,12 @@ Run from the repository root. It builds the CUDA kernels from
     unpacked grids (packed back) and over two launches, and within 1e-4 of
     the plain version over occupied slots (the energy variant's e and w
     sums at rtol 1e-5); B3 and B1's loop on the unpacked grids timed in 7
-    interleaved repeats (median, min, max); packed B2 at both shapes as in
+    interleaved repeats (median, min, max); B3's partner list at both
+    shapes: its build against its plain version, the list form torch.equal
+    to B3 and over two launches and within 1e-4 of its plain version, the
+    list form, its build and B3 timed in 7 interleaved repeats (kernels-line
+    rows ``cell_force_list`` and ``cell_list_build``, each with its bound,
+    N=16,384's numbers among their extra keys); packed B2 at both shapes as in
     phase 2 (bit-equal, also at overflow, and at N=1M with movers across a
     block seam; timed beside the previous design), and one N=1M rebuild's
     device ops with B2 and with the previous design; L1 (the fused
@@ -127,8 +132,11 @@ Run from the repository root. It builds the CUDA kernels from
 17. the packed main paths, ``lj_fluid.run`` at N=16,384 and at N=1M with
     cutoff 2.5 (rho 0.8, dt 1e-3, lattice init, Kahan on, 2000 + 2000
     steps), every counter set to 0 just before each: overflow False,
-    finite histories, drift < 1e-4, B3, B3-energy and packed B2 launched
-    and B1 and unpacked B2 not; at N=1M also its ms/step, the card's busy
+    finite histories, drift < 1e-4, B3, B3-energy, packed B2, B3's list
+    form and its build launched, no partner-list overflow, and B1 and
+    unpacked B2 not; at N=16,384 the same run again with the partner list
+    off (B3's counted loop every step), its ms/step beside the first's; at
+    N=1M also its ms/step, the card's busy
     share over 200 traced production steps and B3's share of device time;
 18. the grid engine at N=4096 (cutoff 2.5; phase 4 runs it at its default
     R=24) with ``rows_per_block`` 1 (B1, the tile kernel; its loop not
@@ -397,6 +405,39 @@ def _lists_equal(got, want, occ) -> bool:
     used = torch.arange(got.k, device=cg.device)[None] < n[:, None]
     eg, ew = (x.entries.reshape(-1, x.k)[place] for x in (got, want))
     return torch.equal(torch.where(used, eg, 0), torch.where(used, ew, 0))
+
+
+def _list2_use(plist, num):
+    """``(words, full, entries)`` of B3's partner list at the targets
+    ``num``: the 16-bit words the list form reads (each target's count and
+    its entries up to its last group of four), the targets marked full, the
+    entries of the others."""
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import cell_cuda3
+
+    counts = plist.counts[num]
+    full = counts == cell_cuda3.LIST_FULL
+    used = int(((counts + 3) // 4 * 4)[~full].sum())
+    return num.numel() + used, int(full.sum()), int(counts[~full].sum())
+
+
+def _lists2_equal(got, want, counts, cap: int) -> bool:
+    """Two of B3's partner lists of one binning, whatever order their
+    strips were numbered in, number the targets 0 .. n-1 and hold each
+    target's count and its entries up to its last group (all ``k`` where
+    full); the words past it are pad."""
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import cell_cuda3, cell_cuda_packed
+
+    _, ng, _ = cell_cuda_packed._targets(counts, got, cap)
+    _, nw, _ = cell_cuda_packed._targets(counts, want, cap)
+    dense = torch.arange(ng.numel(), device=ng.device)
+    cg, cw = got.counts[ng], want.counts[nw]
+    if not (torch.equal(ng.sort().values, dense) and torch.equal(nw.sort().values, dense) and torch.equal(cg, cw)):
+        return False
+    n = torch.where(cg == cell_cuda3.LIST_FULL, got.k, (cg + 3) // 4 * 4)
+    used = torch.arange(got.k, device=cg.device)[None] < n[:, None]
+    return torch.equal(torch.where(used, got.entries[ng], 0), torch.where(used, want.entries[nw], 0))
 
 
 def _migrate_bound(n_fields: int, n_out: int, n_moved: int, n_in=None):
@@ -1001,6 +1042,7 @@ def main() -> int:
             "cell_force3_loop": cell_cuda3.LOOP_LAUNCHES, "cell_force3_halo_loop": cell_cuda3.HALO_LOOP_LAUNCHES,
             "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES, "leapfrog_close": leapfrog_cuda.CLOSE_LAUNCHES,
             "cell_force3_list": cell_cuda3.LIST_LAUNCHES, "cell_list3_build": cell_cuda3.LIST_BUILD_LAUNCHES,
+            "cell_force_list": cell_cuda_packed.LIST_LAUNCHES, "cell_list_build": cell_cuda_packed.LIST_BUILD_LAUNCHES,
             "alloc": alloc_cuda.LAUNCHES,
         }
 
@@ -1021,6 +1063,7 @@ def main() -> int:
         cell_cuda3.LOOP_LAUNCHES = cell_cuda3.HALO_LOOP_LAUNCHES = 0
         leapfrog_cuda.STEP_LAUNCHES = leapfrog_cuda.CLOSE_LAUNCHES = 0
         cell_cuda3.LIST_LAUNCHES = cell_cuda3.LIST_BUILD_LAUNCHES = 0
+        cell_cuda_packed.LIST_LAUNCHES = cell_cuda_packed.LIST_BUILD_LAUNCHES = 0
         alloc_cuda.LAUNCHES = 0
 
     def loop_launches() -> dict:
@@ -1758,8 +1801,48 @@ def main() -> int:
                cuda_ms(lambda: cell_cuda_packed.grid_force_packed_reference(g.xg, g.yg, pk, r, with_energy=True), 5))
         work_p = _pair_work((xu, yu), cell_cuda_packed.unpack(g.occ, r), m.cps, m.cap, m.box, pk.cutoff2)
         b_f, b_e = _force_bounds(work_p, 2, g.xg.numel(), extra_in_bytes=cnt.numel() * cnt.element_size())
+        # B3's partner list on the same state (as the windows build it): the
+        # build kernel against its plain version (prefix, counts, entries,
+        # targets marked full), the list form torch.equal to B3 on the
+        # positions the list was built on and over two launches, within 1e-4
+        # of its plain version; the list form, its build and B3 timed in turns
+        pl, full_l = cell_cuda_packed.build_partner_list2(g.xg, g.yg, cnt, pk, r, m.list_r2, m.list_cap, m.n)
+        want_l, n_full_l = cell_cuda_packed.build_partner_list2_reference(g.xg, g.yg, cnt, pk, r, m.list_r2,
+                                                                          m.list_cap, pl.stride, pl.strip)
+        _, num_l, _ = cell_cuda_packed._targets(cnt, pl, m.cap)
+        torch.cuda.synchronize()
+        if not (_lists2_equal(pl, want_l, cnt, m.cap) and int(full_l) == int(n_full_l)):
+            raise AssertionError(f"B3 list build {label}: the numbering, counts, entries or the {int(full_l)} "
+                                 f"targets marked full differ from the plain version's ({int(n_full_l)})")
+        fl = cell_cuda_packed.grid_force_packed(g.xg, g.yg, cnt, pk, r, plist=pl)
+        if not (all(torch.equal(a, b) for a, b in zip(fl, f1))
+                and all(torch.equal(a, b) for a, b in zip(fl, cell_cuda_packed.grid_force_packed(
+                    g.xg, g.yg, cnt, pk, r, plist=pl)))):
+            raise AssertionError(f"B3 list form {label}: not torch.equal to B3, or two launches differ")
+        err_l = _max_diff(fl, cell_cuda_packed.grid_force_packed_list_reference(g.xg, g.yg, cnt, pk, r, pl), occ_p,
+                          f"B3 list form {label}", 1e-4)
+        t15l = interleaved_ms({
+            "b3": b3, "list": lambda: cell_cuda_packed.grid_force_packed(g.xg, g.yg, cnt, pk, r, plist=pl),
+            "build": lambda: cell_cuda_packed.build_partner_list2(g.xg, g.yg, cnt, pk, r, m.list_r2, m.list_cap,
+                                                                  m.n)})
+        words_l, full_n, listed_n = _list2_use(pl, num_l)
+        tests_l = listed_n + full_n * work_p[0] // int(cnt.sum())
+        # the list form reads the count grid, the list's prefix and its used
+        # words; the build tests every candidate (8 operations each) and
+        # writes the words
+        b_l = _force_bounds((tests_l, work_p[1]), 2, g.xg.numel(), extra_in_bytes=8 * cnt.numel() + 2 * words_l)[0]
+        b_b = roofline.bound(8 * work_p[0], 8 * g.xg.numel() + 8 * cnt.numel() + 2 * words_l)
         packed[label] = dict(md=m, gs=g, errors=(err_f, max(err_ef3, err_e3)), times=(t_f, t_e), bounds=(b_f, b_e),
-                             full=(t15["b1"][0], t15["b1_e"][0]))
+                             full=(t15["b1"][0], t15["b1_e"][0]),
+                             list=dict(err=err_l, t=t15l, bounds=(b_l, b_b), words=words_l, full=full_n,
+                                       tests=tests_l, k=m.list_cap, pl=pl, cnt=cnt))
+        print(f"phase 15 {label}: B3's partner list (k {m.list_cap}, radius {math.sqrt(m.list_r2):.5f}): the build "
+              f"equal to its plain version ({int(full_l)} targets full), the list form torch.equal to B3 and over "
+              f"two launches, within {err_l:.3e} of its plain version; {tests_l} listed tests against "
+              f"{work_p[0]} candidates; time (medians of 7 interleaved repeats of 20 calls): B3 "
+              f"{spread(t15l['b3'])}, list form {spread(t15l['list'])}, build {spread(t15l['build'])}; bounds "
+              f"{b_l[0]:.5f} ms ({b_l[1]}), build {b_b[0]:.5f} ms ({b_b[1]})", flush=True)
+        del want_l, fl
         print(f"phase 15 {label}: grid {tuple(g.xg.shape)} (R={r}, G={m.n_blocks}), {outside} particles "
               f"outside [0, box), {int(cnt.sum())} particles, at most {int(cnt.max())} a cell; B3 (force and "
               f"energy variants) torch.equal to B1's loop on the unpacked grids and over two launches; forces max abs "
@@ -1804,6 +1887,18 @@ def main() -> int:
         times[name] = packed["N=1M"]["times"][i]
         bounds[name] = packed["N=1M"]["bounds"][i]
         extra[name] = {"full_capacity_ms": packed["N=1M"]["full"][i]}
+    l1m, l16 = packed["N=1M"]["list"], packed["N=16,384"]["list"]
+    errors["cell_force_list"], errors["cell_list_build"] = l1m["err"], 0.0
+    times["cell_force_list"] = (l1m["t"]["list"][0], cuda_ms(lambda: cell_cuda_packed.grid_force_packed_list_reference(
+        g1.xg, g1.yg, l1m["cnt"], m1._params, r1, l1m["pl"]), 3))
+    times["cell_list_build"] = (l1m["t"]["build"][0], cuda_ms(lambda: cell_cuda_packed.build_partner_list2_reference(
+        g1.xg, g1.yg, l1m["cnt"], m1._params, r1, m1.list_r2, m1.list_cap, l1m["pl"].stride, l1m["pl"].strip), 3))
+    bounds["cell_force_list"], bounds["cell_list_build"] = l1m["bounds"]
+    extra["cell_force_list"] = {"counted_ms": l1m["t"]["b3"][0], "k": l1m["k"], "tests": l1m["tests"],
+                                "full": l1m["full"], "words": l1m["words"], "n16384_ms": l16["t"]["list"][0],
+                                "n16384_counted_ms": l16["t"]["b3"][0], "n16384_bound_ms": l16["bounds"][0][0]}
+    extra["cell_list_build"] = {"words": l1m["words"], "n16384_ms": l16["t"]["build"][0],
+                                "n16384_bound_ms": l16["bounds"][1][0]}
     for label, (tt, hh, pl_ms, _) in t15m.items():
         bb = bounds["migrate_packed"] if label == "N=1M" else b16
         print(f"{smi}: phase 15 B2 packed {label} (R={packed[label]['md'].rows_per_block}): B2 and its previous "
@@ -1846,7 +1941,12 @@ def main() -> int:
         resp = lj_fluid.run(c, device="cuda")
         path_p = {"cell_force_packed": cell_cuda_packed.LAUNCHES,
                   "cell_force_packed_energy": cell_cuda_packed.ENERGY_LAUNCHES,
-                  "migrate_packed": migrate_cuda.PACKED_LAUNCHES}
+                  "migrate_packed": migrate_cuda.PACKED_LAUNCHES,
+                  "cell_force_list": cell_cuda_packed.LIST_LAUNCHES,
+                  "cell_list_build": cell_cuda_packed.LIST_BUILD_LAUNCHES}
+        if not mp.partner_list or resp.list_overflows:
+            raise AssertionError(f"packed main path N={c.n}: partner list on {mp.partner_list}, "
+                                 f"{resp.list_overflows} targets over its capacity")
         unpacked = (cell_cuda.LAUNCHES, cell_cuda.ENERGY_LAUNCHES, migrate_cuda.LAUNCHES, *loop_launches().values())
         print(f"phase 17 N={c.n}: R={mp.rows_per_block}, G={mp.n_blocks}, grid {mp.grid_shape}, "
               f"{kp}-step windows at gate {gp}", flush=True)
@@ -1862,7 +1962,18 @@ def main() -> int:
             raise AssertionError(f"packed main path N={c.n}: {leapfrog_cuda.STEP_LAUNCHES} fused step launches "
                                  f"in {windows} windows")
         print(f"phase 17 N={c.n}: L1 {leapfrog_cuda.STEP_LAUNCHES} step launches (one a step) and {windows} "
-              f"closing launches (one a window) over {c.eq_steps + c.prod_steps} steps of the run", flush=True)
+              f"closing launches (one a window) over {c.eq_steps + c.prod_steps} steps of the run; B3's list "
+              f"form {path_p['cell_force_list']} launches, its build {path_p['cell_list_build']}", flush=True)
+        if c is cfg16:
+            # the same run with the partner list off: B3's counted loop every step
+            off = lj_fluid._make_grid_md(c, dev)
+            off.partner_list = False
+            reset_counts()
+            res_off = lj_fluid.run(c, device="cuda", md=off)
+            check_run(res_off, f"packed main path N={c.n}, list off", c)
+            if cell_cuda_packed.LIST_LAUNCHES or cell_cuda_packed.LIST_BUILD_LAUNCHES:
+                raise AssertionError(f"packed main path N={c.n}, list off: the list form ran")
+            report_run(res_off, "17 lj_fluid.run packed, partner list off", {}, migrate_cuda.PACKED_LAUNCHES, c)
         if c is cfg1m:
             launches.update(path_p)
             # a window's first step and its close are one launch each
@@ -2493,6 +2604,10 @@ def main() -> int:
         "migrate": ("migrate.cu", kref + "migrate_pallas.py:80"),
         "cell_force_packed": ("cell_force.cu", kref + "cell_pallas_packed.py:111"),
         "cell_force_packed_energy": ("cell_force.cu", kref + "cell_pallas_packed.py:111"),
+        # B3's list form and its build are B3's redesign on the card: they
+        # do B3's job, and no TPU kernel builds a list
+        "cell_force_list": ("cell_force.cu", kref + "cell_pallas_packed.py:111"),
+        "cell_list_build": ("cell_force.cu", kref + "cell_pallas_packed.py:111"),
         "migrate_packed": ("migrate.cu", kref + "migrate_pallas.py:80"),
         "cell_force3": ("cell_force3.cu", kref + "cell_pallas3.py:99"),
         "cell_force3_energy": ("cell_force3.cu", kref + "cell_pallas3.py:99"),

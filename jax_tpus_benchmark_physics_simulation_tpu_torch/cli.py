@@ -146,6 +146,8 @@ def cmd_md(args) -> int:
                 kernels += f"; their list form in windows of 2+ steps (list of {md.list_cap} partners a target)"
         elif md.rows_per_block > 1:
             kernels = f"B3 (packed, R={md.rows_per_block}, grid {md.grid_shape}), B2 packed"
+            if md.partner_list:
+                kernels += f"; its list form in windows of 2+ steps (list of {md.list_cap} partners a target)"
         else:
             kernels = "B1, B2"
         print(f"grid: {md.cps} cells per side, capacity {md.cap}, skin {md.skin:.4f}; kernels {kernels}; "
@@ -176,9 +178,10 @@ def cmd_md(args) -> int:
         movers = ""
         if cfg.dim == 3:
             movers = (f"; B6 mover flags {res.mover_flags} (rebuilds with a cell over k_mov "
-                      f"{md.migrate_k_mov} movers; B6 moves them all, nothing is lost); partner-list "
-                      f"overflows {res.list_overflows} (targets over the list's {md.list_cap} entries; "
-                      "they ran the counted loop, nothing is lost)")
+                      f"{md.migrate_k_mov} movers; B6 moves them all, nothing is lost)")
+        if md.partner_list:
+            movers += (f"; partner-list overflows {res.list_overflows} (targets over the list's {md.list_cap} "
+                       "entries; they ran the counted loop, nothing is lost)")
         print(f"overflow: {res.overflow}{movers}")
     if res.overflow:
         print("[WARNING] spatial-structure capacity/skin OVERFLOW was flagged: "

@@ -328,10 +328,10 @@ def _carry_overflow(carry) -> torch.Tensor:
 
 
 def _counters(gs):
-    """``(mover_flags, list_overflows)`` of a 3D grid state, 0-d int32
+    """``(mover_flags, list_overflows)`` of a grid state, 0-d int32
     tensors: the rebuilds in which B6 found a cell with more than ``k_mov``
-    movers, and the targets whose partners overflowed a partner list; 0 for
-    the other states, which count neither."""
+    movers (3D), and the targets whose partners overflowed a partner list;
+    0 for the states that count neither."""
     lists = getattr(gs, "list_overflows", None)
     return getattr(gs, "mover_flags", 0), 0 if lists is None else lists
 
@@ -508,7 +508,7 @@ class MDResult:
     # rebuilds in which B6 found a cell with more than k_mov movers (3D grid
     # engine; B6 moves them all, so nothing is lost and overflow stays down)
     mover_flags: int = 0
-    # targets whose partners overflowed a partner list (3D grid engine; they
+    # targets whose partners overflowed a partner list (grid engines; they
     # ran the counted loop, so nothing is lost)
     list_overflows: int = 0
     rdf_subset: int = 0  # >0: g(r) was estimated from this many particles

@@ -19,6 +19,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
@@ -82,6 +85,20 @@ def library() -> ctypes.CDLL:
     lib.jtps_error_string.argtypes = [ctypes.c_int]
     lib.jtps_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# Device scratch of the kernels that count across their blocks (B6's mover
+# flag, the partner lists' builds), three int32 words for each (device,
+# stream): launches on one stream run in turn and leave them zeroed;
+# launches on two streams get their own.
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def scratch_words(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(3, dtype=torch.int32, device=device)
+    return _SCRATCH[key]
 
 
 def check(status: int, what: str) -> None:

@@ -107,13 +107,21 @@ class CellForceParams:
 
 
 def grid_force_reference(
-    xg: torch.Tensor, yg: torch.Tensor, p: CellForceParams, with_energy: bool = False
+    xg: torch.Tensor, yg: torch.Tensor, p: CellForceParams, with_energy: bool = False, listed=None
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the kernel: ``(fx, fy)``, or ``(fx, fy, e, w)``
     with ``with_energy``. For each of the 9 neighbour offsets the partner
     grid is the rolled grid plus the seam offset (+-box where the cell row
     or column wraps), and the (cps, a, b, cps) pair block is summed over b.
-    Works in any float dtype."""
+    Works in any float dtype. ``listed``: a ``(9, cps, cap, cap, cps)``
+    mask of the pairs that count at each offset (B3's list form), None:
+    all."""
+    return _pair_sums(xg, yg, _grid_partners(xg, yg, p), p, with_energy, listed)
+
+
+def _grid_partners(xg: torch.Tensor, yg: torch.Tensor, p: CellForceParams):
+    """``partners(dx)`` of the whole grid: the grids rolled by row offset
+    ``dx``, x seam added."""
     idx = torch.arange(p.cps, device=xg.device)
 
     def partners(dx):
@@ -121,7 +129,7 @@ def grid_force_reference(
         seam = ((idx + dx >= p.cps).to(xg.dtype) - (idx + dx < 0).to(xg.dtype)) * p.box
         return torch.roll(xg, -dx, 0) + seam[:, None, None], torch.roll(yg, -dx, 0)
 
-    return _pair_sums(xg, yg, partners, p, with_energy)
+    return partners
 
 
 def grid_force_halo_reference(
@@ -137,12 +145,30 @@ def grid_force_halo_reference(
     )
 
 
-def _pair_sums(xg, yg, partners, p: CellForceParams, with_energy: bool):
-    """The pair sums of the plain versions: ``partners(dx)`` gives the
-    partner grids of row offset ``dx`` (x seam included); the column
-    offsets roll along the last axis with their y seam."""
-    cps = p.cps
-    idx = torch.arange(cps, device=xg.device)
+def _offset_partners(partners, p: CellForceParams, like: torch.Tensor):
+    """The 9 offsets in the loop's order (dx, then dy): ``(dx, dy, xp, yp)``
+    with the partner grids ``(rows, 1, cap, cps)`` of every target, in the
+    device and dtype of ``like``; ``partners(dx)`` gives the partner grids
+    of row offset ``dx`` (x seam included), the column offsets roll along
+    the last axis with their y seam."""
+    idx = torch.arange(p.cps, device=like.device)
+
+    def seam(d):
+        # +box where index + d wraps past the top, -box past the bottom
+        return ((idx + d >= p.cps).to(like.dtype) - (idx + d < 0).to(like.dtype)) * p.box
+
+    for dx in (-1, 0, 1):
+        xr, yr = partners(dx)
+        for dy in (-1, 0, 1):
+            xp = torch.roll(xr, -dy, 2)[:, None, :, :]
+            yp = (torch.roll(yr, -dy, 2) + seam(dy)[None, None, :])[:, None, :, :]
+            yield dx, dy, xp, yp
+
+
+def _pair_sums(xg, yg, partners, p: CellForceParams, with_energy: bool, listed=None):
+    """The pair sums of the plain versions over :func:`_offset_partners`.
+    ``listed``: the pairs that count at each offset
+    (``grid_force_reference``)."""
     xi = xg[:, :, None, :]
     yi = yg[:, :, None, :]
     zero = torch.zeros((), dtype=xg.dtype, device=xg.device)
@@ -153,30 +179,24 @@ def _pair_sums(xg, yg, partners, p: CellForceParams, with_energy: bool):
         e = torch.zeros_like(xg)
         w = torch.zeros_like(xg)
 
-    def seam(d):
-        # +box where index + d wraps past the top, -box past the bottom
-        return ((idx + d >= cps).to(xg.dtype) - (idx + d < 0).to(xg.dtype)) * p.box
-
-    for dx in (-1, 0, 1):
-        xr, yr = partners(dx)
-        for dy in (-1, 0, 1):
-            xp = torch.roll(xr, -dy, 2)[:, None, :, :]
-            yp = (torch.roll(yr, -dy, 2) + seam(dy)[None, None, :])[:, None, :, :]
-            ddx = xi - xp
-            ddy = yi - yp
-            r2 = ddx * ddx + ddy * ddy
-            valid = (r2 > 0.0) & (r2 < p.cutoff2)
-            inv = p.sigma2 / r2
-            s6 = inv * inv * inv
-            if with_energy:
-                s12 = s6 * s6
-                fmag = torch.where(valid, (2.0 * s12 - s6) * inv, zero) * fscale
-                e += torch.where(valid, 4.0 * p.epsilon * (s12 - s6) - p.shift, zero).sum(2)
-                w += (torch.where(valid, 2.0 * s12 - s6, zero) * (fscale * p.sigma2)).sum(2)
-            else:
-                fmag = torch.where(valid, s6 * inv * (2.0 * fscale * s6 - fscale), zero)
-            fx += (fmag * ddx).sum(2)
-            fy += (fmag * ddy).sum(2)
+    for o, (_, _, xp, yp) in enumerate(_offset_partners(partners, p, xg)):
+        ddx = xi - xp
+        ddy = yi - yp
+        r2 = ddx * ddx + ddy * ddy
+        valid = (r2 > 0.0) & (r2 < p.cutoff2)
+        if listed is not None:
+            valid = valid & listed[o]
+        inv = p.sigma2 / r2
+        s6 = inv * inv * inv
+        if with_energy:
+            s12 = s6 * s6
+            fmag = torch.where(valid, (2.0 * s12 - s6) * inv, zero) * fscale
+            e += torch.where(valid, 4.0 * p.epsilon * (s12 - s6) - p.shift, zero).sum(2)
+            w += (torch.where(valid, 2.0 * s12 - s6, zero) * (fscale * p.sigma2)).sum(2)
+        else:
+            fmag = torch.where(valid, s6 * inv * (2.0 * fscale * s6 - fscale), zero)
+        fx += (fmag * ddx).sum(2)
+        fy += (fmag * ddy).sum(2)
     if with_energy:
         return fx, fy, e, w
     return fx, fy

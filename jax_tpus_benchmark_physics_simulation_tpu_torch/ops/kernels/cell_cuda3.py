@@ -72,9 +72,6 @@ import torch
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import _build
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import SENTINEL_FACTOR, check_grid
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
-# the list build's two words of last-block scratch: B6's pair for the
-# (device, stream), which each launch leaves zeroed for the next
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda3 import _sync_words
 
 LAUNCHES = 0
 ENERGY_LAUNCHES = 0
@@ -329,8 +326,9 @@ class PartnerList3:
         return e.permute(0, 2, 1, 3).reshape(self.n_strips, self.stride, self.k)
 
 
-def list_radius2(cutoff: float, skin: float, box: float, steps: int = LIST_STEPS) -> float:
-    """The squared radius of a partner list, a float32 value: ``cutoff +
+def list_radius2(cutoff: float, skin: float, box: float, steps: int = LIST_STEPS, dim: int = 3) -> float:
+    """The squared radius of a partner list in ``dim`` dimensions (the 3D
+    list here, B3's in ``cell_cuda_packed``), a float32 value: ``cutoff +
     skin`` widened for float32 rounding, so that no pair the skin test lets
     through is left out. While the window's skin flag holds, each particle's
     float32 displacement since the binning is at most skin/2; its float32
@@ -339,21 +337,22 @@ def list_radius2(cutoff: float, skin: float, box: float, steps: int = LIST_STEPS
     compensation), ``u (box + skin)`` a step with ``u = 2^-24``, over at
     most ``steps`` steps (``LIST_STEPS``); the seam offset adds a rounding
     of ``u (2 box + skin)`` on each axis at the binning and at the step, and
-    r^2 a few ``u`` of r. Each of two partners on three axes, hence
-    ``2 sqrt(3)``; r^2 in float32, rounded up."""
+    r^2 a few ``u`` of r. Each of two partners on ``dim`` axes, hence
+    ``2 sqrt(dim)``; r^2 in float32, rounded up."""
     u = 2.0**-24
-    margin = 2.0 * math.sqrt(3.0) * u * (steps * (box + skin) + 2.0 * box + skin) + 4.0 * u * (cutoff + skin)
+    margin = 2.0 * math.sqrt(dim) * u * (steps * (box + skin) + 2.0 * box + skin) + 4.0 * u * (cutoff + skin)
     r2 = torch.tensor((cutoff + skin + margin) ** 2, dtype=torch.float32)
     return float(torch.nextafter(r2, torch.tensor(math.inf, dtype=torch.float32)))
 
 
-def list_capacity(n: int, box: float, rlist2: float) -> int:
+def list_capacity(n: int, box: float, rlist2: float, dim: int = 3) -> int:
     """Entries a target (``k``): the mean number of partners within the
-    list radius at density ``n / box^3``, ``m``, plus ``6 sqrt(m)``, rounded
-    up to a multiple of 8 (B5's ``cov`` rule with a wider margin: a target
-    over it runs the counted loop, so the margin buys speed, not
-    correctness)."""
-    m = n / float(box) ** 3 * 4.0 / 3.0 * math.pi * rlist2**1.5
+    list radius at density ``n / box^dim``, ``m`` (the ``dim``-ball of that
+    radius), plus ``6 sqrt(m)``, rounded up to a multiple of 8 (B5's
+    ``cov`` rule with a wider margin: a target over it runs the counted
+    loop, so the margin buys speed, not correctness)."""
+    ball = 4.0 / 3.0 * math.pi * rlist2**1.5 if dim == 3 else math.pi * rlist2 ** (dim / 2) / math.gamma(dim / 2 + 1)
+    m = n / float(box) ** dim * ball
     return min(max(8, -(-int(math.ceil(m + 6.0 * math.sqrt(m))) // 8) * 8), LIST_FULL - 3)
 
 
@@ -614,7 +613,7 @@ def build_partner_list3(
     status = _build_launcher()(
         xg.data_ptr(), yg.data_ptr(), zg.data_ptr(), mo, cov, p.cps, p.cap, p.cps, p.cps,
         p.box, p.sentinel, rlist2, strip, k, words.data_ptr(), full.data_ptr(), out.data_ptr(),
-        _sync_words(dev, stream).data_ptr(), dev.index, stream,
+        _build.scratch_words(dev, stream).data_ptr(), dev.index, stream,
     )
     _build.check(status, "cell_list3 build kernel")
     LIST_BUILD_LAUNCHES += 1

@@ -26,6 +26,23 @@ slots hold the x sentinel ``2.5 * box``.
   (``_migration_dest``, ``alloc_cuda``: three kernel passes on the card)
   gives each slot a source-frame code, and one migrate kernel launch (2D:
   B2, 3D: B6) moves the fields. ``_rebuild`` is the sort-based oracle.
+- The partner list (``partner_list``, the engine's choice): the first
+  window of at least 2 steps after a (re)binning builds the list of each
+  target's partners within the list radius (``cutoff + skin``, widened for
+  float32 rounding: ``cell_cuda3.list_radius2``) for the force kernel that
+  window runs (the ``md.list`` span), and the binning's windows call that
+  kernel's list form, which tests those partners only. While no particle
+  has moved skin/2 since the binning (the window's flag), every pair
+  within the cutoff is on the list and the forces are the counted loop's
+  bits. One-step windows build none (a list would be used once), nor does
+  a state of unknown binning; a window that would end past the list's
+  lifetime (``cell_cuda3.LIST_STEPS``) runs the counted loop. A target
+  whose partners overflow the list's capacity runs the counted loop and is
+  counted in ``list_overflows``, on the device. The list lives in the
+  state for one binning: a (re)binning drops it, every window counts its
+  steps (``_stepped``), and a window that is the last of its binning (the
+  fixed driver's) drops it after use. The dimension builds the list
+  (``_build_list``) and gives its list form (``_list_force``).
 
 Host control flow: the JAX package runs the rebuild gate inside a device
 ``while_loop``. Here the drivers are Python loops that read the scalar
@@ -46,10 +63,10 @@ only in distribution.
 An engine keeps what is its own dimension's in the hooks it overrides:
 its kernels and state class, ``_counters`` (the counts ``init`` zeroes),
 ``_binning`` (what a (re)binning sets from its count grid),
-``_force_args``, ``_window_for`` (the window a driver runs), ``_stepped``
-(what a window counts beside the grids), ``_migrate`` and
-``_rebuild_flags`` (the migrate kernel and its flags). The row-sharded
-engines (``parallel/``) override the sharding hooks below.
+``_force_args``, ``_window_for`` (the window a driver runs),
+``_build_list`` and ``_list_force`` (the partner list and its list form),
+``_migrate`` and ``_rebuild_flags`` (the migrate kernel and its flags). The
+row-sharded engines (``parallel/``) override the sharding hooks below.
 """
 
 from __future__ import annotations
@@ -63,6 +80,7 @@ import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.alloc_cuda import allocate
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import SENTINEL_FACTOR
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda3 import LIST_STEPS
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packed import unpack
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.leapfrog_cuda import Leapfrog, kadd, sumsq
@@ -96,6 +114,13 @@ class GridState:
     time: torch.Tensor
     rng_seed: Optional[int] = None
     rng_counter: int = 0
+    # int32 targets whose partners overflowed a partner list's capacity
+    # (they ran the counted loop: nothing is lost)
+    list_overflows: Optional[torch.Tensor] = None
+    plist: Optional[object] = None  # the partner list of this binning
+    # steps run since the binning (host-side); None: unknown, as in a state
+    # that neither init nor a rebuild made, which builds no partner list
+    since_binning: Optional[int] = None
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
@@ -107,6 +132,7 @@ class GridEngine:
 
     AXES: Tuple[str, ...]
     State: type
+    partner_list = False  # whether windows of 2+ steps run the list form
 
     def __init__(self, grid_fn: CellGridFn, dt: float, compensated: bool, device, rows_per_block: int = 1):
         d = len(self.AXES)
@@ -171,7 +197,7 @@ class GridEngine:
     # -- hooks of the dimension -------------------------------------------------
     def _counters(self) -> dict:
         """The state's counters, zeroed by ``init``."""
-        return {}
+        return dict(list_overflows=torch.zeros((), dtype=torch.int32, device=self.device))
 
     def _binning(self, counts: torch.Tensor, overflow: torch.Tensor) -> dict:
         """The fields a (re)binning sets from its ``(rows, plane)`` int32
@@ -183,13 +209,52 @@ class GridEngine:
         return ()
 
     def _stepped(self, s, n_inner: int) -> dict:
-        """The fields a window of ``n_inner`` steps advances besides the grids."""
-        return {}
+        """The fields a window of ``n_inner`` steps advances besides the
+        grids: the steps run since the binning, which the partner list's
+        lifetime reads."""
+        return {} if s.since_binning is None else dict(since_binning=s.since_binning + n_inner)
 
     def _window_for(self, s, n_inner: int, thermostat=None, last: bool = False):
         """The ``n_inner``-step window a driver runs on ``s``; ``last``: the
         last window of its binning."""
-        return self._make_window(self.force_kernel, n_inner, thermostat)
+        return self._listed_window(self.force_kernel, None, n_inner, thermostat, last)
+
+    def _build_list(self, s, bound):
+        """``(list, list_overflows)``: the partner list of the state's
+        binning for the force kernel at ``bound`` (what ``_window_for``
+        chose), the state's count of full targets advanced."""
+        raise NotImplementedError
+
+    def _list_force(self, plist, bound):
+        """The list form of the force kernel at ``bound`` on ``plist``,
+        called as the force kernel is."""
+        raise NotImplementedError
+
+    def _listed_window(self, force_fn, bound, n_inner: int, thermostat=None, last: bool = False):
+        """The window of ``force_fn`` (the force kernel at ``bound``), or,
+        with the partner list on and ``n_inner >= 2``, one that runs its
+        list form: on a state fresh from its binning it builds the list
+        first (the ``md.list`` span), and it falls back to ``force_fn``
+        where the state has no list for its binning or the window would end
+        past the list's lifetime (``LIST_STEPS``). ``last``: the window
+        drops the list after use (a caller holding the state across the
+        next rebinning would otherwise keep it beside the next one)."""
+        window = self._make_window(force_fn, n_inner, thermostat)
+        if not (self.partner_list and n_inner >= 2):
+            return window
+
+        def listed(s):
+            if s.plist is None and s.since_binning == 0:
+                with trace.span("md.list"):
+                    plist, full = self._build_list(s, bound)
+                s = s.replace(plist=plist, list_overflows=full)
+            if s.plist is None or s.since_binning + n_inner > LIST_STEPS:
+                out = window(s)
+            else:
+                out = self._make_window(self._list_force(s.plist, bound), n_inner, thermostat)(s)
+            return out.replace(plist=None) if last else out
+
+        return listed
 
     def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor):
         """The rebuild's permutation of the field planes, ``(planes,
@@ -268,7 +333,7 @@ class GridEngine:
         zero = torch.zeros((), dtype=dtype, device=self.device)
         s = self.State(
             **fields, **{f"f{a}g": None for a in axes}, **{f"disp{a}": torch.zeros_like(occ) for a in axes},
-            occ=occ, pid=pid.view(self.grid_shape), dmax2=zero, time=zero.clone(), rng_seed=seed,
+            occ=occ, pid=pid.view(self.grid_shape), dmax2=zero, time=zero.clone(), rng_seed=seed, since_binning=0,
             **self._counters(), **self._binning(self._counts(occ), overflow),
         )
         f = self.force_kernel(*(fields[f"{a}g"] for a in axes), *self._force_args(s))
@@ -309,7 +374,7 @@ class GridEngine:
         out["pid"] = out["pid"].to(torch.int32)
         zeros = torch.zeros_like(s.xg)
         out.update({f"disp{a}": zeros for a in self.AXES})
-        return s.replace(**out, dmax2=torch.zeros_like(s.dmax2), **changes)
+        return s.replace(**out, dmax2=torch.zeros_like(s.dmax2), plist=None, since_binning=0, **changes)
 
     def _rebuild_migrate(self, s):
         """Sort-free re-binning: the allocation (the ``md.alloc`` span),
@@ -507,6 +572,9 @@ class GridEngine:
                 while done < n_steps and not trace.host_read(self._needs_rebuild(s, frac=gate_frac), bool):
                     s = window(s)
                     done += n_inner
+                # the binning's partner list goes before the next binning's
+                # rebuild allocates
+                s = s.replace(plist=None)
                 s = self._rebuild_migrate(s)
             return s
 

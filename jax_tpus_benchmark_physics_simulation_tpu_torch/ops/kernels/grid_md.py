@@ -13,6 +13,11 @@ rebuild and observables are the core it shares with the 3D engine
 - The force kernel: B1 (``cell_cuda``) at R = 1, B3 (``cell_cuda_packed``)
   at R > 1, which takes the state's count grid ``counts``.
 - The rebuild's migrate kernel B2 (``migrate_cuda``).
+- The partner list (``partner_list``; its lifecycle is the core's): B3's
+  (``cell_cuda_packed.build_partner_list2``), walked by B3's list form,
+  on by default on the card where B3 runs (R > 1) and the list holds a
+  cell's slots (capacity at most ``LIST_MAX_CAP``). B1's tile kernel (R =
+  1), the energy variant and the row-sharded engine have no list form.
 """
 
 from __future__ import annotations
@@ -22,9 +27,13 @@ from typing import Optional
 
 import torch
 
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import make_grid_force_kernel
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda import CellForceParams, make_grid_force_kernel
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda3 import list_capacity, list_radius2
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packed import (
+    LIST_MAX_CAP,
+    build_partner_list2,
     choose_rows_per_block,
+    grid_force_packed,
     make_grid_force_kernel_packed,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
@@ -41,7 +50,8 @@ class GridMDState(GridState):
     ``counts`` is the ``(rows, cps)`` int32 number of particles of each
     cell, made at ``init`` and at each rebuild: a cell's particles hold its
     slots ``0 .. count-1`` until the next rebuild. Kernel B3 (R > 1) takes
-    it.
+    it. ``list_overflows`` (0-d int32), ``plist`` and ``since_binning``:
+    the partner list's (``GridState``).
     """
 
     xg: torch.Tensor
@@ -66,6 +76,11 @@ class GridMD(GridEngine):
 
     ``rows_per_block``: R, which must divide the cells per side; None takes
     the JAX package's default, ``choose_rows_per_block(cps)``.
+
+    ``partner_list``: whether windows of at least 2 steps run B3's list
+    form (module docstring); None: on the card where R > 1 and the capacity
+    is at most ``LIST_MAX_CAP``. ``list_cap`` (an attribute) is the entries
+    a target, ``cell_cuda3.list_capacity``'s in 2D.
     """
 
     AXES = ("x", "y")
@@ -80,10 +95,19 @@ class GridMD(GridEngine):
         compensated: bool = False,
         rows_per_block: Optional[int] = None,
         device="cuda",
+        partner_list: Optional[bool] = None,
     ):
         if rows_per_block is None:
             rows_per_block = choose_rows_per_block(grid_fn.cells_per_side)
         super().__init__(grid_fn, dt, compensated, device, rows_per_block)
+        lists = rows_per_block > 1 and self.cap <= LIST_MAX_CAP
+        if partner_list and not lists:
+            raise ValueError(f"the partner list is B3's: it needs rows_per_block > 1 (got {rows_per_block}) and a "
+                             f"capacity of at most {LIST_MAX_CAP} (got {self.cap})")
+        self.partner_list = self.device.type == "cuda" and lists if partner_list is None else bool(partner_list)
+        self._params = CellForceParams.from_grid(grid_fn, sigma, epsilon)
+        self.list_r2 = list_radius2(grid_fn.cutoff, self.skin, self.box, dim=2)
+        self.list_cap = list_capacity(self.n, self.box, self.list_r2, dim=2)
         # hot-path kernel: forces only; the energy variant runs only at
         # sampling points (potential_energy, virial)
         if rows_per_block > 1:
@@ -102,6 +126,17 @@ class GridMD(GridEngine):
     def _force_args(self, s: GridMDState) -> tuple:
         """The count grid where the force kernel takes it (B3, R > 1)."""
         return (s.counts,) if self.rows_per_block > 1 else ()
+
+    def _build_list(self, s: GridMDState, bound):
+        """B3's partner list, room for every particle."""
+        return build_partner_list2(s.xg, s.yg, s.counts, self._params, self.rows_per_block, self.list_r2,
+                                   self.list_cap, self.n, full=s.list_overflows)
+
+    def _list_force(self, plist, bound):
+        def force(xg, yg, counts):
+            return grid_force_packed(xg, yg, counts, self._params, self.rows_per_block, plist=plist)
+
+        return force
 
     def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor):
         """Kernel B2; it reports nothing besides the planes."""

@@ -22,21 +22,11 @@ is 3D's own:
   counts the rebuilds it rose in (``mover_flags``, on the device) and keeps
   it out of ``overflow``, which stays for lost or misplaced physics (a
   cell's capacity, a far mover, the skin, pure static mode's bound).
-- The partner list (``partner_list``, on by default on the card): the
-  first window of at least 2 steps after a (re)binning builds the list of
-  each target's partners within the list radius (``cutoff + skin``, widened
-  for float32 rounding: ``cell_cuda3.list_radius2``) for the kernel that
-  window runs, and the binning's windows call the list form of B5 or B4,
-  which tests those partners only. While no particle has moved skin/2
-  since the binning (the window's flag), every pair within the cutoff is
-  on the list and the forces are the counted loop's bits. One-step
-  windows (3D equilibration's gated windows) build none: a list would be
-  used once. A target whose partners overflow the list's capacity runs
-  the counted loop and is counted in ``list_overflows``, on the device.
-  The list lives in the state for one binning: a (re)binning drops it
-  (``_binning``), every window counts its steps (``_stepped``), and the
-  window that is the last of its binning (the fixed driver's) drops it
-  after use.
+- The partner list (``partner_list``, on by default on the card; its
+  lifecycle is the core's, ``grid_engine.py``): the list of B5 or B4,
+  whichever the window runs (``cell_cuda3.build_partner_list3``), and its
+  list form (``grid_force3(..., plist=)``). 3D equilibration's gated
+  windows are one step long and build none.
 
 Host control flow: the JAX package's ``lax.cond``/``while_loop`` drivers
 are Python loops here. The gated driver reads ``dmax2`` once per window. In
@@ -57,9 +47,7 @@ from typing import Optional, Union
 import torch
 
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda3 import (
-    LIST_STEPS,
     CellForce3Params,
-    PartnerList3,
     build_partner_list3,
     grid_force3,
     list_bound_ok,
@@ -80,7 +68,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclass(kw_only=True)
 class GridMD3State(GridState):
     """All (ncx, cap, ncy*ncz) leaves live on ``GridMD3.device``.
-    ``max_occ``, ``mover_flags`` and ``list_overflows`` are 0-d tensors."""
+    ``max_occ`` and ``mover_flags`` are 0-d tensors."""
 
     xg: torch.Tensor
     yg: torch.Tensor
@@ -103,13 +91,6 @@ class GridMD3State(GridState):
     cvx: Optional[torch.Tensor] = None
     cvy: Optional[torch.Tensor] = None
     cvz: Optional[torch.Tensor] = None
-    # int32 targets whose partners overflowed a partner list's capacity
-    # (they ran the counted loop: nothing is lost)
-    list_overflows: Optional[torch.Tensor] = None
-    plist: Optional[PartnerList3] = None  # the partner list of this binning
-    # steps run since the binning (host-side); None: unknown, as in a state
-    # that neither init nor a rebuild made, which builds no partner list
-    since_binning: Optional[int] = None
 
 
 class GridMD3(GridEngine):
@@ -179,63 +160,44 @@ class GridMD3(GridEngine):
         return self.static_cov is not None and not self._hybrid
 
     def _counters(self) -> dict:
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        return dict(mover_flags=zero, list_overflows=zero.clone())
+        return dict(super()._counters(), mover_flags=torch.zeros((), dtype=torch.int32, device=self.device))
 
     def _binning(self, counts: torch.Tensor, overflow: torch.Tensor) -> dict:
         """``max_occ`` from the count grid (in pure static mode above
-        ``static_cov`` it raises ``overflow``); no partner list yet."""
+        ``static_cov`` it raises ``overflow``)."""
         max_occ = self._all_max(counts.max())
         if self._pure_static:
             overflow = overflow | (max_occ > self.static_cov)
-        return dict(max_occ=max_occ, overflow=overflow, plist=None, since_binning=0)
+        return dict(max_occ=max_occ, overflow=overflow)
 
     def _force_args(self, s: GridMD3State) -> tuple:
         """B4 reads the occupancy bound on the device; it is constant
         between rebuilds (the binning is fixed)."""
         return (s.max_occ,)
 
-    def _stepped(self, s: GridMD3State, n_inner: int) -> dict:
-        """The steps run since the binning, which the partner list's
-        lifetime reads."""
-        return {} if s.since_binning is None else dict(since_binning=s.since_binning + n_inner)
-
     def _window_for(self, s: GridMD3State, n_inner: int, thermostat=None, last: bool = False):
         """The ``n_inner``-step window for the state's binning. In hybrid
         mode: B5's while ``max_occ <= cov``, else B4's, which costs one
         host read of ``max_occ``; ``max_occ`` only changes at a rebuild, so
         the drivers call this once per rebuild period. With the partner
-        list on and ``n_inner >= 2``, the window runs that kernel's list
-        form: on a state fresh from its binning it builds the list first
-        (the ``md.list`` span), and it falls back to the counted loop where
-        the state has no list for its binning or the window would end past
-        the list's lifetime (``cell_cuda3.LIST_STEPS``). ``last``: the
-        window drops the list after use (a caller holding the state across
-        the next rebinning would otherwise keep it beside the next one)."""
+        list on, that kernel's list form where the list holds its bound."""
         static = self._hybrid and trace.host_read(s.max_occ, int) <= self.static_cov
-        window = self._make_window(self.force_kernel_static if static else self.force_kernel, n_inner, thermostat)
+        kernel = self.force_kernel_static if static else self.force_kernel
         cov = self.static_cov if static or self._pure_static else None
-        if not (self.partner_list and n_inner >= 2 and list_bound_ok(cov, self.cap)):
-            return window
+        if not list_bound_ok(cov, self.cap):
+            return self._make_window(kernel, n_inner, thermostat)
+        return self._listed_window(kernel, cov, n_inner, thermostat, last)
 
-        def listed(s):
-            if s.plist is None and s.since_binning == 0:
-                with trace.span("md.list"):
-                    plist, full = build_partner_list3(s.xg, s.yg, s.zg, self._params, self.list_r2, self.list_cap,
-                                                      s.max_occ, cov, full=s.list_overflows)
-                s = s.replace(plist=plist, list_overflows=full)
-            if s.plist is None or s.since_binning + n_inner > LIST_STEPS:
-                out = window(s)
-            else:
-                plist = s.plist
+    def _build_list(self, s: GridMD3State, cov: Optional[int]):
+        """The partner list of B5 at ``cov`` (None: B4 at ``max_occ``)."""
+        return build_partner_list3(s.xg, s.yg, s.zg, self._params, self.list_r2, self.list_cap, s.max_occ, cov,
+                                   full=s.list_overflows)
 
-                def force(xg, yg, zg, max_occ):
-                    return grid_force3(xg, yg, zg, self._params, max_occ, static_cov=cov, plist=plist)
+    def _list_force(self, plist, cov: Optional[int]):
+        def force(xg, yg, zg, max_occ):
+            return grid_force3(xg, yg, zg, self._params, max_occ, static_cov=cov, plist=plist)
 
-                out = self._make_window(force, n_inner, thermostat)(s)
-            return out.replace(plist=None) if last else out
-
-        return listed
+        return force
 
     def _migrate(self, scode: torch.Tensor, fields, fills, occ: torch.Tensor):
         """B6, or B7 with ``migrate_compact=False``: the planes and the

@@ -48,7 +48,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -128,19 +128,6 @@ def _launcher():
     return fn
 
 
-# the flag's two words of device scratch (csrc/migrate3.cu), one pair for
-# each (device, stream): launches on one stream run in turn and leave the
-# pair zeroed; launches on two streams get two pairs
-_SYNC: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _sync_words(device: torch.device, stream: int) -> torch.Tensor:
-    key = (device.index, stream)
-    if key not in _SYNC:
-        _SYNC[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _SYNC[key]
-
-
 def _check(scode: torch.Tensor, planes: _planes.Planes, fills: Sequence[float], occ: torch.Tensor,
            rows: int, what: str) -> int:
     """Checks ``scode`` (int32, ``(rows + 2 * halo, cap, c*c)``), the F field
@@ -203,7 +190,7 @@ def _launch(scode: torch.Tensor, planes: _planes.Planes, occ: torch.Tensor, fill
     c = math.isqrt(plane)
     status = _launcher()(
         scode.data_ptr(), _planes.pointers(planes), occ.data_ptr(),
-        out.data_ptr(), flag.data_ptr(), _sync_words(device, stream).data_ptr(),
+        out.data_ptr(), flag.data_ptr(), _build.scratch_words(device, stream).data_ptr(),
         (ctypes.c_float * n_fields)(*fills), n_fields, rows, cap, c, c, k_mov or 0, int(halo), device.index,
         stream,
     )
