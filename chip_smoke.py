@@ -144,8 +144,16 @@ Run from the repository root. It builds the CUDA kernels from
     the CPU, energies at rtol 1e-4;
 19. ``lj_fluid.run`` with the Langevin thermostat (gamma 1.0) at N=100k in
     2D and 3D (2000 + 2000 steps): overflow False, the mean kinetic
-    temperature of the production samples within 5% of kT, and after 100
-    more Langevin steps every empty slot's velocity exactly 0;
+    temperature of the production samples within 5% of kT, the noise
+    kernel launched once a Langevin step of the run, and after 100 more
+    Langevin steps (one noise launch each, the state's global step 100 on)
+    every empty slot's velocity exactly 0; then the noise kernel at
+    ``lj2d-nvt-n1m``'s grid (N=1M, 55 x 16 x 2695 slots) on the lattice
+    start's ids, after 200 Langevin steps across the global step 2^32 (one
+    launch a step): within 4 float32 ulps of the plain version on the CPU,
+    exact zeros on the empty slots, timed in 7 interleaved repeats beside
+    the plain version on the card and the per-window ``torch.randn`` draw
+    it replaced;
 20. B9 (all-pairs softened gravity) through ``make_gravity_accel_pairwise``
     at N=16,384 in 2D and N=65,536 in 3D (positions normal * 10, masses
     0.5 + U(0, 1) from a numpy seed, softening 0.1, g 1), with and without
@@ -270,7 +278,9 @@ Run from the repository root. It builds the CUDA kernels from
     tests and the list's words, the build's (B5 list build: every
     candidate tested, the list written) with B4's, A1's at both cells
     (``alloc``, ``alloc3``) with the eager allocation as ``plain_ms``, its
-    device ops and a block's launches, and as the last line
+    device ops and a block's launches, the noise kernel's
+    (``langevin_noise``) with the plain version as ``plain_ms``, the
+    ``torch.randn`` draw as ``randn_ms`` and its ulps, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
@@ -1005,6 +1015,7 @@ def main() -> int:
         leapfrog_cuda,
         migrate_cuda,
         migrate_cuda3,
+        noise_cuda,
         pairwise_cuda,
     )
     import torch.distributed as dist
@@ -1043,7 +1054,7 @@ def main() -> int:
             "leapfrog_step": leapfrog_cuda.STEP_LAUNCHES, "leapfrog_close": leapfrog_cuda.CLOSE_LAUNCHES,
             "cell_force3_list": cell_cuda3.LIST_LAUNCHES, "cell_list3_build": cell_cuda3.LIST_BUILD_LAUNCHES,
             "cell_force_list": cell_cuda_packed.LIST_LAUNCHES, "cell_list_build": cell_cuda_packed.LIST_BUILD_LAUNCHES,
-            "alloc": alloc_cuda.LAUNCHES,
+            "alloc": alloc_cuda.LAUNCHES, "langevin_noise": noise_cuda.LAUNCHES,
         }
 
     def reset_counts():
@@ -1065,6 +1076,7 @@ def main() -> int:
         cell_cuda3.LIST_LAUNCHES = cell_cuda3.LIST_BUILD_LAUNCHES = 0
         cell_cuda_packed.LIST_LAUNCHES = cell_cuda_packed.LIST_BUILD_LAUNCHES = 0
         alloc_cuda.LAUNCHES = 0
+        noise_cuda.LAUNCHES = 0
 
     def loop_launches() -> dict:
         """B1's and B4's loop launches, which no path may make."""
@@ -1955,8 +1967,9 @@ def main() -> int:
         for name, count in path_p.items():
             if count <= 0:
                 raise AssertionError(f"packed main path N={c.n} never launched kernel {name}")
-        if any(unpacked):
-            raise AssertionError(f"packed main path N={c.n} launched B1, its loop or unpacked B2: {unpacked}")
+        if any(unpacked) or noise_cuda.LAUNCHES:
+            raise AssertionError(f"packed main path N={c.n} launched B1, its loop, unpacked B2 or the Langevin "
+                                 f"noise: {unpacked}, {noise_cuda.LAUNCHES}")
         windows = leapfrog_cuda.CLOSE_LAUNCHES
         if windows <= 0 or leapfrog_cuda.STEP_LAUNCHES < windows:
             raise AssertionError(f"packed main path N={c.n}: {leapfrog_cuda.STEP_LAUNCHES} fused step launches "
@@ -2018,16 +2031,26 @@ def main() -> int:
     # -- 19. Langevin ------------------------------------------------------------
     for dim in (2, 3):
         cl = override(cfg, dim=dim, thermostat="langevin", gamma=1.0)
+        reset_counts()
         resl = lj_fluid.run(cl, device="cuda")
         check_run(resl, f"Langevin dim={dim}", cl, drift=False)
+        # every Langevin step of the run draws once, its warm-up's included
+        warm_l = min(cl.eq_steps, cl.sample_every) + min(cl.prod_steps, cl.sample_every)
+        if resl.state.step != cl.eq_steps + cl.prod_steps or noise_cuda.LAUNCHES != resl.state.step + warm_l:
+            raise AssertionError(f"Langevin dim={dim}: {noise_cuda.LAUNCHES} noise launches, global step "
+                                 f"{resl.state.step}, over {cl.eq_steps + cl.prod_steps} + {warm_l} warm-up steps")
         kt_prod = 2.0 * resl.ke_history.double() / (cl.n * dim)
         kt_mean = float(kt_prod.mean())
         if not abs(kt_mean - cl.kt) <= 0.05 * cl.kt:
             raise AssertionError(f"Langevin dim={dim}: mean production kT {kt_mean:.4f} not within 5% of {cl.kt}")
         ml = lj_fluid._make_grid_md(cl, dev)
         kl, gl = lj_fluid._grid_inner_steps(cl, ml)
-        gsl = ml.init(resl.state.position, resl.state.velocity, seed=lj_fluid._grid_seed(cl))
+        gsl = ml.init(resl.state.position, resl.state.velocity, seed=lj_fluid._grid_seed(cl), step=resl.state.step)
+        reset_counts()
         gsl = ml.make_production_run(100, kl, gate_frac=gl, thermostat=lj_fluid._grid_thermostat(cl))(gsl)
+        if noise_cuda.LAUNCHES != 100 or gsl.rng_counter != resl.state.step + 100:
+            raise AssertionError(f"Langevin dim={dim}: {noise_cuda.LAUNCHES} noise launches in 100 steps, "
+                                 f"global step {resl.state.step} -> {gsl.rng_counter}")
         empty = gsl.occ < 0.5
         v_empty = max(float(getattr(gsl, f"v{a}g")[empty].abs().max()) for a in ml.AXES)
         if v_empty != 0.0 or int(gsl.occ.sum()) != cl.n or bool(gsl.overflow):
@@ -2038,7 +2061,58 @@ def main() -> int:
               f"{resl.particle_steps_per_sec:.4e} particle-steps/s (eq {resl.time_eq_s:.3f} s, prod "
               f"{resl.time_prod_s:.3f} s); production kT mean {kt_mean:.4f} (min {float(kt_prod.min()):.4f}, "
               f"max {float(kt_prod.max()):.4f}), kT_eq {resl.kt_eq:.4f}, P* {resl.pressure:.4f}; "
-              f"after 100 more steps: empty-slot |v| max {v_empty}, {int(gsl.occ.sum())} particles", flush=True)
+              f"after 100 more steps: empty-slot |v| max {v_empty}, {int(gsl.occ.sum())} particles; noise "
+              f"launches one a step", flush=True)
+
+    # the noise kernel at lj2d-nvt-n1m's grid, on the lattice start's ids
+    c1l = override(cfg1m, thermostat="langevin", gamma=1.0)
+    m1l = lj_fluid._make_grid_md(c1l, dev)
+    k1l, g1l = lj_fluid._grid_inner_steps(c1l, m1l)
+    st1l = lj_fluid.init_state(c1l, dev)
+    seed1l, start1l = lj_fluid._grid_seed(c1l), 2**32 - 50
+    gs1l = m1l.init(st1l.position, st1l.velocity, seed=seed1l, step=start1l)
+    reset_counts()
+    gs1l = m1l.make_production_run(200, k1l, gate_frac=g1l, thermostat=lj_fluid._grid_thermostat(c1l))(gs1l)
+    if noise_cuda.LAUNCHES != 200 or gs1l.rng_counter != start1l + 200 or bool(gs1l.overflow):
+        raise AssertionError(f"Langevin N=1M: {noise_cuda.LAUNCHES} noise launches in 200 steps, global step "
+                             f"{start1l} -> {gs1l.rng_counter}, overflow {bool(gs1l.overflow)}")
+    launches["langevin_noise"] = noise_cuda.LAUNCHES
+    pid1l, step1l = gs1l.pid, gs1l.rng_counter
+    got1l = noise_cuda.langevin_noise(seed1l, step1l, pid1l, 2).cpu()
+    want1l = noise_cuda.noise_reference(seed1l, step1l, pid1l.cpu(), 2)
+    empty1l = pid1l.cpu() < 0
+    if tuple(pid1l.shape) != (55, 16, 2695) or int((~empty1l).sum()) != c1l.n:
+        raise AssertionError(f"Langevin N=1M: grid {tuple(pid1l.shape)}, {int((~empty1l).sum())} ids")
+    if not bool((got1l[:, empty1l] == 0).all()):
+        raise AssertionError("noise kernel: a non-zero draw in an empty slot")
+
+    def ordered(x):
+        # float32 values as integers in their order: a difference is a distance in ulps
+        bits = x.contiguous().view(torch.int32).long()
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+    ulps1l = int((ordered(got1l) - ordered(want1l)).abs().max())
+    if ulps1l > 4:
+        raise AssertionError(f"noise kernel: {ulps1l} float32 ulps from the plain version")
+    occ1l = (pid1l >= 0).to(torch.float32)
+    gen1l = torch.Generator(device=dev).manual_seed(seed1l)
+    t19 = interleaved_ms({
+        "kernel": lambda: noise_cuda.langevin_noise(seed1l, step1l, pid1l, 2),
+        "plain": lambda: noise_cuda.noise_reference(seed1l, step1l, pid1l, 2),
+        "randn": lambda: torch.randn((2,) + tuple(pid1l.shape), generator=gen1l, device=dev) * occ1l,
+    }, lead=True)
+    times["langevin_noise"] = (t19["kernel"][0], t19["plain"][0])
+    errors["langevin_noise"] = float((got1l - want1l).abs().max())
+    bounds["langevin_noise"] = roofline.bound(0.0, 4 * (1 + 2) * pid1l.numel())
+    extra["langevin_noise"] = {"randn_ms": t19["randn"][0], "max_ulps": ulps1l, "grid": list(pid1l.shape),
+                               "steps": 200}
+    print(f"{smi}: phase 19 noise kernel at N=1M, grid {tuple(pid1l.shape)}: {ulps1l} float32 ulps at most "
+          f"from the plain version, exact zeros on {int(empty1l.sum())} empty slots, "
+          f"{launches['langevin_noise']} launches in 200 Langevin steps across the global step 2^32; "
+          f"kernel {spread(t19['kernel'])}, plain {spread(t19['plain'])}, the per-window randn draw "
+          f"{spread(t19['randn'])}; bound {bounds['langevin_noise'][0]:.5f} ms "
+          f"({bounds['langevin_noise'][1]})", flush=True)
+    del m1l, gs1l, st1l, pid1l, occ1l, got1l, want1l
 
     # -- 20. B9 through its factory ----------------------------------------------
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.forces.gravity import Gravity
@@ -2640,6 +2714,8 @@ def main() -> int:
         # A1 replaces no TPU kernel: XLA fuses the JAX package's allocation
         "alloc": ("alloc.cu", kref + "grid_md.py:253"),
         "alloc3": ("alloc.cu", kref + "grid_md3.py:308"),
+        # the noise kernel replaces no TPU kernel: the JAX package draws from jax.random
+        "langevin_noise": ("noise.cu", kref + "grid_md.py:633"),
     }
     for name in ("cell_force", "cell_force_energy", "cell_force_halo", "cell_force_halo_energy"):
         loop_key = name.replace("cell_force", "cell_force_loop") if "halo" not in name else name.replace(

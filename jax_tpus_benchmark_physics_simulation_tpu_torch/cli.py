@@ -96,6 +96,7 @@ def cmd_md(args) -> int:
 
     from jax_tpus_benchmark_physics_simulation_tpu_torch.core.config import MDConfig, override
     from jax_tpus_benchmark_physics_simulation_tpu_torch.models import lj_fluid
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import noise_cuda
     from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.grid_md_sharded import RowSharded
     from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.multihost import is_primary, world_size
 
@@ -117,7 +118,9 @@ def cmd_md(args) -> int:
         impl = lj_fluid.resolve_impl(cfg, device)
         if world_size() > 1 and impl != "grid":
             raise ValueError(f"force_impl {impl!r} runs on one device: only the grid engine shards over ranks")
+        noise_before = noise_cuda.LAUNCHES
         res = lj_fluid.run(cfg, device=device)
+        noise_launches = noise_cuda.LAUNCHES - noise_before
     except (NotImplementedError, ValueError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
@@ -182,6 +185,10 @@ def cmd_md(args) -> int:
         if md.partner_list:
             movers += (f"; partner-list overflows {res.list_overflows} (targets over the list's {md.list_cap} "
                        "entries; they ran the counted loop, nothing is lost)")
+        if cfg.thermostat != "none":
+            where = "" if device.type == "cuda" else "; the CPU runs its plain version"
+            movers += (f"; noise kernel launches {noise_launches} (one a Langevin step, the warm-up's "
+                       f"included{where})")
         print(f"overflow: {res.overflow}{movers}")
     if res.overflow:
         print("[WARNING] spatial-structure capacity/skin OVERFLOW was flagged: "

@@ -20,6 +20,8 @@ class ParticleState:
       charge: ``(N,)`` charges (zeros when not electromagnetic).
       force: ``(N, D)`` cached forces at ``position``.
       time: 0-d tensor, simulation time.
+      step: the global step index, an exact integer (the float32 ``time``
+        rounds after ~1e5 steps); it keys the grid engines' Langevin noise.
     """
 
     position: torch.Tensor
@@ -28,6 +30,7 @@ class ParticleState:
     charge: torch.Tensor
     force: torch.Tensor
     time: torch.Tensor
+    step: int = 0
 
     @property
     def n(self) -> int:

@@ -22,9 +22,12 @@ Langevin at ``kt`` with friction ``gamma`` (NVT), on the gated drivers.
 
 Phases: :func:`equilibrate` -> :func:`production` (sampled) -> :func:`rdf`;
 :func:`run` times them. Random draws come from a ``torch.Generator`` seeded
-with ``cfg.seed`` (the Langevin noise from ``cfg.seed + 0x5EED``, re-armed
-at the start of each phase): the same seed gives other numbers than the
-JAX package's ``jax.random``.
+with ``cfg.seed``; the same seed gives other numbers than the JAX
+package's ``jax.random``. The Langevin noise is keyed by the stream seed
+``cfg.seed + 0x5EED``, the global step and the particle id
+(``noise_cuda``): each phase starts the grid state at the ``step`` of the
+``ParticleState`` it is given and hands the advanced step on, so
+consecutive phases and blocks draw fresh noise.
 """
 
 from __future__ import annotations
@@ -351,18 +354,18 @@ def _equilibrate(cfg: MDConfig, state: ParticleState, md):
     if resolve_impl(cfg, device) != "grid":
         init_fn, step_fn, get_state = build_step(cfg, device)
         carry = run_steps(step_fn, init_fn(state), cfg.eq_steps)
-        return get_state(carry), _carry_overflow(carry), (0, 0)
+        return get_state(carry).replace(step=state.step + cfg.eq_steps), _carry_overflow(carry), (0, 0)
     md = md if md is not None else _make_grid_md(cfg, device)
     k, gate = _grid_inner_steps(cfg, md)
     thermo = _grid_thermostat(cfg)
-    gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg))
+    gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg), step=state.step)
     n_chunks, rem = divmod(cfg.eq_steps, k)
     if n_chunks:
         gs = md.make_production_run(n_chunks * k, k, gate_frac=gate, thermostat=thermo)(gs)
     if rem:
         gs = md.make_chunk_step(rem, gate_frac=gate, thermostat=thermo)(gs)
     final = state.replace(
-        position=md.positions(gs), velocity=md.velocities(gs), time=state.time + gs.time
+        position=md.positions(gs), velocity=md.velocities(gs), time=state.time + gs.time, step=gs.rng_counter
     )
     return final, gs.overflow, _counters(gs)
 
@@ -413,7 +416,7 @@ def _stepped_production(cfg: MDConfig, state: ParticleState, device):
     final, hist = run_trajectory(window, init_fn(state), n_samples, observe_fn=observe)
     if rem:
         final = window(final, rem)
-    return get_state(final), hist, _carry_overflow(final), (0, 0)
+    return get_state(final).replace(step=state.step + cfg.prod_steps), hist, _carry_overflow(final), (0, 0)
 
 
 def _grid_production(cfg: MDConfig, state: ParticleState, cadence: Optional[int], md):
@@ -425,7 +428,7 @@ def _grid_production(cfg: MDConfig, state: ParticleState, cadence: Optional[int]
     k, gate = _grid_inner_steps(cfg, md)
     thermo = _grid_thermostat(cfg)
     with trace.span("md.block.init"):
-        gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg))
+        gs = md.init(state.position, state.velocity, seed=_grid_seed(cfg), step=state.step)
     use_fixed = cadence is not None
     if use_fixed:
         prod_block = md.make_production_run_fixed(cfg.sample_every, cadence, thermostat=thermo)
@@ -451,7 +454,7 @@ def _grid_production(cfg: MDConfig, state: ParticleState, cadence: Optional[int]
         if r2:
             gs = md.make_chunk_step(r2, gate_frac=gate, thermostat=thermo)(gs)
     final = state.replace(
-        position=md.positions(gs), velocity=md.velocities(gs), time=state.time + gs.time
+        position=md.positions(gs), velocity=md.velocities(gs), time=state.time + gs.time, step=gs.rng_counter
     )
     dtype = state.position.dtype
     if n_samples:

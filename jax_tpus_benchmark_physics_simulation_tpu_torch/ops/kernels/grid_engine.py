@@ -14,7 +14,7 @@ slots hold the x sentinel ``2.5 * box``.
   one elementwise pass per step, half-kick in and half-unkick out at the
   window boundary. In NVE the pass is ``leapfrog_cuda.Leapfrog``: one
   kernel launch a step on the card. ``thermostat=(gamma, kT)`` makes each
-  step BAOAB Langevin (NVT), in eager PyTorch.
+  step BAOAB Langevin (NVT), in eager PyTorch beside one noise launch.
 - Positions are not wrapped per step: between rebuilds a particle drifts at
   most skin/2 outside [0, box), which the kernels' per-offset seam handling
   covers. Coordinates are wrapped once per rebuild.
@@ -51,14 +51,16 @@ Host control flow: the JAX package runs the rebuild gate inside a device
 ``md.window`` and ``md.rebuild`` spans of ``utils/trace.py``, a rebuild's
 allocation the ``md.alloc`` span inside it.
 
-Langevin noise: the state carries its stream as ``rng_seed`` (None for NVE)
-and ``rng_counter``, both Python ints. Each window seeds one
-``torch.Generator`` on the state's device from the pair, draws a
-``(D,) + grid`` normal block per step, and advances the counter by
-``n_inner``: the same state in gives the same state out, as with the JAX
-package's folded keys. The CPU generator (mt19937) and the card's (Philox)
-give different numbers, so Langevin runs on the card and on the CPU agree
-only in distribution.
+Langevin noise: the state carries its stream seed as ``rng_seed`` (None
+for NVE) and its global step as ``rng_counter``, both Python ints; every
+window advances the step by ``n_inner`` and rebuilds carry it through.
+The noise of a step is ``noise_cuda.langevin_noise`` of (seed, step, the
+slots' particle ids): a pure function of (seed, global step, particle id,
+axis), one kernel launch a step on the card and its plain version on the
+CPU, which agree to float32 rounding. So the same state in gives the same
+state out, a particle's kicks do not depend on the slot it holds, and a
+caller that hands on the step (``lj_fluid``'s phases) draws fresh noise in
+every block.
 
 An engine keeps what is its own dimension's in the hooks it overrides:
 its kernels and state class, ``_counters`` (the counts ``init`` zeroes),
@@ -84,28 +86,17 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda3 impo
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packed import unpack
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.leapfrog_cuda import Leapfrog, kadd, sumsq
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.noise_cuda import langevin_noise
 from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import trace
-
-_MASK64 = (1 << 64) - 1
-
-
-def _stream_seed(seed: int, counter: int) -> int:
-    """One 64-bit generator seed from (seed, counter), mixed by SplitMix64
-    so that every bit of both reaches the low 32 bits (all that the CPU's
-    mt19937 reads)."""
-    z = (((seed & 0xFFFFFFFF) << 32) + (counter & 0xFFFFFFFF) + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
-
 
 @dataclass(kw_only=True)
 class GridState:
     """The leaves every grid state has besides its per-axis grids (``xg``,
     ``vxg``, ``fxg``, ``dispx``, and with Kahan compensation ``crx`` and
     ``cvx``, for each axis). ``dmax2``, ``overflow`` and ``time`` are 0-d
-    tensors; ``rng_seed`` and ``rng_counter`` the Langevin noise stream
-    (module docstring), which rebuilds carry through."""
+    tensors; ``rng_seed`` the Langevin noise stream's seed and
+    ``rng_counter`` the global step (module docstring), which rebuilds
+    carry through."""
 
     occ: torch.Tensor  # float 1.0/0.0
     pid: torch.Tensor  # int32 particle id, sentinel -1
@@ -113,7 +104,7 @@ class GridState:
     overflow: torch.Tensor  # bool
     time: torch.Tensor
     rng_seed: Optional[int] = None
-    rng_counter: int = 0
+    rng_counter: int = 0  # the global step of the state
     # int32 targets whose partners overflowed a partner list's capacity
     # (they ran the counted loop: nothing is lost)
     list_overflows: Optional[torch.Tensor] = None
@@ -188,11 +179,6 @@ class GridEngine:
     _all_sum = _all_max  # sum over the engine's ranks
 
     _gather_rows = _all_max  # every rank's rows, concatenated
-
-    @staticmethod
-    def _noise_seed(s) -> int:
-        """The seed of a Langevin window's generator."""
-        return _stream_seed(s.rng_seed, s.rng_counter)
 
     # -- hooks of the dimension -------------------------------------------------
     def _counters(self) -> dict:
@@ -307,9 +293,10 @@ class GridEngine:
         """Placement hook (parity with the JAX package's ``prepare``)."""
         return state
 
-    def init(self, position: torch.Tensor, velocity: torch.Tensor, seed: Optional[int] = None):
+    def init(self, position: torch.Tensor, velocity: torch.Tensor, seed: Optional[int] = None, step: int = 0):
         """``seed`` arms the state's noise stream, which Langevin windows
-        need and NVE ones ignore."""
+        need and NVE ones ignore; ``step`` is the global step of the state
+        (its noise's counter)."""
         position = position.to(self.device)
         velocity = velocity.to(self.device)
         slot, overflow = self._slot(position)
@@ -333,8 +320,8 @@ class GridEngine:
         zero = torch.zeros((), dtype=dtype, device=self.device)
         s = self.State(
             **fields, **{f"f{a}g": None for a in axes}, **{f"disp{a}": torch.zeros_like(occ) for a in axes},
-            occ=occ, pid=pid.view(self.grid_shape), dmax2=zero, time=zero.clone(), rng_seed=seed, since_binning=0,
-            **self._counters(), **self._binning(self._counts(occ), overflow),
+            occ=occ, pid=pid.view(self.grid_shape), dmax2=zero, time=zero.clone(), rng_seed=seed,
+            rng_counter=step, since_binning=0, **self._counters(), **self._binning(self._counts(occ), overflow),
         )
         f = self.force_kernel(*(fields[f"{a}g"] for a in axes), *self._force_args(s))
         return s.replace(**{f"f{a}g": fa for a, fa in zip(axes, f)})
@@ -448,9 +435,10 @@ class GridEngine:
         ``thermostat=(gamma, kT)`` makes each step BAOAB Langevin (NVT): the
         exact Ornstein-Uhlenbeck map ``vh <- c1*vh + c2*xi`` between two
         half-drifts, ``c1 = exp(-gamma*dt)``, ``c2 = sqrt(kT*(1-c1^2))``
-        (unit mass), still one force call a step, in eager PyTorch (the
-        noise is the state's ``torch.Generator`` stream). The noise is
-        masked by occupancy, so empty slots stay exactly at rest; velocity
+        (unit mass), still one force call a step, in eager PyTorch beside one
+        noise launch a step (``noise_cuda.langevin_noise`` at the step's
+        global index, keyed by the slots' particle ids). The noise is
+        exactly 0 in empty slots, so they stay exactly at rest; velocity
         Kahan compensation is bypassed (the OU map rescales vh). A state
         without a noise stream raises ``ValueError``."""
         dt = self.dt
@@ -461,7 +449,8 @@ class GridEngine:
             """The window's end state: ``res`` the residual planes it wrote."""
             dmax2 = self._all_max(dmax2)
             violation = ~(dmax2 <= (0.5 * self.skin) ** 2)
-            out = dict(dmax2=dmax2, overflow=s.overflow | violation, time=s.time + n_inner * dt)
+            out = dict(dmax2=dmax2, overflow=s.overflow | violation, time=s.time + n_inner * dt,
+                       rng_counter=s.rng_counter + n_inner)
             for k, a in enumerate(axes):
                 out.update({f"{a}g": pos[k], f"v{a}g": v[k], f"f{a}g": f[k], f"disp{a}": disp[k]})
                 out.update({f"{r}{a}": planes[k] for r, planes in res.items()})
@@ -490,9 +479,6 @@ class GridEngine:
         def langevin(s):
             if s.rng_seed is None:
                 raise ValueError("Langevin window needs a PRNG stream: init(..., seed=...)")
-            gen = torch.Generator(device=s.xg.device)
-            gen.manual_seed(self._noise_seed(s))
-            noise_shape = (len(axes),) + tuple(s.xg.shape)
             extra = self._force_args(s)
             f = [getattr(s, f"f{a}g") for a in axes]
             vh = [getattr(s, f"v{a}g") + 0.5 * dt * fa for a, fa in zip(axes, f)]
@@ -500,11 +486,11 @@ class GridEngine:
             cr = [getattr(s, f"cr{a}") for a in axes]
             disp = [getattr(s, f"disp{a}") for a in axes]
             dm = sumsq(disp)
-            for _ in range(n_inner):
+            for i in range(n_inner):
                 # A O A: drift half on vh, OU-refresh vh, drift half on the
                 # refreshed vh; the increments fuse into one add
-                xi = torch.randn(noise_shape, generator=gen, dtype=s.xg.dtype, device=s.xg.device)
-                vp = [c1 * v + c2 * (xi[k] * s.occ) for k, v in enumerate(vh)]
+                xi = langevin_noise(s.rng_seed, s.rng_counter + i, s.pid, len(axes), s.xg.dtype)
+                vp = [c1 * v + c2 * xi[k] for k, v in enumerate(vh)]
                 inc = [0.5 * dt * (v + p) for v, p in zip(vh, vp)]
                 vh = vp
                 for k in range(len(axes)):
@@ -518,7 +504,7 @@ class GridEngine:
                 vh = [v + dt * fa for v, fa in zip(vh, f)]
             v = [v - 0.5 * dt * fa for v, fa in zip(vh, f)]
             res = dict(cr=cr) if comp else {}
-            return finish(s.replace(rng_counter=s.rng_counter + n_inner), torch.max(dm), pos, v, f, disp, **res)
+            return finish(s, torch.max(dm), pos, v, f, disp, **res)
 
         window = nve if thermostat is None else langevin
 

@@ -18,9 +18,10 @@ the rest) become collectives:
 - **Window.** ``GridEngine._make_window`` with the halo force; its ``dmax2``
   is reduced with an all-reduce MAX, then read on the host once a window
   as on one device, so every rank takes the same branch of the drivers.
-  Langevin noise: each rank seeds its generator from
-  ``(rng_seed, rng_counter, rank)``, as JAX folds the shard index into
-  its key.
+  Langevin noise: keyed by the global particle ids that every rank's
+  ``pid`` grid holds (``noise_cuda``), so the ranks draw disjoint noise,
+  the same that one device draws, with no rank fold (JAX folds the shard
+  index into its key).
 - **Rebuild.** ``GridEngine._migration_dest`` on the local rows: the global
   row index carries the rank's row offset, and the two row rolls read one
   row past each end (the neighbours' per-cell ``counts``, then their
@@ -49,7 +50,6 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda impor
     grid_force_halo_edges,
 )
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_engine import GridEngine, _stream_seed
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.grid_md import GridMD, GridMDState
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.migrate_cuda import migrate_halo
 from jax_tpus_benchmark_physics_simulation_tpu_torch.parallel.mesh import RowMesh, make_mesh, shard_along
@@ -99,9 +99,6 @@ class RowSharded:
 
     def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_gather_rows(t)
-
-    def _noise_seed(self, s) -> int:
-        return _stream_seed(GridEngine._noise_seed(s), self.mesh.rank)
 
     def _edge_rows(self, *grids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(prev, nxt)``: the previous rank's last row and the next rank's

@@ -1,10 +1,11 @@
 """The BAOAB Langevin windows (NVT) of the PyTorch port's grid engines,
 2D and 3D: against the JAX package's windows where the noise vanishes
-(target kT = 0, so c2 = 0), the port's own noise stream (seeded, carried in
-the state, reproducible), and the ``md`` CLI with ``--thermostat
-langevin``. The port's noise comes from a ``torch.Generator``, the JAX
-package's from ``jax.random``: with kT > 0 the two agree only in
-distribution, which ``test_torch_langevin_physics.py`` checks."""
+(target kT = 0, so c2 = 0), the port's own noise stream (seeded, its global
+step carried in the state, reproducible), and the ``md`` CLI with
+``--thermostat langevin``. The port's noise is keyed by particle and step
+(``noise_cuda``), the JAX package's comes from ``jax.random``: with kT > 0
+the two agree only in distribution, which ``test_torch_langevin_physics.py``
+checks (``test_torch_langevin_cell.py`` holds the keyed stream itself)."""
 
 import pytest
 
@@ -86,13 +87,15 @@ def test_zero_kt_window_matches_jax_3d():
 def test_noise_stream_is_reproducible():
     """The same seed gives bit-equal trajectories, re-running a window from
     one state gives the same state, another seed another trajectory; the
-    counter advances by the window length and survives rebuilds."""
+    counter (the global step that keys the noise) advances by the window
+    length and survives rebuilds, and another starting step gives another
+    trajectory."""
     md, pos, vel = md2(400, 0.8)
     thermo = (1.0, 1.0)
     chunk = md.make_chunk_step(4, 0.3, thermostat=thermo)
 
-    def run(seed, n_chunks=30):
-        s = md.init(torch.from_numpy(pos), torch.from_numpy(vel), seed=seed)
+    def run(seed, n_chunks=30, step=0):
+        s = md.init(torch.from_numpy(pos), torch.from_numpy(vel), seed=seed, step=step)
         for _ in range(n_chunks):
             s = chunk(s)
         return s
@@ -107,6 +110,8 @@ def test_noise_stream_is_reproducible():
     assert torch.equal(w1.vxg, w2.vxg) and torch.equal(w1.xg, w2.xg)
     assert a.rng_counter == 120 and w1.rng_counter == 124
     assert md._rebuild_migrate(w1).rng_counter == 124
+    later = run(3, n_chunks=1, step=120)  # the same seed, 120 steps on: other noise
+    assert later.rng_counter == 124 and not torch.equal(later.vxg, run(3, n_chunks=1).vxg)
 
 
 def test_missing_seed_raises():
