@@ -147,13 +147,22 @@ Run from the repository root. It builds the CUDA kernels from
     temperature of the production samples within 5% of kT, the noise
     kernel launched once a Langevin step of the run, and after 100 more
     Langevin steps (one noise launch each, the state's global step 100 on)
-    every empty slot's velocity exactly 0; then the noise kernel at
+    every empty slot's velocity exactly 0; in both runs one launch of the
+    fused BAOAB pass (``baoab_cuda``) a Langevin step beside the noise
+    launch, and on the last state the fused window at 1 and 4 steps
+    torch.equal to the eager Langevin window
+    (``tests/torch_window_eager.eager_langevin_window``), the state it was
+    given unchanged, its step launch timed beside the eager passes of the
+    same updates (bound: 30 planes in 3D); then the noise kernel at
     ``lj2d-nvt-n1m``'s grid (N=1M, 55 x 16 x 2695 slots) on the lattice
     start's ids, after 200 Langevin steps across the global step 2^32 (one
     launch a step): within 4 float32 ulps of the plain version on the CPU,
     exact zeros on the empty slots, timed in 7 interleaved repeats beside
     the plain version on the card and the per-window ``torch.randn`` draw
-    it replaced;
+    it replaced; there, too, one BAOAB step launch a Langevin step, the
+    fused window torch.equal to the eager one, and the step launch timed
+    beside the eager step's passes (bound: 20 planes of the 2.37M slots in
+    2D, 189.7 MB; kernels-line row ``baoab_step``); no BAOAB kernel spills;
 20. B9 (all-pairs softened gravity) through ``make_gravity_accel_pairwise``
     at N=16,384 in 2D and N=65,536 in 3D (positions normal * 10, masses
     0.5 + U(0, 1) from a numpy seed, softening 0.1, g 1), with and without
@@ -280,7 +289,9 @@ Run from the repository root. It builds the CUDA kernels from
     (``alloc``, ``alloc3``) with the eager allocation as ``plain_ms``, its
     device ops and a block's launches, the noise kernel's
     (``langevin_noise``) with the plain version as ``plain_ms``, the
-    ``torch.randn`` draw as ``randn_ms`` and its ulps, and as the last line
+    ``torch.randn`` draw as ``randn_ms`` and its ulps, the BAOAB step's
+    (``baoab_step``) with the eager step's passes as ``plain_ms`` and the
+    3D N=100k step's as ``dim3_*``, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no last line.
@@ -715,6 +726,71 @@ def _leapfrog_checked_times(md, s, label: str):
     return t, b
 
 
+def _baoab_checked_times(md, s, thermostat, label: str):
+    """The fused BAOAB pass on the engine ``md``'s Langevin state ``s``:
+    the fused window at 1 and 4 steps torch.equal to the eager Langevin
+    window in every field it writes, ``dmax2``, ``overflow``, ``time`` and
+    the global step, and ``s`` unchanged by it; then one step launch beside
+    the eager passes of the same updates (kick, refresh, drifts, Kahan
+    positions, displacement max; the noise and the force left out of
+    both), medians of 7 interleaved repeats of 20 calls behind a spin of the
+    card, and the step's byte bound: f, xi and the fields v, pos, disp (cr)
+    read, the fields written. ``(t, bound)``."""
+    import torch
+
+    from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import baoab_cuda, leapfrog_cuda, noise_cuda
+
+    eager = _designs("torch_window_eager")
+    given = {k: v.clone() for k, v in vars(s).items() if isinstance(v, torch.Tensor)}
+    for n in (1, 4):
+        got = md._make_window(md.force_kernel, n, thermostat)(s)
+        want = eager.eager_langevin_window(md, md.force_kernel, n, thermostat)(s)
+        eager.assert_states_equal(md, got, want)
+        if got.rng_counter != want.rng_counter:
+            raise AssertionError(f"BAOAB {label}: global step {got.rng_counter}, eager {want.rng_counter}")
+    torch.cuda.synchronize()
+    changed = [k for k, v in given.items() if not torch.equal(getattr(s, k), v)]
+    if changed:
+        raise AssertionError(f"BAOAB {label}: the fused window wrote the state it was given: {changed}")
+    axes = md.AXES
+    dim, dt, comp = len(axes), md.dt, bool(md.compensated)
+    gamma, kt = thermostat
+    c1 = float(math.exp(-gamma * dt))
+    c2 = float(math.sqrt(kt * (1.0 - c1 * c1)))
+    v = [getattr(s, f"v{a}g") for a in axes]
+    pos = [getattr(s, f"{a}g") for a in axes]
+    disp = [getattr(s, f"disp{a}") for a in axes]
+    cr = [getattr(s, f"cr{a}") for a in axes] if comp else None
+    f = [getattr(s, f"f{a}g") for a in axes]
+    xi = list(noise_cuda.langevin_noise(s.rng_seed, s.rng_counter, s.pid, dim))
+    bo = baoab_cuda.Baoab(v, pos, disp, cr, dt=dt, c1=c1, c2=c2)
+    bo.step(f, xi)
+    dm = leapfrog_cuda.sumsq(disp)
+
+    def eager_step():
+        vh = [x + dt * fa for x, fa in zip(v, f)]
+        vp = [c1 * x + c2 * xi[k] for k, x in enumerate(vh)]
+        inc = [0.5 * dt * (x + y) for x, y in zip(vh, vp)]
+        p, c, d = list(pos), list(cr or [None] * dim), list(disp)
+        for k in range(dim):
+            if comp:
+                p[k], c[k] = leapfrog_cuda.kadd(p[k], c[k], inc[k])
+            else:
+                p[k] = p[k] + inc[k]
+            d[k] = d[k] + inc[k]
+        return torch.maximum(dm, leapfrog_cuda.sumsq(d))
+
+    t = interleaved_ms({"step": lambda: bo.step(f, xi), "eager_step": eager_step}, lead=True)
+    planes = dim * (2 + 2 * (3 + int(comp)))
+    bound = roofline.bound(0.0, 4 * planes * s.xg.numel())
+    print(f"phase {label} BAOAB: the fused window (1, 4 steps) torch.equal to the eager window in every field, "
+          f"dmax2, overflow, time and the global step; the state it was given unchanged", flush=True)
+    print(f"phase {label} time baoab_step (medians of 7 interleaved repeats of 20 calls, lead): kernel "
+          f"{spread(t['step'])}, eager passes {spread(t['eager_step'])}; bound {bound[0]:.5f} ms ({planes} planes, "
+          f"{bound[1]}), {100 * bound[0] / t['step'][0]:.1f}% of it", flush=True)
+    return t, bound
+
+
 def _rebuild_ops(md, gs, label: str) -> None:
     """One rebuild of the 3D engine ``md`` from ``gs`` under the profiler:
     prints the device ops by name and count, and checks that B6 (or B6
@@ -1008,6 +1084,7 @@ def main() -> int:
     from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels import (
         _build,
         alloc_cuda,
+        baoab_cuda,
         cell_cuda,
         cell_cuda3,
         cell_cuda_packed,
@@ -1055,6 +1132,7 @@ def main() -> int:
             "cell_force3_list": cell_cuda3.LIST_LAUNCHES, "cell_list3_build": cell_cuda3.LIST_BUILD_LAUNCHES,
             "cell_force_list": cell_cuda_packed.LIST_LAUNCHES, "cell_list_build": cell_cuda_packed.LIST_BUILD_LAUNCHES,
             "alloc": alloc_cuda.LAUNCHES, "langevin_noise": noise_cuda.LAUNCHES,
+            "baoab_step": baoab_cuda.STEP_LAUNCHES, "baoab_close": baoab_cuda.CLOSE_LAUNCHES,
         }
 
     def reset_counts():
@@ -1077,6 +1155,7 @@ def main() -> int:
         cell_cuda_packed.LIST_LAUNCHES = cell_cuda_packed.LIST_BUILD_LAUNCHES = 0
         alloc_cuda.LAUNCHES = 0
         noise_cuda.LAUNCHES = 0
+        baoab_cuda.STEP_LAUNCHES = baoab_cuda.CLOSE_LAUNCHES = 0
 
     def loop_launches() -> dict:
         """B1's and B4's loop launches, which no path may make."""
@@ -2039,6 +2118,9 @@ def main() -> int:
         if resl.state.step != cl.eq_steps + cl.prod_steps or noise_cuda.LAUNCHES != resl.state.step + warm_l:
             raise AssertionError(f"Langevin dim={dim}: {noise_cuda.LAUNCHES} noise launches, global step "
                                  f"{resl.state.step}, over {cl.eq_steps + cl.prod_steps} + {warm_l} warm-up steps")
+        if baoab_cuda.STEP_LAUNCHES != noise_cuda.LAUNCHES or leapfrog_cuda.STEP_LAUNCHES:
+            raise AssertionError(f"Langevin dim={dim}: {baoab_cuda.STEP_LAUNCHES} BAOAB step launches beside "
+                                 f"{noise_cuda.LAUNCHES} noise launches, {leapfrog_cuda.STEP_LAUNCHES} L1 steps")
         kt_prod = 2.0 * resl.ke_history.double() / (cl.n * dim)
         kt_mean = float(kt_prod.mean())
         if not abs(kt_mean - cl.kt) <= 0.05 * cl.kt:
@@ -2048,9 +2130,10 @@ def main() -> int:
         gsl = ml.init(resl.state.position, resl.state.velocity, seed=lj_fluid._grid_seed(cl), step=resl.state.step)
         reset_counts()
         gsl = ml.make_production_run(100, kl, gate_frac=gl, thermostat=lj_fluid._grid_thermostat(cl))(gsl)
-        if noise_cuda.LAUNCHES != 100 or gsl.rng_counter != resl.state.step + 100:
-            raise AssertionError(f"Langevin dim={dim}: {noise_cuda.LAUNCHES} noise launches in 100 steps, "
-                                 f"global step {resl.state.step} -> {gsl.rng_counter}")
+        if noise_cuda.LAUNCHES != 100 or baoab_cuda.STEP_LAUNCHES != 100 or gsl.rng_counter != resl.state.step + 100:
+            raise AssertionError(f"Langevin dim={dim}: {noise_cuda.LAUNCHES} noise launches and "
+                                 f"{baoab_cuda.STEP_LAUNCHES} BAOAB step launches in 100 steps, global step "
+                                 f"{resl.state.step} -> {gsl.rng_counter}")
         empty = gsl.occ < 0.5
         v_empty = max(float(getattr(gsl, f"v{a}g")[empty].abs().max()) for a in ml.AXES)
         if v_empty != 0.0 or int(gsl.occ.sum()) != cl.n or bool(gsl.overflow):
@@ -2062,7 +2145,9 @@ def main() -> int:
               f"{resl.time_prod_s:.3f} s); production kT mean {kt_mean:.4f} (min {float(kt_prod.min()):.4f}, "
               f"max {float(kt_prod.max()):.4f}), kT_eq {resl.kt_eq:.4f}, P* {resl.pressure:.4f}; "
               f"after 100 more steps: empty-slot |v| max {v_empty}, {int(gsl.occ.sum())} particles; noise "
-              f"launches one a step", flush=True)
+              f"and BAOAB step launches one a step each", flush=True)
+        if dim == 3:
+            t19b3, b19b3 = _baoab_checked_times(ml, gsl, lj_fluid._grid_thermostat(cl), f"19 3D N={cl.n}")
 
     # the noise kernel at lj2d-nvt-n1m's grid, on the lattice start's ids
     c1l = override(cfg1m, thermostat="langevin", gamma=1.0)
@@ -2073,10 +2158,24 @@ def main() -> int:
     gs1l = m1l.init(st1l.position, st1l.velocity, seed=seed1l, step=start1l)
     reset_counts()
     gs1l = m1l.make_production_run(200, k1l, gate_frac=g1l, thermostat=lj_fluid._grid_thermostat(c1l))(gs1l)
-    if noise_cuda.LAUNCHES != 200 or gs1l.rng_counter != start1l + 200 or bool(gs1l.overflow):
-        raise AssertionError(f"Langevin N=1M: {noise_cuda.LAUNCHES} noise launches in 200 steps, global step "
-                             f"{start1l} -> {gs1l.rng_counter}, overflow {bool(gs1l.overflow)}")
+    if (noise_cuda.LAUNCHES != 200 or baoab_cuda.STEP_LAUNCHES != 200 or gs1l.rng_counter != start1l + 200
+            or bool(gs1l.overflow)):
+        raise AssertionError(f"Langevin N=1M: {noise_cuda.LAUNCHES} noise launches and {baoab_cuda.STEP_LAUNCHES} "
+                             f"BAOAB step launches in 200 steps, global step {start1l} -> {gs1l.rng_counter}, "
+                             f"overflow {bool(gs1l.overflow)}")
     launches["langevin_noise"] = noise_cuda.LAUNCHES
+    launches["baoab_step"] = baoab_cuda.STEP_LAUNCHES
+    windows1l = baoab_cuda.CLOSE_LAUNCHES
+    t19b, b19b = _baoab_checked_times(m1l, gs1l, lj_fluid._grid_thermostat(c1l), "19 N=1M packed")
+    spilled = {k: v for k, v in regs.items() if k.startswith("baoab_kernel") and v[1]}
+    if spilled or not any(k.startswith("baoab_kernel") for k in regs):
+        raise AssertionError(f"BAOAB kernels: spills {spilled}, registers {regs}")
+    errors["baoab_step"] = 0.0  # torch.equal to the eager window
+    times["baoab_step"] = (t19b["step"][0], t19b["eager_step"][0])
+    bounds["baoab_step"] = b19b
+    extra["baoab_step"] = {"dim3_ms": t19b3["step"][0], "dim3_plain_ms": t19b3["eager_step"][0],
+                           "dim3_bound_ms": b19b3[0], "windows": windows1l,
+                           "bound_share_pct": 100 * b19b[0] / t19b["step"][0]}
     pid1l, step1l = gs1l.pid, gs1l.rng_counter
     got1l = noise_cuda.langevin_noise(seed1l, step1l, pid1l, 2).cpu()
     want1l = noise_cuda.noise_reference(seed1l, step1l, pid1l.cpu(), 2)
@@ -2716,6 +2815,8 @@ def main() -> int:
         "alloc3": ("alloc.cu", kref + "grid_md3.py:308"),
         # the noise kernel replaces no TPU kernel: the JAX package draws from jax.random
         "langevin_noise": ("noise.cu", kref + "grid_md.py:633"),
+        # the BAOAB pass replaces no TPU kernel: XLA fuses the JAX package's Langevin window
+        "baoab_step": ("baoab.cu", kref + "grid_md.py:565"),
     }
     for name in ("cell_force", "cell_force_energy", "cell_force_halo", "cell_force_halo_energy"):
         loop_key = name.replace("cell_force", "cell_force_loop") if "halo" not in name else name.replace(

@@ -14,7 +14,8 @@ slots hold the x sentinel ``2.5 * box``.
   one elementwise pass per step, half-kick in and half-unkick out at the
   window boundary. In NVE the pass is ``leapfrog_cuda.Leapfrog``: one
   kernel launch a step on the card. ``thermostat=(gamma, kT)`` makes each
-  step BAOAB Langevin (NVT), in eager PyTorch beside one noise launch.
+  step BAOAB Langevin (NVT): the pass is ``baoab_cuda.Baoab``, one kernel
+  launch a step on the card beside one noise launch.
 - Positions are not wrapped per step: between rebuilds a particle drifts at
   most skin/2 outside [0, box), which the kernels' per-offset seam handling
   covers. Coordinates are wrapped once per rebuild.
@@ -85,7 +86,8 @@ from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda impor
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda3 import LIST_STEPS
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_cuda_packed import unpack
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.cell_dense import CellGridFn
-from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.leapfrog_cuda import Leapfrog, kadd, sumsq
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.baoab_cuda import Baoab
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.leapfrog_cuda import Leapfrog
 from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.noise_cuda import langevin_noise
 from jax_tpus_benchmark_physics_simulation_tpu_torch.utils import trace
 
@@ -435,7 +437,10 @@ class GridEngine:
         ``thermostat=(gamma, kT)`` makes each step BAOAB Langevin (NVT): the
         exact Ornstein-Uhlenbeck map ``vh <- c1*vh + c2*xi`` between two
         half-drifts, ``c1 = exp(-gamma*dt)``, ``c2 = sqrt(kT*(1-c1^2))``
-        (unit mass), still one force call a step, in eager PyTorch beside one
+        (unit mass), still one force call a step. A step's kick, refresh,
+        drifts, Kahan position residuals and displacement max are one
+        :class:`~.baoab_cuda.Baoab` pass (as NVE's: a launch a step and one
+        a window on the card, the plain version on the CPU) beside one
         noise launch a step (``noise_cuda.langevin_noise`` at the step's
         global index, keyed by the slots' particle ids). The noise is
         exactly 0 in empty slots, so they stay exactly at rest; velocity
@@ -480,31 +485,17 @@ class GridEngine:
             if s.rng_seed is None:
                 raise ValueError("Langevin window needs a PRNG stream: init(..., seed=...)")
             extra = self._force_args(s)
+            bo = Baoab([getattr(s, f"v{a}g") for a in axes], [getattr(s, f"{a}g") for a in axes],
+                       [getattr(s, f"disp{a}") for a in axes], [getattr(s, f"cr{a}") for a in axes] if comp else None,
+                       dt=dt, c1=c1, c2=c2)
             f = [getattr(s, f"f{a}g") for a in axes]
-            vh = [getattr(s, f"v{a}g") + 0.5 * dt * fa for a, fa in zip(axes, f)]
-            pos = [getattr(s, f"{a}g") for a in axes]
-            cr = [getattr(s, f"cr{a}") for a in axes]
-            disp = [getattr(s, f"disp{a}") for a in axes]
-            dm = sumsq(disp)
             for i in range(n_inner):
-                # A O A: drift half on vh, OU-refresh vh, drift half on the
-                # refreshed vh; the increments fuse into one add
                 xi = langevin_noise(s.rng_seed, s.rng_counter + i, s.pid, len(axes), s.xg.dtype)
-                vp = [c1 * v + c2 * xi[k] for k, v in enumerate(vh)]
-                inc = [0.5 * dt * (v + p) for v, p in zip(vh, vp)]
-                vh = vp
-                for k in range(len(axes)):
-                    if comp:
-                        pos[k], cr[k] = kadd(pos[k], cr[k], inc[k])
-                    else:
-                        pos[k] = pos[k] + inc[k]
-                    disp[k] = disp[k] + inc[k]
-                dm = torch.maximum(dm, sumsq(disp))
-                f = list(force_fn(*pos, *extra))
-                vh = [v + dt * fa for v, fa in zip(vh, f)]
-            v = [v - 0.5 * dt * fa for v, fa in zip(vh, f)]
-            res = dict(cr=cr) if comp else {}
-            return finish(s, torch.max(dm), pos, v, f, disp, **res)
+                bo.step(f, xi)
+                f = list(force_fn(*bo.pos, *extra))
+            bo.close(f)
+            res = dict(cr=bo.cr) if comp else {}
+            return finish(s, bo.dmax2, bo.pos, bo.v, f, bo.disp, **res)
 
         window = nve if thermostat is None else langevin
 

@@ -277,7 +277,7 @@ def test_cell_loads_with_its_files():
     assert {m["name"] for m in cell.metrics["per_layer"]} == {
         "device_idle_pct", "device_ops_per_step", "steps_per_rebuild", "torch_ops_us_per_step",
         "force_kernel_roofline", "rebuild_kernel_roofline", "alloc_kernel_pct", "list_force_2d_pct",
-        "noise_kernel_roofline", "noise_kernel_pct"}
+        "noise_kernel_roofline", "noise_kernel_pct", "baoab_step_pct"}
     assert harness.system_class(cell).__name__ == "System"
     assert "energy_drift" not in cell.config["guarantees"]
     assert set(cell.traffic["limits"]) == {"pos_gap", "pos_rms", "pos_median", "pe_gap"}

@@ -1,13 +1,19 @@
-"""The NVE leapfrog window as eager PyTorch ops, the form it had before the
-window's updates became one ``leapfrog_cuda.Leapfrog`` pass a step: the
-reference that the tests hold the plain version (CPU) and the kernel
+"""The NVE leapfrog window and the BAOAB Langevin window as eager PyTorch
+ops, the forms they had before each window's updates became one kernel
+pass a step (``leapfrog_cuda.Leapfrog``, ``baoab_cuda.Baoab``): the
+references that the tests hold the plain versions (CPU) and the kernels
 (card) to, slot for slot. Imports no jax, so the card's tests can use it.
 
     window = eager_window(md, md.force_kernel, n_inner)
+    window = eager_langevin_window(md, md.force_kernel, n_inner, (gamma, kT))
     s1 = window(s0)
 """
 
+import math
+
 import torch
+
+from jax_tpus_benchmark_physics_simulation_tpu_torch.ops.kernels.noise_cuda import langevin_noise
 
 
 def _kadd(x, c, inc):
@@ -65,6 +71,58 @@ def eager_window(md, force_fn, n_inner: int):
                 f"cr{a}": cr[k], f"cv{a}": cv[k], f"disp{a}": disp[k],
             })
         return s.replace(**out)
+
+    return window
+
+
+def eager_langevin_window(md, force_fn, n_inner: int, thermostat):
+    """``window(s) -> s``: ``n_inner`` BAOAB Langevin steps of the engine
+    ``md`` under ``thermostat=(gamma, kT)``, one elementwise op at a time
+    beside one noise draw a step, the state's noise stream and global step
+    carried as the engine's window carries them."""
+    dt = md.dt
+    comp = bool(md.compensated)
+    axes = md.AXES
+    gamma, kt_target = thermostat
+    c1 = float(math.exp(-gamma * dt))
+    c2 = float(math.sqrt(kt_target * (1.0 - c1 * c1)))
+
+    def window(s):
+        if s.rng_seed is None:
+            raise ValueError("Langevin window needs a PRNG stream: init(..., seed=...)")
+        extra = md._force_args(s)
+        f = [getattr(s, f"f{a}g") for a in axes]
+        vh = [getattr(s, f"v{a}g") + 0.5 * dt * fa for a, fa in zip(axes, f)]
+        pos = [getattr(s, f"{a}g") for a in axes]
+        cr = [getattr(s, f"cr{a}") for a in axes]
+        disp = [getattr(s, f"disp{a}") for a in axes]
+        dm = _sumsq(disp)
+        for i in range(n_inner):
+            # A O A: drift half on vh, OU-refresh vh, drift half on the
+            # refreshed vh; the increments fuse into one add
+            xi = langevin_noise(s.rng_seed, s.rng_counter + i, s.pid, len(axes), s.xg.dtype)
+            vp = [c1 * v + c2 * xi[k] for k, v in enumerate(vh)]
+            inc = [0.5 * dt * (v + p) for v, p in zip(vh, vp)]
+            vh = vp
+            for k in range(len(axes)):
+                if comp:
+                    pos[k], cr[k] = _kadd(pos[k], cr[k], inc[k])
+                else:
+                    pos[k] = pos[k] + inc[k]
+                disp[k] = disp[k] + inc[k]
+            dm = torch.maximum(dm, _sumsq(disp))
+            f = list(force_fn(*pos, *extra))
+            vh = [v + dt * fa for v, fa in zip(vh, f)]
+        v = [v - 0.5 * dt * fa for v, fa in zip(vh, f)]
+        dmax2 = md._all_max(torch.max(dm))
+        violation = ~(dmax2 <= (0.5 * md.skin) ** 2)
+        out = dict(dmax2=dmax2, overflow=s.overflow | violation, time=s.time + n_inner * dt,
+                   rng_counter=s.rng_counter + n_inner)
+        for k, a in enumerate(axes):
+            out.update({f"{a}g": pos[k], f"v{a}g": v[k], f"f{a}g": f[k], f"disp{a}": disp[k]})
+            if comp:
+                out[f"cr{a}"] = cr[k]
+        return s.replace(**out, **md._stepped(s, n_inner))
 
     return window
 
