@@ -42,6 +42,7 @@ the whole job). The primary rank reports.
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
 import sys
@@ -86,7 +87,8 @@ def _add_md(sub):
                         "program's spans on (utils/trace.py): once without the profiler, "
                         "for each span's host time and host reads a step, then under "
                         "torch.profiler, for the card's busy and idle share and its busy "
-                        "and idle time by span; writes DIR/trace.json (needs --device cuda)")
+                        "and idle time by span; writes DIR/trace.json and the profiled "
+                        "block's spans, DIR/spans.json (needs --device cuda)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their plain versions)")
 
@@ -221,7 +223,8 @@ def cmd_md(args) -> int:
             reads = spans.SYNCS - reads
             host = spans.table(steps)
             spans.reset()
-            dev_s, table, _ = profile_device(block, trace)  # the spans land in the trace
+            dev_s, table, _ = profile_device(block, trace)  # spans on the profiler's clock
+            recorded = list(spans.SPANS)
         finally:
             spans.disable()
             spans.reset()
@@ -234,7 +237,9 @@ def cmd_md(args) -> int:
               f"trace: {trace}")
         print(f"host spans (spans on, no profiler; {reads / steps:.4f} host reads a step):")
         print(host)
-        busy, idle = spans.by_span(trace)
+        with open(os.path.join(args.profile, "spans.json"), "w") as f:
+            json.dump([[sp.name, sp.start_ns, sp.end_ns, sp.parent, sp.block] for sp in recorded], f)
+        busy, idle = spans.by_span(trace, recorded)
         print("device by span (profiled; busy: the span open at each op's launch, "
               "idle: the span open when each gap began), ms/step:")
         for name in sorted(set(busy) | set(idle), key=lambda n: -idle.get(n, 0.0)):

@@ -59,8 +59,10 @@ def profile_device(fn: Callable[[], object], trace_path: str) -> Tuple[float, st
     by_name)``: the summed device time of all work on the card, the
     per-kernel table sorted by device time, and the device seconds of each
     kernel name. Writes a chrome trace to ``trace_path``. Needs a CUDA
-    device. A ``record_function`` range (a span of ``utils/trace.py``) has
-    a copy on the device's timeline: it is no work, and not counted."""
+    device. The program's spans (``utils/trace.py``) record into
+    ``trace.SPANS`` on the profiler's clock and open no profiler range; a
+    caller's own ``record_function`` range has a copy on the device's
+    timeline, which is no work and is not counted."""
     prof, events, _ = _capture(fn)
     by_name: Dict[str, float] = {}
     for e in events:

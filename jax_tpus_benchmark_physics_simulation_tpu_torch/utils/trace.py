@@ -1,22 +1,29 @@
 """Spans and a host-read counter on the MD paths.
 
-The tracer is off unless :func:`enable` turns it on. Off, :func:`span`
-returns one shared null context: no clock read, no torch call, no
-allocation. On, each span records its name, its start and end on the
-host's clock (``time.perf_counter_ns``), the index of the span open around
-it (its parent, -1 at the top) and the production block it belongs to, in
-memory (:data:`SPANS`, in start order). While a ``torch.profiler`` run is
-active, a span also opens ``torch.profiler.record_function(name)``: it then
-lies among the profiler's CPU events, on the clock of the device's events,
-and :func:`by_span` reads it back from the profiler's chrome trace.
+Spans record while the tracer is on (:func:`enable`) or while a
+``torch.profiler`` run is active, as ``record_function`` records only
+under a profiler. Otherwise :func:`span` returns one shared null context:
+no clock read, no allocation, one check of the profiler's flag. Each
+recorded span keeps its name, its start and end, the index of the span
+open around it (its parent, -1 at the top) and the production block it
+belongs to, in memory (:data:`SPANS`, in start order, in columns that the
+garbage collector does not track).
+
+The clock is the profiler's: ``time.time_ns()``, Unix nanoseconds, which
+is what ``torch.profiler``'s event records give as ``start_ns()`` (a
+chrome trace's ``ts`` is microseconds after its ``baseTimeNanoseconds``).
+So a profiled run's spans line up with its device events with no
+``record_function`` copy among them: the profiler's event lists and
+device row carry none of the program's spans. :func:`by_span` reads the
+device's ops from an exported chrome trace and the spans from
+:data:`SPANS`.
 
 :func:`host_read` is the path's one way of reading a device value on the
 host. The read waits for the card to reach it, so it runs in an
-``md.sync`` span, and it adds one to :data:`SYNCS` whether tracing is on or
-off.
+``md.sync`` span, and it adds one to :data:`SYNCS` whether spans record or
+not.
 
-The spans, each where its work happens (the prefix ``md.`` keeps them
-apart from the aten ops among the profiler's events):
+The spans, each where its work happens (named ``md.*``):
 
 - ``md.block``: one ``lj_fluid.production`` call, on every force path;
   each opens a new block id, which the spans inside it carry;
@@ -34,10 +41,9 @@ apart from the aten ops among the profiler's events):
 - ``md.alloc``: inside ``md.rebuild``, its allocation (``_migration_dest``:
   on the card the three kernel passes of ``alloc_cuda``; in 3D also the new
   ``max_occ``), so that ``md.rebuild``'s own time is the permutation's;
-- ``md.list``: the 3D engine's partner-list build, once a binning, at the
-  first window of 2 or more steps after it (``GridMD3._window_for``): the
-  rest of the rebuild's work, launched just after ``md.rebuild`` in the
-  fixed-cadence driver;
+- ``md.list``: a partner-list build (B3's list in 2D, B5's in 3D), once a
+  binning, at the first window of 2 or more steps after it
+  (``GridEngine._listed_window``): the rest of the rebuild's work;
 - ``md.sync``: one host read (:func:`host_read`): the gated drivers'
   ``dmax2`` and the 3D engine's ``max_occ``.
 """
@@ -68,11 +74,61 @@ class Span:
         self.block = block
 
 
-SPANS: List[Span] = []
+class _Spans:
+    """The recorded spans in start order, kept column by column, read as
+    :class:`Span` copies. Recording one adds a str and ints to lists and
+    so allocates no object that Python's garbage collector tracks: kept
+    :class:`Span` objects would trigger collections inside the window they
+    record (60-240 ms each on the card's host, in half the profiled
+    2000-step blocks of ``lj2d-n1m`` and ``lj2d-nvt-n1m``)."""
+
+    __slots__ = Span.__slots__
+
+    def __init__(self):
+        self.name: List[str] = []
+        self.start_ns: List[int] = []
+        self.end_ns: List[Optional[int]] = []
+        self.parent: List[int] = []
+        self.block: List[Optional[int]] = []
+
+    def append(self, sp: Span) -> None:
+        for col in self.__slots__:
+            getattr(self, col).append(getattr(sp, col))
+
+    def extend(self, spans) -> None:
+        for sp in spans:
+            self.append(sp)
+
+    def clear(self) -> None:
+        for col in self.__slots__:
+            getattr(self, col).clear()
+
+    def __len__(self) -> int:
+        return len(self.name)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        sp = Span(self.name[i], self.start_ns[i], self.parent[i], self.block[i])
+        sp.end_ns = self.end_ns[i]
+        return sp
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __add__(self, other) -> List[Span]:
+        return list(self) + list(other)
+
+    def __eq__(self, other) -> bool:
+        return list(self) == list(other)
+
+
+SPANS = _Spans()
 _open: List[int] = []  # indices into SPANS of the spans open now, innermost last
 _on = False
 _blocks = 0  # block ids handed out since the last reset
 _NULL = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled  # a torch.profiler run is active
 
 
 def enable() -> None:
@@ -95,7 +151,7 @@ def reset() -> None:
 
 
 class _Recorder:
-    __slots__ = ("name", "new_block", "index", "annotation")
+    __slots__ = ("name", "new_block", "index")
 
     def __init__(self, name: str, new_block: bool):
         self.name = name
@@ -107,38 +163,38 @@ class _Recorder:
         if self.new_block:
             block, _blocks = _blocks, _blocks + 1
         else:
-            block = SPANS[parent].block if parent >= 0 else None
-        self.annotation = None
-        if torch._C._autograd._profiler_enabled():
-            self.annotation = torch.profiler.record_function(self.name)
-            self.annotation.__enter__()
+            block = SPANS.block[parent] if parent >= 0 else None
         self.index = len(SPANS)
         _open.append(self.index)
-        SPANS.append(Span(self.name, time.perf_counter_ns(), parent, block))
+        SPANS.name.append(self.name)
+        SPANS.start_ns.append(time.time_ns())
+        SPANS.end_ns.append(None)
+        SPANS.parent.append(parent)
+        SPANS.block.append(block)
         return self
 
     def __exit__(self, *exc):
-        SPANS[self.index].end_ns = time.perf_counter_ns()
+        SPANS.end_ns[self.index] = time.time_ns()
         _open.pop()
-        if self.annotation is not None:
-            self.annotation.__exit__(*exc)
         return False
 
 
 def span(name: str, new_block: bool = False):
-    """A context manager: with tracing on, the span ``name`` (a new block id
-    with ``new_block``); off, a shared null context."""
-    if not _on:
+    """A context manager: while spans record (tracer on or a profiler
+    active), the span ``name`` (a new block id with ``new_block``);
+    otherwise a shared null context."""
+    if not _on and not _profiling():
         return _NULL
     return _Recorder(name, new_block)
 
 
 def host_read(t: torch.Tensor, kind: Callable):
     """``kind(t)`` (``bool`` or ``int``) of a device tensor, which waits for
-    the card: counted in :data:`SYNCS`, and an ``md.sync`` span when on."""
+    the card: counted in :data:`SYNCS`, and an ``md.sync`` span while spans
+    record."""
     global SYNCS
     SYNCS += 1
-    if not _on:
+    if not _on and not _profiling():
         return kind(t)
     with _Recorder("md.sync", False):
         return kind(t)
@@ -234,19 +290,24 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
-def by_span(chrome_trace: str) -> Tuple[Dict[str, float], Dict[str, float]]:
-    """:func:`attribute` of a chrome trace that ``torch.profiler`` exported
-    while tracing was on: the ``md.*`` annotations are the spans, a device
-    op's launch is the runtime call of the same ``correlation``."""
+def by_span(chrome_trace: str, spans: Sequence[Span] = SPANS) -> Tuple[Dict[str, float], Dict[str, float]]:
+    """:func:`attribute` of the finished ``spans`` (those the profiled run
+    recorded) and the device ops of the chrome trace that ``torch.profiler``
+    exported from that run, a device op's launch being the runtime call of
+    the same ``correlation``. The trace's times, microseconds after its
+    ``baseTimeNanoseconds``, and the spans' meet on that origin."""
     with open(chrome_trace) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    spans, launch, ops = [], {}, []
-    for e in events:
+        trace = json.load(f)
+    base = trace["baseTimeNanoseconds"]
+    launch, ops = {}, []
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "X":
+            continue
         cat, ts = e.get("cat"), float(e["ts"])
-        if cat == "user_annotation" and e["name"].startswith("md."):
-            spans.append((e["name"], ts, ts + float(e["dur"])))
-        elif cat in _LAUNCH_CATS and "correlation" in e.get("args", {}):
+        if cat in _LAUNCH_CATS and "correlation" in e.get("args", {}):
             launch[e["args"]["correlation"]] = ts
         elif cat in _DEVICE_CATS:
             ops.append((ts, ts + float(e["dur"]), e.get("args", {}).get("correlation")))
-    return attribute(spans, [(s, e, launch.get(c)) for s, e, c in ops])
+    host = [(sp.name, (sp.start_ns - base) * 1e-3, (sp.end_ns - base) * 1e-3)
+            for sp in spans if sp.end_ns is not None]
+    return attribute(host, [(s, e, launch.get(c)) for s, e, c in ops])

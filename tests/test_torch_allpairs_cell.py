@@ -48,7 +48,8 @@ def test_cell_loads_with_its_files():
     assert (harness.HERE / cell.config["reference"]).exists()
     assert {m["name"] for m in cell.metrics["end_to_end"]} == {"psteps_per_s", "setup_s"}
     assert {m["name"] for m in cell.metrics["per_layer"]} == {
-        "device_idle_pct", "device_ops_per_step", "torch_ops_us_per_step", "pairwise_kernel_roofline"}
+        "device_idle_pct", "device_ops_per_step", "torch_ops_us_per_step", "pairwise_kernel_roofline",
+        "idle_in_window_us_per_step"}
     assert harness.system_class(cell).__name__ == "System"
 
 

@@ -277,7 +277,8 @@ def test_cell_loads_with_its_files():
     assert {m["name"] for m in cell.metrics["per_layer"]} == {
         "device_idle_pct", "device_ops_per_step", "steps_per_rebuild", "torch_ops_us_per_step",
         "force_kernel_roofline", "rebuild_kernel_roofline", "alloc_kernel_pct", "list_force_2d_pct",
-        "noise_kernel_roofline", "noise_kernel_pct", "baoab_step_pct"}
+        "noise_kernel_roofline", "noise_kernel_pct", "baoab_step_pct", "host_syncs_per_step",
+        "idle_after_sync_us_per_step", "idle_in_rebuild_us_per_step", "idle_in_window_us_per_step"}
     assert harness.system_class(cell).__name__ == "System"
     assert "energy_drift" not in cell.config["guarantees"]
     assert set(cell.traffic["limits"]) == {"pos_gap", "pos_rms", "pos_median", "pe_gap"}
